@@ -1,0 +1,15 @@
+"""Block-streaming core: stream specs, processors, pipelines, streaming loop."""
+
+from libsdr_tpu_torch.core.stream import StreamSpec, ConfigError
+from libsdr_tpu_torch.core.block import Processor
+from libsdr_tpu_torch.core.graph import Pipeline
+from libsdr_tpu_torch.core.runtime import stream_blocks, run_pipeline
+
+__all__ = [
+    "StreamSpec",
+    "ConfigError",
+    "Processor",
+    "Pipeline",
+    "stream_blocks",
+    "run_pipeline",
+]

@@ -1,0 +1,67 @@
+"""Processor protocol (counterpart of ``libsdr_tpu.core.block``).
+
+A processor has three responsibilities:
+
+1. :meth:`Processor.bind` validates the input :class:`StreamSpec`, derives
+   its constants (numpy, on the host) and returns the output spec;
+2. :meth:`Processor.init_carry` returns the explicit state (tensors, Complex
+   planes or tuples of them) on the device it is asked for;
+3. :meth:`Processor.apply` maps ``(carry, x) -> (carry, y)``, on the device
+   of the input block ``x``.
+
+All processors treat the trailing axis as time and broadcast over leading
+channel axes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+from libsdr_tpu_torch.core.stream import ConfigError, StreamSpec
+
+Carry = Any
+
+
+class Processor:
+    """Base class for all stream processors."""
+
+    def __init__(self) -> None:
+        self._in_spec: Optional[StreamSpec] = None
+        self._out_spec: Optional[StreamSpec] = None
+
+    def bind(self, in_spec: StreamSpec) -> StreamSpec:
+        out = self._bind(in_spec)
+        self._in_spec = in_spec
+        self._out_spec = out
+        return out
+
+    def _bind(self, in_spec: StreamSpec) -> StreamSpec:
+        """Validate ``in_spec`` and return the output spec (default: pass
+        through)."""
+        return in_spec
+
+    @property
+    def in_spec(self) -> StreamSpec:
+        if self._in_spec is None:
+            raise ConfigError(f"{type(self).__name__} is not bound yet")
+        return self._in_spec
+
+    @property
+    def out_spec(self) -> StreamSpec:
+        if self._out_spec is None:
+            raise ConfigError(f"{type(self).__name__} is not bound yet")
+        return self._out_spec
+
+    def init_carry(self, device=None) -> Carry:
+        """Initial state on ``device`` (default: the CPU).  Default:
+        stateless."""
+        return ()
+
+    def apply(self, carry: Carry, x) -> Tuple[Carry, Any]:
+        raise NotImplementedError
+
+    def __repr__(self) -> str:
+        s = f"<{type(self).__name__}"
+        if self._out_spec is not None:
+            s += f" -> {self._out_spec}"
+        return s + ">"

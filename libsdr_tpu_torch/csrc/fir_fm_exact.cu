@@ -1,0 +1,575 @@
+// Fused decimating complex FIR + quadrature FM discriminator + first-order
+// de-emphasis: the whole FM receive chain in one pass over the raw IQ planes.
+//
+// Replaces the TPU kernel libsdr_tpu/ops/pallas_fir_mxu.py::_kernel_fm2 in
+// mode 'fm' (entry fir_fm_exact), which ran the FIR as block-Toeplitz frame
+// matmuls on the TPU's matrix unit.  This kernel computes the same function
+// directly:
+//
+//   xc      = concat(tail, x)                         (tail: last T-1 samples)
+//   y[j]    = sum_i g[i] * xc[j*D + D-1 + i]          (correlation form, no conj)
+//   z[j]    = y[j] * conj(y[j-1]) * rot               (y[-1] = prev)
+//   audio   = gain * atan2poly(Im z, Re z)
+//   out[j]  = a*out[j-1] + b*audio[j]                 (out[-1] = dstate; optional)
+//
+// and exports y_last = y[B/D - 1].  The caller carries tail' = x[B-(T-1):],
+// prev' = y_last and dstate' = out[B/D - 1].
+//
+// What bounds it on an H100: per complex input sample it reads 8 bytes (f32
+// planes) or 4 bytes (bf16 planes) and writes 4/D bytes of audio, and it runs
+// about 4*T/D real FMAs (67 at T=67, D=4).  At 3.35 TB/s and 67 TFLOP/s f32
+// the two bounds are close, so neither can be ignored.
+//
+// Design:
+// * Each channel's B/D outputs are cut into K chunks, K from the occupancy
+//   API so that all C*K blocks are resident at once (sdr_fir_fm_exact_chunks;
+//   at 64 channels one chunk per channel would fill only 64 of the 132
+//   SMs).  One block of 256 threads walks its chunk in segments of 256*R
+//   outputs; block order does not matter.
+// * The FIR needs no carry: each segment stages its inputs plus the T-1
+//   sample halo (from the tail carry at the start of the block) in shared
+//   memory, polyphase (sample m at [m % D][m / D]) as complex pairs.  Each
+//   thread computes R = 4 consecutive outputs (2 or 1 where shared memory
+//   is short); for one phase they slide over one window of R samples held in
+//   registers, so each tap costs one shared load of a sample and one of the
+//   tap (taps are stored by phase) for R complex FMAs, all at constant
+//   offsets.  A pad slot after every R samples keeps the lanes' loads
+//   (stride R) free of bank conflicts.
+// * With float32 planes the next segment's samples are loaded into
+//   registers while the current one computes, hiding the load latency.
+// * The discriminator takes y[j-1] from the previous lane (shuffle), the
+//   previous warp (shared memory), the previous segment, or for a chunk's
+//   first output a y recomputed from the chunk's halo.
+// * The de-emphasis IIR is the only true sequential dependency.  Inside a
+//   block it is a chunked scan (per-thread pass from state 0, a scan of the
+//   thread ends with shuffles, a fix-up out += a^(r+1) * state_in), carried
+//   across segments in shared memory.  Across chunks, every chunk but the
+//   first starts from state 0; deemph_chunk_scan turns the chunk-end values
+//   into each chunk's true entry state and deemph_chunk_fixup adds
+//   a^(n+1) * state to the chunk's head until the power underflows.
+// * bf16 planes are read as bf16 and widened in registers; all arithmetic is
+//   f32.  Offsets into the (C, B) planes are 64-bit.
+// * The kernels allocate nothing and do not synchronise; the entry point
+//   returns cudaGetLastError() after the launches, or -1 when no segment
+//   size fits in shared memory (see the gate in ops/fir_fm.py).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kLoads = 8;  // global loads in flight per plane and thread
+
+struct Params {
+  const void* xr;
+  const void* xi;
+  const void* tail_r;
+  const void* tail_i;
+  const float* taps_r;
+  const float* taps_i;
+  const float* prev_r;
+  const float* prev_i;
+  const float* dstate;
+  float* out;
+  float* ylast_r;
+  float* ylast_i;
+  float* ends;  // (C, K) de-emphasis state at each chunk's end
+  long long B;
+  long long chunk;  // outputs per chunk (the last chunk may be shorter)
+  int T;
+  int D;
+  int K;  // chunks per channel
+  int Q;  // polyphase row length in shared memory
+  float rot_r, rot_i, gain, a, b;
+  int deemph;
+};
+
+// A complex sample as stored in shared memory: float2 for float32 planes,
+// a bf16 pair for bfloat16 planes (widened when read).
+template <typename Tin> struct Cplx;
+template <> struct Cplx<float> {
+  using type = float2;
+  static __device__ __forceinline__ float2 make(float r, float i) {
+    return make_float2(r, i);
+  }
+  static __device__ __forceinline__ float2 widen(float2 v) { return v; }
+};
+template <> struct Cplx<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ __nv_bfloat162 make(__nv_bfloat16 r,
+                                                        __nv_bfloat16 i) {
+    return __halves2bfloat162(r, i);
+  }
+  static __device__ __forceinline__ float2 widen(__nv_bfloat162 v) {
+    return __bfloat1622float2(v);
+  }
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Full-quadrant atan2 from an odd minimax polynomial, |err| < 2e-5 rad; the
+// same polynomial as the plain version (ops/fir_fm.py::atan2_poly).
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
+  const float t = mn / fmaxf(mx, 1e-30f);
+  const float s = t * t;
+  float p = -0.0117212f;
+  p = p * s + 0.05265332f;
+  p = p * s + -0.11643287f;
+  p = p * s + 0.19354346f;
+  p = p * s + -0.33262347f;
+  p = p * s + 0.99997726f;
+  float r = t * p;
+  if (ay > ax) r = 1.57079632679489662f - r;
+  if (x < 0.f) r = 3.14159265358979324f - r;
+  return y < 0.f ? -r : r;
+}
+
+// Skewed column of polyphase sample q: one pad slot after every R samples,
+// so that the lanes of a warp, reading q = lane*R + c, hit distinct bank
+// pairs.  skew(a + v) = skew(a) + skew(v) when R divides a.
+template <int R>
+__host__ __device__ __forceinline__ constexpr int skew(int q) {
+  return R == 1 ? q : q + q / R;
+}
+
+// Shared memory: taps by phase (D rows of ceil(T/D) float2), the polyphase
+// input (D rows of Qs complex samples), then per-warp scratch and the block
+// state (floats).
+template <typename Tin, int R>
+size_t smem_bytes(int T, int D, int Q) {
+  const size_t taps = 8 * (size_t)D * ((T + D - 1) / D);
+  const size_t qs = (size_t)skew<R>(Q - 1) + 1;
+  const size_t x = (size_t)D * qs * sizeof(typename Cplx<Tin>::type);
+  return taps + ((x + 7) / 8) * 8 + (4 * kWarps + 4) * sizeof(float);
+}
+
+template <typename Tin, int R>
+__global__ void __launch_bounds__(kThreads)
+fir_fm_exact_kernel(const Params p) {
+  using CT = typename Cplx<Tin>::type;
+  constexpr int N = kThreads * R;  // outputs per segment
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = p.T, D = p.D, Q = p.Q;
+  const int Qs = skew<R>(Q - 1) + 1;
+  const int Tq = (T + D - 1) / D;  // taps per phase, at most
+  float2* s_g = reinterpret_cast<float2*>(smem);  // [ph][qi] = g[qi*D + ph]
+  CT* s_x = reinterpret_cast<CT*>(smem + 8 * (size_t)D * Tq);
+  float* s_wtot = reinterpret_cast<float*>(
+      smem + 8 * (size_t)D * Tq +
+      (((size_t)D * Qs * sizeof(CT) + 7) / 8) * 8);
+  float* s_wpre = s_wtot + kWarps;
+  float* s_wy = s_wpre + kWarps;        // last y of each warp (re, im)
+  float* s_state = s_wy + 2 * kWarps;   // [y_prev re, y_prev im, dstate, -]
+
+  const long long c = blockIdx.x / p.K;
+  const int k = blockIdx.x % p.K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long B = p.B;
+  const long long n_out = B / D;
+  const long long j_begin = k * p.chunk;
+  const long long j_end = min(n_out, j_begin + p.chunk);
+  const Tin* xr = static_cast<const Tin*>(p.xr) + c * B;
+  const Tin* xi = static_cast<const Tin*>(p.xi) + c * B;
+  const Tin* tr = static_cast<const Tin*>(p.tail_r) + c * (T - 1);
+  const Tin* ti = static_cast<const Tin*>(p.tail_i) + c * (T - 1);
+  float* orow = p.out + c * n_out;
+
+  for (int i = tid; i < T; i += kThreads) {
+    s_g[(i % D) * Tq + i / D] = make_float2(p.taps_r[i], p.taps_i[i]);
+  }
+  if (k == 0) {
+    if (tid == 0) {
+      s_state[0] = p.prev_r[c];
+      s_state[1] = p.prev_i[c];
+      s_state[2] = p.deemph ? p.dstate[c] : 0.f;
+    }
+  } else if (warp == 0) {
+    // A later chunk starts from y[j_begin - 1], recomputed here, and from
+    // de-emphasis state 0 (deemph_chunk_fixup adds the true state later).
+    const long long s0 = (j_begin - 1) * D + D - 1 - (T - 1);
+    float ar = 0.f, ai = 0.f;
+    for (int i = lane; i < T; i += 32) {
+      const long long n = s0 + i;
+      const float vr = to_f32(n >= 0 ? xr[n] : tr[n + T - 1]);
+      const float vi = to_f32(n >= 0 ? xi[n] : ti[n + T - 1]);
+      const float gr = p.taps_r[i], gi = p.taps_i[i];
+      ar += gr * vr - gi * vi;
+      ai += gr * vi + gi * vr;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      ar += __shfl_xor_sync(0xffffffffu, ar, off);
+      ai += __shfl_xor_sync(0xffffffffu, ai, off);
+    }
+    if (lane == 0) {
+      s_state[0] = ar;
+      s_state[1] = ai;
+      s_state[2] = 0.f;
+    }
+  }
+  // De-emphasis scan constants: A = a^R per thread.
+  const float a = p.a, bco = p.b;
+  float aR = 1.f;
+  for (int r = 0; r < R; ++r) aR *= a;
+  float a_lane = 1.f;
+  for (int q = 0; q < lane; ++q) a_lane *= aR;
+  float a32 = 1.f;
+  for (int q = 0; q < 32; ++q) a32 *= aR;
+  // Polyphase position of sample m = tid + u*kThreads, advanced per u.
+  const int dq = kThreads / D, dp = kThreads % D;
+  const int p0 = tid % D, q0 = tid / D;
+  const int jb = tid * R;  // this thread's first output in a segment
+  // Software pipeline (float32 planes): the first kPre samples per plane
+  // and thread of the next segment are loaded into registers while this
+  // segment computes.  bf16 planes stage synchronously: packing two bf16
+  // loads into one register waits for them, and unpacked they cost twice
+  // the registers (measured slower either way).
+  constexpr int kPre = sizeof(Tin) == 4 ? 4 * R + 1 : 0;
+  CT fx[kPre > 0 ? kPre : 1];
+  auto prefetch = [&](long long js) {
+    const int nvs = (int)min((long long)N, j_end - js);
+    const int Ls = (nvs - 1) * D + T;
+    const long long bs = js * D + D - 1 - (T - 1);
+#pragma unroll
+    for (int u = 0; u < kPre; ++u) {
+      const long long n = bs + u * kThreads + tid;
+      if (u * kThreads + tid < Ls) {
+        fx[u] = Cplx<Tin>::make(n >= 0 ? xr[n] : tr[n + T - 1],
+                                n >= 0 ? xi[n] : ti[n + T - 1]);
+      }
+    }
+  };
+  prefetch(j_begin);
+  __syncthreads();
+
+  for (long long j0 = j_begin; j0 < j_end; j0 += N) {
+    const int nv = (int)(j_end - j0 < N ? j_end - j0 : N);
+    const int L = (nv - 1) * D + T;
+    // Stage samples [base, base + L) as [m % D][skew(m / D)]: the prefetched
+    // ones, then any rest with kLoads global loads in flight per plane and
+    // thread.  Negative x indices are the tail.
+    const long long base = j0 * D + D - 1 - (T - 1);
+    int pp = p0, qq = q0;
+    auto advance = [&]() {
+      pp += dp;
+      qq += dq;
+      if (pp >= D) {
+        pp -= D;
+        ++qq;
+      }
+    };
+#pragma unroll
+    for (int u = 0; u < kPre; ++u) {
+      if (u * kThreads + tid < L) {
+        s_x[pp * Qs + skew<R>(qq)] = fx[u];
+      }
+      advance();
+    }
+    for (int m0 = kPre * kThreads; m0 < L; m0 += kThreads * kLoads) {
+      Tin vr[kLoads], vi[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int m = m0 + u * kThreads + tid;
+        if (m < L) {
+          const long long n = base + m;
+          vr[u] = n >= 0 ? xr[n] : tr[n + T - 1];
+          vi[u] = n >= 0 ? xi[n] : ti[n + T - 1];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        if (m0 + u * kThreads + tid < L) {
+          s_x[pp * Qs + skew<R>(qq)] = Cplx<Tin>::make(vr[u], vi[u]);
+        }
+        advance();
+      }
+    }
+    __syncthreads();
+    if (j0 + N < j_end) prefetch(j0 + N);
+
+    // FIR: this thread computes the R consecutive outputs jb + r.  Tap
+    // i = qi*D + ph of output jb + r reads staged sample [ph][jb + r + qi],
+    // so for one phase the R outputs slide over one window of R samples:
+    // each step loads one new sample and one tap for R complex FMAs.  The
+    // window is a ring indexed (qi + r) % R, static once qi's loop is
+    // unrolled by R.
+    float yr[R], yi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) yr[r] = yi[r] = 0.f;
+    for (int ph = 0; ph < D; ++ph) {
+      const int n_taps = (T - ph + D - 1) / D;
+      // Window base and taps of step qb, advanced by R steps per iteration;
+      // inside an iteration every offset is a compile-time constant.
+      const CT* xb = s_x + ph * Qs + skew<R>(jb);
+      const float2* gb = s_g + ph * Tq;
+      float wr[R], wi[R];
+#pragma unroll
+      for (int u = 0; u < R - 1; ++u) {
+        const float2 v = Cplx<Tin>::widen(xb[skew<R>(u)]);
+        wr[u] = v.x;
+        wi[u] = v.y;
+      }
+      auto step = [&](int u) {
+        const float2 v = Cplx<Tin>::widen(xb[skew<R>(u + R - 1)]);
+        wr[(u + R - 1) % R] = v.x;
+        wi[(u + R - 1) % R] = v.y;
+        const float2 g = gb[u];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int w = (u + r) % R;
+          yr[r] = fmaf(g.x, wr[w], yr[r]);
+          yr[r] = fmaf(-g.y, wi[w], yr[r]);
+          yi[r] = fmaf(g.x, wi[w], yi[r]);
+          yi[r] = fmaf(g.y, wr[w], yi[r]);
+        }
+      };
+      int qb = 0;
+      for (; qb + R <= n_taps; qb += R) {
+#pragma unroll
+        for (int u = 0; u < R; ++u) step(u);
+        xb += skew<R>(R);
+        gb += R;
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        if (qb + u < n_taps) step(u);
+      }
+    }
+
+    // Discriminator over the thread's outputs; y[jb - 1] comes from the
+    // previous lane, the previous warp or the previous segment.
+    if (lane == 31) {
+      s_wy[2 * warp] = yr[R - 1];
+      s_wy[2 * warp + 1] = yi[R - 1];
+    }
+    __syncthreads();
+    float pr = __shfl_up_sync(0xffffffffu, yr[R - 1], 1);
+    float pi = __shfl_up_sync(0xffffffffu, yi[R - 1], 1);
+    if (lane == 0) {
+      pr = warp == 0 ? s_state[0] : s_wy[2 * warp - 2];
+      pi = warp == 0 ? s_state[1] : s_wy[2 * warp - 1];
+    }
+    float loc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float zr = yr[r] * pr + yi[r] * pi;
+      const float zi = yi[r] * pr - yr[r] * pi;
+      const float zr2 = zr * p.rot_r - zi * p.rot_i;
+      const float zi2 = zr * p.rot_i + zi * p.rot_r;
+      loc[r] = p.gain * atan2_poly(zi2, zr2);
+      pr = yr[r];
+      pi = yi[r];
+    }
+
+    if (p.deemph) {  // uniform across the block: the barriers are safe
+      float l = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        l = a * l + bco * loc[r];
+        loc[r] = l;
+      }
+      // Inclusive scan of S_t = sum_{u<=t} A^(t-u) l_u over the warp.
+      float S = l, m = aR;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, S, off);
+        if (lane >= off) S = fmaf(m, v, S);
+        m *= m;
+      }
+      float Sx = __shfl_up_sync(0xffffffffu, S, 1);
+      if (lane == 0) Sx = 0.f;
+      if (lane == 31) s_wtot[warp] = S;
+      __syncthreads();
+      if (tid == 0) {
+        float P = s_state[2];
+        for (int w = 0; w < kWarps; ++w) {
+          s_wpre[w] = P;
+          P = fmaf(a32, P, s_wtot[w]);
+        }
+        s_state[2] = P;
+      }
+      __syncthreads();
+      const float s_in = fmaf(a_lane, s_wpre[warp], Sx);
+      float ap = a;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        loc[r] = fmaf(ap, s_in, loc[r]);
+        ap *= a;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (jb + r < nv) orow[j0 + jb + r] = loc[r];
+      if (p.ends && jb + r == nv - 1 && j0 + nv == j_end) {
+        p.ends[blockIdx.x] = loc[r];
+      }
+    }
+    __syncthreads();  // every read of s_x, s_wy and s_state is done
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (jb + r == nv - 1) {
+        s_state[0] = yr[r];
+        s_state[1] = yi[r];
+      }
+    }
+  }
+  __syncthreads();
+  if (tid == 0 && k == p.K - 1) {
+    p.ylast_r[c] = s_state[0];
+    p.ylast_i[c] = s_state[1];
+  }
+}
+
+// One thread per channel: turn the chunk-end values, computed from state 0
+// for every chunk but the first, into the true state entering each chunk:
+// S_in[k] = a^len[k-1] * S_in[k-1] + end[k-1], written over ends[k].
+__global__ void deemph_chunk_scan(const Params p, long long C) {
+  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  const long long n_out = p.B / p.D;
+  float* e = p.ends + c * p.K;
+  float S = e[0];
+  for (int k = 1; k < p.K; ++k) {
+    const long long len = min(n_out, (k + 1) * p.chunk) - k * p.chunk;
+    const float E = e[k];
+    e[k] = S;
+    S = fmaf(powf(p.a, (float)len), S, E);
+  }
+}
+
+// One block per chunk k >= 1: out[j] += a^(j - j_begin + 1) * S_in[k], up to
+// where the power underflows to 0 (a^n falls below float32's range after a
+// few thousand outputs at the usual time constants).
+__global__ void deemph_chunk_fixup(const Params p) {
+  const long long c = blockIdx.x / (p.K - 1);
+  const int k = 1 + blockIdx.x % (p.K - 1);
+  const long long n_out = p.B / p.D;
+  const long long j0 = k * p.chunk;
+  const long long len = min(n_out, j0 + p.chunk) - j0;
+  const float S = p.ends[c * p.K + k];
+  float* o = p.out + c * n_out + j0;
+  for (long long n = threadIdx.x; n < len; n += blockDim.x) {
+    const float f = powf(p.a, (float)(n + 1));
+    if (f == 0.f) break;
+    o[n] = fmaf(f, S, o[n]);
+  }
+}
+
+// Picks the largest R whose segment fits in shared memory, then either
+// reports how many blocks of that kernel an SM holds (per_sm != nullptr) or
+// launches the kernel and, for de-emphasis across chunks, the two follow-up
+// kernels.
+template <typename Tin, int R>
+int dispatch(const Params& p, long long C, cudaStream_t stream, int smem_max,
+             int* per_sm) {
+  constexpr int N = kThreads * R;
+  Params q = p;
+  q.Q = N + (p.T - 1) / p.D;
+  const size_t bytes = smem_bytes<Tin, R>(p.T, p.D, q.Q);
+  if (bytes > (size_t)smem_max) {
+    if constexpr (R > 1) {
+      return dispatch<Tin, R / 2>(p, C, stream, smem_max, per_sm);
+    } else {
+      return -1;
+    }
+  }
+  auto kernel = fir_fm_exact_kernel<Tin, R>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, kernel, kThreads, bytes);
+  }
+  kernel<<<(unsigned)(C * p.K), kThreads, bytes, stream>>>(q);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !p.deemph || p.K == 1) return (int)e;
+  deemph_chunk_scan<<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(q, C);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  deemph_chunk_fixup<<<(unsigned)(C * (p.K - 1)), 256, 0, stream>>>(q);
+  return (int)cudaGetLastError();
+}
+
+int device_limits(int* smem_max, int* sms) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return (int)e;
+}
+
+constexpr long long kMinChunk = 4096;  // outputs per chunk, at least
+
+}  // namespace
+
+extern "C" {
+
+// Chunks per channel for a launch: as many as fill the resident block slots
+// of the card in one wave, each at least kMinChunk outputs.  Returns K >= 1,
+// -1 if the shape is outside the kernel's gate, or -2 - cudaError_t.
+int sdr_fir_fm_exact_chunks(long long C, long long B, int T, int D,
+                            int bf16) {
+  if (C <= 0 || T < 1 || D < 1 || B < D || B % D) return -1;
+  int smem_max = 0, sms = 0, per_sm = 0;
+  int e = device_limits(&smem_max, &sms);
+  if (e != 0) return -2 - e;
+  Params p{};
+  p.T = T;
+  p.D = D;
+  e = bf16 ? dispatch<__nv_bfloat16, 4>(p, C, nullptr, smem_max, &per_sm)
+           : dispatch<float, 4>(p, C, nullptr, smem_max, &per_sm);
+  if (e != 0) return e == -1 ? -1 : -2 - e;
+  long long k = (long long)sms * per_sm / C;
+  k = k < (B / D) / kMinChunk ? k : (B / D) / kMinChunk;
+  return k < 1 ? 1 : (int)k;
+}
+
+// Runs the fused op on one block.  Returns 0 on success, -1 if the shape
+// is outside the kernel's gate, else a cudaError_t.  All pointers are
+// device pointers; planes are row-major (C, B) and (C, T-1) of float
+// (bf16 == 0) or __nv_bfloat16 (bf16 == 1); ends is (C, K) float scratch,
+// needed when K > 1 and deemph.
+int sdr_fir_fm_exact(const void* xr, const void* xi, const void* tail_r,
+                     const void* tail_i, const float* taps_r,
+                     const float* taps_i, const float* prev_r,
+                     const float* prev_i, const float* dstate, float* out,
+                     float* ylast_r, float* ylast_i, float* ends,
+                     long long C, long long B, int T, int D, int K,
+                     float rot_r, float rot_i, float gain, float a, float b,
+                     int deemph, int bf16, void* stream) {
+  if (C <= 0 || T < 1 || D < 1 || B < D || B % D || K < 1 ||
+      K > B / D || C * K > 0x7fffffffLL || (K > 1 && deemph && !ends)) {
+    return -1;
+  }
+  const long long n_out = B / D;
+  if ((K - 1) * ((n_out + K - 1) / K) >= n_out) return -1;  // empty chunk
+  int smem_max = 0, sms = 0;
+  const int e = device_limits(&smem_max, &sms);
+  if (e != 0) return e;
+  Params p{xr,     xi,     tail_r, tail_i, taps_r,  taps_i,
+           prev_r, prev_i, dstate, out,    ylast_r, ylast_i,
+           ends,   B,      (n_out + K - 1) / K,   T,       D,
+           K,      0,      rot_r,  rot_i,  gain,    a,
+           b,      deemph};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? dispatch<__nv_bfloat16, 4>(p, C, s, smem_max, nullptr)
+              : dispatch<float, 4>(p, C, s, smem_max, nullptr);
+}
+
+const char* sdr_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

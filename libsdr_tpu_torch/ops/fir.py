@@ -1,0 +1,201 @@
+"""Streaming FIR filtering via overlap-save (counterpart of
+``libsdr_tpu.ops.fir``).
+
+The filter keeps the last ``T-1`` input samples as an explicit ``tail``
+carry; each block is one batched correlation
+``y[n] = sum_i k[i] * xc[n+i]`` over ``xc = concat(tail, x)``, so ``k[T-1]``
+multiplies the newest sample.  The zero initial tail is a zero-initialized
+ring buffer.  Complex streams are planar; complex taps on a complex stream
+run as one 2-in, 2-out channel convolution.
+
+This is the plain path: the fused FM receive chain, the system's hot path,
+goes through the hand-written kernel of ``ops/fir_fm.py`` instead.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from libsdr_tpu_torch.core import cplx
+from libsdr_tpu_torch.core.block import Processor
+from libsdr_tpu_torch.core.cplx import Complex
+from libsdr_tpu_torch.core.stream import ConfigError, StreamSpec
+from libsdr_tpu_torch.ops import firdesign
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Full float32 convolutions and matmuls on the card: cuDNN runs float32
+    convolutions in TF32 (about three decimal digits) unless told not to."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _taps_planes(k, dtype, device):
+    """Taps as (re, im) tensors; im is None for real taps."""
+    if isinstance(k, Complex):
+        return k.re.to(device, dtype), k.im.to(device, dtype)
+    if isinstance(k, torch.Tensor):
+        return k.to(device, dtype), None
+    k = np.asarray(k)
+    re = torch.as_tensor(np.ascontiguousarray(k.real), dtype=dtype,
+                         device=device)
+    if not np.iscomplexobj(k):
+        return re, None
+    return re, torch.as_tensor(np.ascontiguousarray(k.imag), dtype=dtype,
+                               device=device)
+
+
+def _conv1d(x, k, stride: int = 1):
+    """Cross-correlation ``y[..., j] = sum_i k[i] x[..., j*stride + i]`` for
+    any real/planar-complex combination of x and k (numpy taps or a Complex
+    of tap tensors).  Runs in the input plane dtype."""
+    x_c = isinstance(x, Complex)
+    ref = x.re if x_c else x
+    kr, ki = _taps_planes(k, ref.dtype, ref.device)
+    if x_c and ki is None:
+        # Real taps on a complex stream: one convolution per plane.
+        return Complex(_conv1d(x.re, kr, stride), _conv1d(x.im, kr, stride))
+    if ki is None:
+        planes, w = [x], kr.reshape(1, 1, -1)
+    elif not x_c:
+        planes, w = [x], torch.stack([kr, ki]).unsqueeze(1)   # (2, 1, T)
+    else:
+        planes = [x.re, x.im]
+        w = torch.stack([torch.stack([kr, -ki]),
+                         torch.stack([ki, kr])])              # (2, 2, T)
+    lead, n = ref.shape[:-1], ref.shape[-1]
+    xb = torch.stack(planes, dim=-2).reshape(-1, len(planes), n)
+    with full_f32():
+        y = F.conv1d(xb, w, stride=stride)
+    y = y.reshape(lead + (w.shape[0], y.shape[-1]))
+    if ki is None:
+        return y[..., 0, :]
+    return Complex(y[..., 0, :], y[..., 1, :])
+
+
+def fir_overlap_save(taps, x, tail, stride: int = 1, offset: int = 0):
+    """One overlap-save FIR block step.
+
+    Args:
+      taps: (T,) filter taps (numpy real or complex).
+      x: (..., B) input block (real tensor or planar Complex).
+      tail: (..., T-1) last samples of the previous block (zeros initially).
+      stride: output decimation.
+      offset: index of the first input sample that produces an output.
+
+    Returns:
+      (y, new_tail): y has trailing length ``(B - offset - 1)//stride + 1``;
+      new_tail is the last T-1 samples of ``concat(tail, x)``.
+    """
+    t = int(np.asarray(taps).shape[0])
+    if t <= 1:
+        return _conv1d(x[..., offset:], taps, stride), tail
+    xc = cplx.concatenate([tail, x], axis=-1)
+    y = _conv1d(xc[..., offset:], taps, stride)
+    return y, xc[..., xc.shape[-1] - (t - 1):]
+
+
+def set_mxu_precision(mode: str) -> None:
+    """Accepts the JAX package's precision modes, 'high' and 'fast', for API
+    parity.  Both run the same float32 kernel here; a reduced-precision
+    tensor-core variant does not exist yet."""
+    if mode not in ("high", "fast"):
+        raise ConfigError(f"set_mxu_precision: unknown mode {mode!r} "
+                          "(use 'high' or 'fast')")
+
+
+class FIRFilter(Processor):
+    """Streaming FIR filter node.
+
+    Args:
+      order: number of taps.
+      kind: 'lowpass' | 'highpass' | 'bandpass' | 'bandstop' | 'custom'.
+      fl, fu: band edges in Hz (lowpass uses fu, highpass uses fl).
+      taps: explicit taps for kind='custom'.
+      design: 'textbook' (default) or 'ref' (reference designer math; only
+        lowpass).
+      decim: integer output decimation (keep one in D after filtering).
+      enabled: bypass flag.
+    """
+
+    def __init__(self, order: int, kind: str = "lowpass", fl: float = 0.0,
+                 fu: float = 0.0, taps: Optional[Sequence] = None,
+                 design: str = "textbook", decim: int = 1,
+                 enabled: bool = True):
+        super().__init__()
+        self.order = max(1, int(order))
+        self.kind = kind
+        self.fl, self.fu = float(fl), float(fu)
+        self.design = design
+        self.decim = int(decim)
+        self.enabled = enabled
+        self._custom_taps = None if taps is None else np.asarray(taps)
+        self.taps: Optional[np.ndarray] = None
+
+    def _design_taps(self, fs: float) -> np.ndarray:
+        if self.kind == "custom":
+            return self._custom_taps
+        if self.design == "ref":
+            if self.kind != "lowpass":
+                raise ConfigError(
+                    "the reference-parity designer exists only for lowpass")
+            return firdesign.ref_lowpass(self.order, self.fu, fs)
+        d = {
+            "lowpass": lambda: firdesign.lowpass(self.order, self.fu, fs),
+            "highpass": lambda: firdesign.highpass(self.order, self.fl, fs),
+            "bandpass": lambda: firdesign.bandpass(self.order, self.fl,
+                                                   self.fu, fs),
+            "bandstop": lambda: firdesign.bandstop(self.order, self.fl,
+                                                   self.fu, fs),
+        }
+        if self.kind not in d:
+            raise ConfigError(f"Unknown FIR kind {self.kind!r}")
+        return d[self.kind]()
+
+    def _bind(self, in_spec: StreamSpec) -> StreamSpec:
+        if self.decim > 1:
+            in_spec.require_block_multiple("FIRFilter", self.decim)
+        self.taps = np.asarray(self._design_taps(in_spec.rate_hz))
+        out_dtype = in_spec.dtype
+        if np.iscomplexobj(self.taps) and not in_spec.is_complex:
+            out_dtype = torch.complex64
+        # Narrow input planes (bf16) do not propagate: the output is
+        # normalized to the full dtype.
+        return in_spec.with_(
+            dtype=out_dtype,
+            plane_dtype=None,
+            sample_rate=in_spec.sample_rate / self.decim,
+            block_size=in_spec.block_size // self.decim)
+
+    def init_carry(self, device=None):
+        t = self.taps.shape[0]
+        shape = self.in_spec.channels + (t - 1,)
+        if self.in_spec.is_complex:
+            return cplx.zeros(shape, self.in_spec.real_dtype, device)
+        return torch.zeros(shape, dtype=self.in_spec.dtype, device=device)
+
+    def apply(self, carry, x):
+        if not self.enabled:
+            return carry, x
+        y, tail = fir_overlap_save(
+            self.taps, x, carry, stride=self.decim, offset=self.decim - 1)
+        want = self.out_spec.real_dtype
+        if isinstance(y, Complex):
+            if y.re.dtype != want:
+                y = y.to(want)
+        elif y.dtype != want and y.dtype.is_floating_point:
+            y = y.to(want)
+        return tail, y

@@ -1,0 +1,63 @@
+"""Package-level properties of the port: it never loads JAX, and its
+on-card smoke run refuses to run, without printing a result, where there is
+no CUDA device or no package beside it."""
+
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "libsdr_tpu_torch"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            "import libsdr_tpu_torch, libsdr_tpu_torch.core, "
+            "libsdr_tpu_torch.ops, libsdr_tpu_torch.interop, "
+            "libsdr_tpu_torch._build\n"
+            "from libsdr_tpu_torch.ops import fm_fused, fir_fm\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'libsdr_tpu' or "
+            "m.startswith('libsdr_tpu.'))\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|libsdr_tpu)(\.|\s|$)",
+                     re.MULTILINE)
+    offenders = [str(p) for p in PKG.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert not offenders
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run")
+
+
+def _assert_refused(proc):
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_refuses_without_cuda():
+    _no_cuda()
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    _assert_refused(proc)
+
+
+def test_chip_smoke_refuses_alone(tmp_path):
+    _no_cuda()
+    shutil.copy(REPO / "chip_smoke.py", tmp_path)
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    _assert_refused(proc)
