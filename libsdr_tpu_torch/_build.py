@@ -1,9 +1,11 @@
 """Build and bind the package's CUDA kernels.
 
-At first use ``nvcc`` compiles ``csrc/fir_fm_exact.cu`` for ``sm_90a`` into a
-shared library with a plain C interface under ``build/libsdr_tpu_torch/`` at
-the root of the checkout, named by the hash of its source, and ``ctypes``
-loads it.  A library already built from the same source is reused.
+At first use ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together), links them into one shared
+library with a plain C interface under ``build/libsdr_tpu_torch/`` at the
+root of the checkout, named by the hash of all the sources (``*.cu`` and
+``*.cuh``) and flags, and ``ctypes`` loads it.  A library already built
+from the same sources is reused.
 """
 
 from __future__ import annotations
@@ -12,14 +14,28 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG / "csrc" / "fir_fm_exact.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "libsdr_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+
+def sources() -> list[Path]:
+    """The compiled units: every ``csrc/*.cu`` (the ``*.cuh`` headers are
+    included by them)."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(flags: list[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()
 
 
 def _nvcc() -> str:
@@ -30,47 +46,76 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernel library unless a build of the same source exists.
+def build(defines: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """Compile the kernel library unless a build of the same sources exists.
 
-    Returns (path of the shared library, compiler log; empty when the
-    library was already there)."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"fir_fm_exact-{digest[:16]}.so"
+    ``defines`` are extra ``NAME=VALUE`` macros (``tools/fir_paths.py``
+    builds variants with them).  Returns (path of the shared library,
+    compiler log; empty when the library was already there)."""
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    lib = BUILD_DIR / f"sdr_kernels-{_digest(flags)[:16]}.so"
     if lib.exists():
         return lib, ""
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
+    work = BUILD_DIR / f"objs.{os.getpid()}.{lib.stem}"
+    work.mkdir(exist_ok=True)
+    try:
+        procs = []
+        for src in sources():
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *flags, "-c", "-o", str(obj), str(src)]
+            procs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log, failed = [], []
+        for obj, proc in procs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{obj.stem}.cu ({proc.returncode})")
+        if failed:
+            raise RuntimeError("nvcc failed: " + ", ".join(failed) + "\n"
+                               + "".join(log))
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in procs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib, "".join(log)
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, with every entry point's signature set."""
-    path, _ = build()
+def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded kernel library (of :func:`build`), with every entry
+    point's signature set."""
+    path, _ = build(defines)
     lib = ctypes.CDLL(str(path))
-    p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_float)
-    lib.sdr_fir_fm_exact.argtypes = [
+    p, i64, i32, f32, f64 = (ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_float, ctypes.c_double)
+    lib.sdr_fir_exact.argtypes = [
+        i32,                 # mode
         p, p, p, p,          # xr, xi, tail_r, tail_i
         p, p,                # taps_r, taps_i
-        p, p, p,             # prev_r, prev_i, dstate
-        p, p, p, p,          # out, ylast_r, ylast_i, ends
+        p, p,                # prev_r, prev_i (fm)
+        p, p, p, p,          # ramp_r, ramp_i, ph_r, ph_i (usb)
+        p, p, p, p,          # out, out_i, ylast_r, ylast_i
+        p, p, p,             # s_in, s_out, ends
         i64, i64, i32, i32,  # C, B, T, D
-        i32,                 # K (chunks per channel)
+        i32, i32,            # K, K_agc (chunks per channel)
         f32, f32, f32,       # rot_r, rot_i, gain
-        f32, f32, i32,       # a, b, deemph
+        f64, f64, i32,       # a, b, iir (de-emphasis or AGC)
         i32, p]              # bf16 planes, stream
-    lib.sdr_fir_fm_exact.restype = i32
-    lib.sdr_fir_fm_exact_chunks.argtypes = [i64, i64, i32, i32, i32]
-    lib.sdr_fir_fm_exact_chunks.restype = i32
+    lib.sdr_fir_exact.restype = i32
+    lib.sdr_fir_chunks.argtypes = [i32, i64, i64, i32, i32, i32]
+    lib.sdr_fir_chunks.restype = i32
+    lib.sdr_agc_chunks.argtypes = [i64, i64]
+    lib.sdr_agc_chunks.restype = i32
     lib.sdr_cuda_error_string.argtypes = [i32]
     lib.sdr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,6 +1,7 @@
 """Block-streaming core: stream specs, processors, pipelines, streaming loop."""
 
-from libsdr_tpu_torch.core.stream import StreamSpec, ConfigError
+from libsdr_tpu_torch.core.stream import (StreamSpec, ConfigError,
+                                          RuntimeSDRError, SDRError)
 from libsdr_tpu_torch.core.block import Processor
 from libsdr_tpu_torch.core.graph import Pipeline
 from libsdr_tpu_torch.core.runtime import stream_blocks, run_pipeline
@@ -8,6 +9,8 @@ from libsdr_tpu_torch.core.runtime import stream_blocks, run_pipeline
 __all__ = [
     "StreamSpec",
     "ConfigError",
+    "RuntimeSDRError",
+    "SDRError",
     "Processor",
     "Pipeline",
     "stream_blocks",

@@ -41,6 +41,10 @@ class Processor:
         return in_spec
 
     @property
+    def is_bound(self) -> bool:
+        return self._out_spec is not None
+
+    @property
     def in_spec(self) -> StreamSpec:
         if self._in_spec is None:
             raise ConfigError(f"{type(self).__name__} is not bound yet")

@@ -7,12 +7,19 @@ Rules, each exact in exact arithmetic, on adjacent stages of one Pipeline:
    sees ``x[n] * conj(x[n-1])``, where the mixer rotation ``e^(-i w n)``
    collapses to the constant ``e^(-i w)``.  The FreqShift is dropped and the
    demod folds the constant in.
-2. ``IQBaseBand -> FMDemod(quadrature) [-> FMDeemph]``: one
+2. ``FreqShift(f, exact) -> AMDemod``: ``|x|`` is rotation invariant; the
+   FreqShift is dropped.
+3. ``IQBaseBand -> FMDemod(quadrature) [-> FMDeemph]``: one
    :class:`FMBasebandFused` op computes the audio straight from the raw IQ
    block through the fused FIR + FM + de-emphasis kernel.
+4. ``IQBaseBand -> USBDemod [-> AGC]``: one :class:`USBBasebandFused` op
+   (FIR + exact NCO phasor + SSB demod + AGC in one kernel call).
+5. ``IQBaseBand -> AMDemod [-> AGC]``: one :class:`AMBasebandFused` op
+   (FIR + envelope + AGC in one kernel call).
 
-The JAX package gates rule 2 on a TPU backend; the fused op here is exact on
-every device, so the rule applies wherever it matches.
+An AGC is absorbed only when it is enabled.  The JAX package gates rules
+3-5 on a TPU backend; the fused ops here are exact on every device, so the
+rules apply wherever they match.
 """
 
 from __future__ import annotations
@@ -32,9 +39,13 @@ def reset_fusion_state(stages: List) -> None:
 
 def fuse_stages(stages: List) -> List:
     """Return the rewritten stage list."""
+    from libsdr_tpu_torch.ops.agc import AGC
     from libsdr_tpu_torch.ops.baseband import IQBaseBand
-    from libsdr_tpu_torch.ops.demod import FMDeemph, FMDemod
-    from libsdr_tpu_torch.ops.fm_fused import FMBasebandFused
+    from libsdr_tpu_torch.ops.demod import (AMDemod, FMDeemph, FMDemod,
+                                            USBDemod)
+    from libsdr_tpu_torch.ops.fm_fused import (AMBasebandFused,
+                                               FMBasebandFused,
+                                               USBBasebandFused)
     from libsdr_tpu_torch.ops.nco import FreqShift
 
     # Re-binding, or reusing a stage in another pipeline, must not inherit
@@ -44,25 +55,42 @@ def fuse_stages(stages: List) -> List:
     def demod_takes_rot(d):
         return isinstance(d, FMDemod) and d.mode == "quadrature"
 
+    def enabled_agc(st):
+        return st if isinstance(st, AGC) and st.enabled else None
+
     out: List = []
     i = 0
     while i < len(stages):
         st = stages[i]
         nxt = stages[i + 1] if i + 1 < len(stages) else None
-        if (isinstance(st, FreqShift) and st.mode == "exact"
-                and st.freq != 0.0 and demod_takes_rot(nxt)):
+        nxt2 = stages[i + 2] if i + 2 < len(stages) else None
+        exact_shift = (isinstance(st, FreqShift) and st.mode == "exact"
+                       and st.freq != 0.0)
+        if exact_shift and demod_takes_rot(nxt):
             nxt._pending_rot_freqs.append(st.freq)
             i += 1
             continue
-        if (type(st) is IQBaseBand and demod_takes_rot(nxt)
-                and not nxt._pending_rot_freqs):
+        if exact_shift and isinstance(nxt, AMDemod):
+            i += 1
+            continue
+        if type(st) is not IQBaseBand:
+            out.append(st)
+            i += 1
+            continue
+        if demod_takes_rot(nxt) and not nxt._pending_rot_freqs:
             fused = FMBasebandFused(st, nxt)
             i += 2
-            nxt2 = stages[i] if i < len(stages) else None
             if isinstance(nxt2, FMDeemph) and nxt2.enabled:
                 fused.absorb_deemph(nxt2)
                 i += 1
             out.append(fused)
+            continue
+        if isinstance(nxt, (USBDemod, AMDemod)):
+            op = USBBasebandFused if isinstance(nxt, USBDemod) else \
+                AMBasebandFused
+            agc = enabled_agc(nxt2)
+            out.append(op(st, agc))
+            i += 3 if agc is not None else 2
             continue
         out.append(st)
         i += 1

@@ -17,8 +17,16 @@ import numpy as np
 import torch
 
 
-class ConfigError(Exception):
+class SDRError(Exception):
+    """Base error of the package."""
+
+
+class ConfigError(SDRError):
     """Raised when a processor rejects its input spec."""
+
+
+class RuntimeSDRError(SDRError):
+    """Runtime failure (an unreadable input file, for one)."""
 
 
 RateLike = Union[int, float, Fraction]

@@ -1,0 +1,154 @@
+// Shared declarations of the fused decimating-FIR kernels: the launch
+// parameters, the demodulator modes, the complex sample types and the host
+// launchers that fir_fm_exact.cu's entry points call.
+//
+// Every mode computes, per channel c and output j of a block x (C, B) with
+// the (C, T-1) carry tail in front of it (xc = concat(tail, x)):
+//
+//   y[j] = sum_i g[i] * xc[j*D + D-1 + i]          (window ends at x[(j+1)D-1])
+//
+// and then, by mode:
+//   kFm   audio = gain * atan2poly(y[j] conj(y[j-1]) rot), optional
+//         de-emphasis out = a*out[-1] + b*audio; exports y[B/D - 1];
+//   kFir  the two planes of y;
+//   kAm   sig = |y|;
+//   kUsb  sig = (re + im)/2 of y[j] * (a0 * ramp[j]), a0 a unit phasor;
+// and for kAm / kUsb out = gain*sig, or with the AGC
+//   sd[j] = lam*sd[j-1] + (1-lam)*|sig[j]|,  out = gain*sig/sd  (agc.cu).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace sdr {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+enum Mode { kFm = 0, kFir = 1, kAm = 2, kUsb = 3 };
+
+// The largest stride that takes the staged kernel (fir_fm_exact.cu); larger
+// ones take the warp kernel (fir_warp.cu).  Set from both kernels timed in
+// every mode at D = 5..80 on an H100 (libsdr_tpu_torch/tools/fir_paths.py,
+// PERF.md): the warp kernel runs each output's epilogue on all 32 lanes, so
+// the modes with the heavier epilogues (the discriminator, the NCO
+// rotation) keep the staged kernel to a larger stride.  The comparison
+// builds set SDR_STAGED_MAX_D for every mode (0: all strides on the warp
+// kernel; a large value: all on the staged one).
+inline int staged_max_d(int mode) {
+#ifdef SDR_STAGED_MAX_D
+  (void)mode;
+  return SDR_STAGED_MAX_D;
+#else
+  return mode == kFm || mode == kUsb ? 40 : 16;
+#endif
+}
+
+struct Params {
+  const void* xr;
+  const void* xi;
+  const void* tail_r;
+  const void* tail_i;
+  const float* taps_r;
+  const float* taps_i;
+  const float* prev_r;  // kFm: y[-1]
+  const float* prev_i;
+  const float* dstate;  // kFm: de-emphasis state
+  const float* ramp_r;  // kUsb: (B/D,) exp(-i theta j)
+  const float* ramp_i;
+  const float* ph_r;    // kUsb: the carried unit phasor a0 (one value)
+  const float* ph_i;
+  float* out;    // (C, B/D) audio, sig or the real plane of y (kFir)
+  float* out_i;  // kFir: the imaginary plane of y
+  float* ylast_r;
+  float* ylast_i;
+  float* ends;  // kFm: (C, K) de-emphasis state at each chunk's end
+  long long B;
+  long long chunk;  // outputs per chunk (the last chunk may be shorter)
+  int T;
+  int D;
+  int K;  // chunks per channel
+  int Q;  // polyphase row length in shared memory (staged kernel)
+  float rot_r, rot_i, gain, a, b;
+  int deemph;
+};
+
+// A complex sample as stored in shared memory: float2 for float32 planes,
+// a bf16 pair for bfloat16 planes (widened when read).
+template <typename Tin> struct Cplx;
+template <> struct Cplx<float> {
+  using type = float2;
+  static __device__ __forceinline__ float2 make(float r, float i) {
+    return make_float2(r, i);
+  }
+  static __device__ __forceinline__ float2 widen(float2 v) { return v; }
+};
+template <> struct Cplx<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ __nv_bfloat162 make(__nv_bfloat16 r,
+                                                        __nv_bfloat16 i) {
+    return __halves2bfloat162(r, i);
+  }
+  static __device__ __forceinline__ float2 widen(__nv_bfloat162 v) {
+    return __bfloat1622float2(v);
+  }
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Full-quadrant atan2 from an odd minimax polynomial, |err| < 2e-5 rad; the
+// same polynomial as the plain version (ops/fir_fm.py::atan2_poly).
+__device__ __forceinline__ float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
+  const float t = mn / fmaxf(mx, 1e-30f);
+  const float s = t * t;
+  float p = -0.0117212f;
+  p = p * s + 0.05265332f;
+  p = p * s + -0.11643287f;
+  p = p * s + 0.19354346f;
+  p = p * s + -0.33262347f;
+  p = p * s + 0.99997726f;
+  float r = t * p;
+  if (ay > ax) r = 1.57079632679489662f - r;
+  if (x < 0.f) r = 3.14159265358979324f - r;
+  return y < 0.f ? -r : r;
+}
+
+// The USB mode's sample: (re + im)/2 of y * (a0 * ramp[j]).
+__device__ __forceinline__ float usb_sig(float yr, float yi, float ar,
+                                         float ai, float rr, float ri) {
+  const float cr = ar * rr - ai * ri;
+  const float ci = ar * ri + ai * rr;
+  return 0.5f * ((yr * cr - yi * ci) + (yr * ci + yi * cr));
+}
+
+// The chunk count near k that leaves no chunk empty: chunks of
+// ceil(n_out/k) outputs cover n_out in ceil(n_out / ceil(n_out/k)) chunks.
+inline int fit_chunks(long long n_out, long long k) {
+  k = k < 1 ? 1 : k;
+  const long long len = (n_out + k - 1) / k;
+  return (int)((n_out + len - 1) / len);
+}
+
+// The warp kernel for strides above staged_max_d (fir_warp.cu).  Chunks per
+// channel for C channels (or -1 when its taps and staging buffers do not
+// fit in shared memory, else -2 - cudaError_t), and the launch itself.
+int warp_chunks(int mode, long long C, long long B, int T, int D, int bf16,
+                int smem_max, int sms);
+int warp_launch(int mode, const Params& p, long long C, int bf16,
+                cudaStream_t stream, int smem_max);
+
+// The AGC of kAm / kUsb over out (C, n_out) in place (agc.cu): chunk ends
+// from state 0, a scan of them from sd_in, then out = gain*sig/sd; sd_out
+// gets the state after the last output.  ends is (C, K) scratch.
+int agc_chunks(long long C, long long n_out, int sms);
+int agc_launch(float* out, const float* sd_in, float* sd_out, float* ends,
+               long long C, long long n_out, int K, double lam, float gain,
+               cudaStream_t stream);
+
+}  // namespace sdr

@@ -1,10 +1,15 @@
-// Fused decimating complex FIR + quadrature FM discriminator + first-order
-// de-emphasis: the whole FM receive chain in one pass over the raw IQ planes.
+// Fused decimating complex FIR + demodulator: the receive chains' front end
+// in one pass over the raw IQ planes.  The modes (fir_common.cuh) are
+//
+//   kFm   FIR + quadrature FM discriminator (+ first-order de-emphasis)
+//   kFir  FIR alone, both planes of y
+//   kAm   FIR + envelope |y| (+ AGC)
+//   kUsb  FIR + exact per-output NCO rotation + (re+im)/2 (+ AGC)
 //
 // Replaces the TPU kernel libsdr_tpu/ops/pallas_fir_mxu.py::_kernel_fm2 in
-// mode 'fm' (entry fir_fm_exact), which ran the FIR as block-Toeplitz frame
-// matmuls on the TPU's matrix unit.  This kernel computes the same function
-// directly:
+// its modes 'fm' (entry fir_fm_exact), 'fir' (entry fir_exact), 'am' and
+// 'usb', which ran the FIR as block-Toeplitz frame matmuls on the TPU's
+// matrix unit.  These kernels compute the same functions directly:
 //
 //   xc      = concat(tail, x)                         (tail: last T-1 samples)
 //   y[j]    = sum_i g[i] * xc[j*D + D-1 + i]          (correlation form, no conj)
@@ -12,20 +17,26 @@
 //   audio   = gain * atan2poly(Im z, Re z)
 //   out[j]  = a*out[j-1] + b*audio[j]                 (out[-1] = dstate; optional)
 //
-// and exports y_last = y[B/D - 1].  The caller carries tail' = x[B-(T-1):],
-// prev' = y_last and dstate' = out[B/D - 1].
+// and in mode kFm export y_last = y[B/D - 1].  The caller carries
+// tail' = x[B-(T-1):], prev' = y_last and dstate' = out[B/D - 1].
 //
 // What bounds it on an H100: per complex input sample it reads 8 bytes (f32
-// planes) or 4 bytes (bf16 planes) and writes 4/D bytes of audio, and it runs
-// about 4*T/D real FMAs (67 at T=67, D=4).  At 3.35 TB/s and 67 TFLOP/s f32
-// the two bounds are close, so neither can be ignored.
+// planes) or 4 bytes (bf16 planes) and writes 4/D bytes (8/D for kFir), and
+// it runs about 4*T/D real FMAs (67 at T=67, D=4).  At 3.35 TB/s and
+// 67 TFLOP/s f32 the two bounds are close at D = 4, so neither can be
+// ignored; at the rx app's strides (D >= 40, T/D < 2) HBM bounds it.
 //
-// Design:
+// Two kernels share the work by stride.  Strides up to staged_max_d(mode)
+// (fir_common.cuh) take the staged kernel below; larger ones the warp
+// kernel of fir_warp.cu, which stages a few windows per warp instead of D
+// polyphase rows per block.
+//
+// Design of the staged kernel:
 // * Each channel's B/D outputs are cut into K chunks, K from the occupancy
-//   API so that all C*K blocks are resident at once (sdr_fir_fm_exact_chunks;
-//   at 64 channels one chunk per channel would fill only 64 of the 132
-//   SMs).  One block of 256 threads walks its chunk in segments of 256*R
-//   outputs; block order does not matter.
+//   API so that all C*K blocks are resident at once (sdr_fir_chunks; at 64
+//   channels one chunk per channel would fill only 64 of the 132 SMs).  One
+//   block of 256 threads walks its chunk in segments of 256*R outputs; block
+//   order does not matter.
 // * The FIR needs no carry: each segment stages its inputs plus the T-1
 //   sample halo (from the tail carry at the start of the block) in shared
 //   memory, polyphase (sample m at [m % D][m / D]) as complex pairs.  Each
@@ -37,99 +48,34 @@
 //   (stride R) free of bank conflicts.
 // * With float32 planes the next segment's samples are loaded into
 //   registers while the current one computes, hiding the load latency.
-// * The discriminator takes y[j-1] from the previous lane (shuffle), the
-//   previous warp (shared memory), the previous segment, or for a chunk's
-//   first output a y recomputed from the chunk's halo.
-// * The de-emphasis IIR is the only true sequential dependency.  Inside a
-//   block it is a chunked scan (per-thread pass from state 0, a scan of the
-//   thread ends with shuffles, a fix-up out += a^(r+1) * state_in), carried
-//   across segments in shared memory.  Across chunks, every chunk but the
-//   first starts from state 0; deemph_chunk_scan turns the chunk-end values
-//   into each chunk's true entry state and deemph_chunk_fixup adds
-//   a^(n+1) * state to the chunk's head until the power underflows.
+// * kFm: the discriminator takes y[j-1] from the previous lane (shuffle),
+//   the previous warp (shared memory), the previous segment, or for a
+//   chunk's first output a y recomputed from the chunk's halo.
+// * kFm: the de-emphasis IIR is the only true sequential dependency.  Inside
+//   a block it is a chunked scan (per-thread pass from state 0, a scan of
+//   the thread ends with shuffles, a fix-up out += a^(r+1) * state_in),
+//   carried across segments in shared memory.  Across chunks, every chunk
+//   but the first starts from state 0; deemph_chunk_scan turns the
+//   chunk-end values into each chunk's true entry state and
+//   deemph_chunk_fixup adds a^(n+1) * state to the chunk's head until the
+//   power underflows.
+// * kFir, kAm and kUsb write their per-output values and need no carry but
+//   the tail.  The AGC's output gain*sig/sd is not linear in the state, and
+//   its time constant spans tens of thousands of outputs, so no fix-up can
+//   carry it across chunks: the kernel writes sig and agc.cu runs the AGC
+//   in a second pass (8/D bytes per input sample).
 // * bf16 planes are read as bf16 and widened in registers; all arithmetic is
 //   f32.  Offsets into the (C, B) planes are 64-bit.
-// * The kernels allocate nothing and do not synchronise; the entry point
-//   returns cudaGetLastError() after the launches, or -1 when no segment
-//   size fits in shared memory (see the gate in ops/fir_fm.py).
+// * The kernels allocate nothing and do not synchronise; the entry points
+//   return cudaGetLastError() after the launches, or -1 when the shape is
+//   outside the gate (see ops/fir_fm.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "fir_common.cuh"
 
+namespace sdr {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kLoads = 8;  // global loads in flight per plane and thread
-
-struct Params {
-  const void* xr;
-  const void* xi;
-  const void* tail_r;
-  const void* tail_i;
-  const float* taps_r;
-  const float* taps_i;
-  const float* prev_r;
-  const float* prev_i;
-  const float* dstate;
-  float* out;
-  float* ylast_r;
-  float* ylast_i;
-  float* ends;  // (C, K) de-emphasis state at each chunk's end
-  long long B;
-  long long chunk;  // outputs per chunk (the last chunk may be shorter)
-  int T;
-  int D;
-  int K;  // chunks per channel
-  int Q;  // polyphase row length in shared memory
-  float rot_r, rot_i, gain, a, b;
-  int deemph;
-};
-
-// A complex sample as stored in shared memory: float2 for float32 planes,
-// a bf16 pair for bfloat16 planes (widened when read).
-template <typename Tin> struct Cplx;
-template <> struct Cplx<float> {
-  using type = float2;
-  static __device__ __forceinline__ float2 make(float r, float i) {
-    return make_float2(r, i);
-  }
-  static __device__ __forceinline__ float2 widen(float2 v) { return v; }
-};
-template <> struct Cplx<__nv_bfloat16> {
-  using type = __nv_bfloat162;
-  static __device__ __forceinline__ __nv_bfloat162 make(__nv_bfloat16 r,
-                                                        __nv_bfloat16 i) {
-    return __halves2bfloat162(r, i);
-  }
-  static __device__ __forceinline__ float2 widen(__nv_bfloat162 v) {
-    return __bfloat1622float2(v);
-  }
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Full-quadrant atan2 from an odd minimax polynomial, |err| < 2e-5 rad; the
-// same polynomial as the plain version (ops/fir_fm.py::atan2_poly).
-__device__ __forceinline__ float atan2_poly(float y, float x) {
-  const float ax = fabsf(x), ay = fabsf(y);
-  const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
-  const float t = mn / fmaxf(mx, 1e-30f);
-  const float s = t * t;
-  float p = -0.0117212f;
-  p = p * s + 0.05265332f;
-  p = p * s + -0.11643287f;
-  p = p * s + 0.19354346f;
-  p = p * s + -0.33262347f;
-  p = p * s + 0.99997726f;
-  float r = t * p;
-  if (ay > ax) r = 1.57079632679489662f - r;
-  if (x < 0.f) r = 3.14159265358979324f - r;
-  return y < 0.f ? -r : r;
-}
 
 // Skewed column of polyphase sample q: one pad slot after every R samples,
 // so that the lanes of a warp, reading q = lane*R + c, hit distinct bank
@@ -150,7 +96,7 @@ size_t smem_bytes(int T, int D, int Q) {
   return taps + ((x + 7) / 8) * 8 + (4 * kWarps + 4) * sizeof(float);
 }
 
-template <typename Tin, int R>
+template <int MODE, typename Tin, int R>
 __global__ void __launch_bounds__(kThreads)
 fir_fm_exact_kernel(const Params p) {
   using CT = typename Cplx<Tin>::type;
@@ -180,37 +126,44 @@ fir_fm_exact_kernel(const Params p) {
   const Tin* tr = static_cast<const Tin*>(p.tail_r) + c * (T - 1);
   const Tin* ti = static_cast<const Tin*>(p.tail_i) + c * (T - 1);
   float* orow = p.out + c * n_out;
+  float ph_r = 0.f, ph_i = 0.f;  // kUsb: the block's unit phasor a0
+  if constexpr (MODE == kUsb) {
+    ph_r = p.ph_r[0];
+    ph_i = p.ph_i[0];
+  }
 
   for (int i = tid; i < T; i += kThreads) {
     s_g[(i % D) * Tq + i / D] = make_float2(p.taps_r[i], p.taps_i[i]);
   }
-  if (k == 0) {
-    if (tid == 0) {
-      s_state[0] = p.prev_r[c];
-      s_state[1] = p.prev_i[c];
-      s_state[2] = p.deemph ? p.dstate[c] : 0.f;
-    }
-  } else if (warp == 0) {
-    // A later chunk starts from y[j_begin - 1], recomputed here, and from
-    // de-emphasis state 0 (deemph_chunk_fixup adds the true state later).
-    const long long s0 = (j_begin - 1) * D + D - 1 - (T - 1);
-    float ar = 0.f, ai = 0.f;
-    for (int i = lane; i < T; i += 32) {
-      const long long n = s0 + i;
-      const float vr = to_f32(n >= 0 ? xr[n] : tr[n + T - 1]);
-      const float vi = to_f32(n >= 0 ? xi[n] : ti[n + T - 1]);
-      const float gr = p.taps_r[i], gi = p.taps_i[i];
-      ar += gr * vr - gi * vi;
-      ai += gr * vi + gi * vr;
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      ar += __shfl_xor_sync(0xffffffffu, ar, off);
-      ai += __shfl_xor_sync(0xffffffffu, ai, off);
-    }
-    if (lane == 0) {
-      s_state[0] = ar;
-      s_state[1] = ai;
-      s_state[2] = 0.f;
+  if constexpr (MODE == kFm) {
+    if (k == 0) {
+      if (tid == 0) {
+        s_state[0] = p.prev_r[c];
+        s_state[1] = p.prev_i[c];
+        s_state[2] = p.deemph ? p.dstate[c] : 0.f;
+      }
+    } else if (warp == 0) {
+      // A later chunk starts from y[j_begin - 1], recomputed here, and from
+      // de-emphasis state 0 (deemph_chunk_fixup adds the true state later).
+      const long long s0 = (j_begin - 1) * D + D - 1 - (T - 1);
+      float ar = 0.f, ai = 0.f;
+      for (int i = lane; i < T; i += 32) {
+        const long long n = s0 + i;
+        const float vr = to_f32(n >= 0 ? xr[n] : tr[n + T - 1]);
+        const float vi = to_f32(n >= 0 ? xi[n] : ti[n + T - 1]);
+        const float gr = p.taps_r[i], gi = p.taps_i[i];
+        ar += gr * vr - gi * vi;
+        ai += gr * vi + gi * vr;
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        ar += __shfl_xor_sync(0xffffffffu, ar, off);
+        ai += __shfl_xor_sync(0xffffffffu, ai, off);
+      }
+      if (lane == 0) {
+        s_state[0] = ar;
+        s_state[1] = ai;
+        s_state[2] = 0.f;
+      }
     }
   }
   // De-emphasis scan constants: A = a^R per thread.
@@ -342,6 +295,27 @@ fir_fm_exact_kernel(const Params p) {
       }
     }
 
+    if constexpr (MODE != kFm) {
+      // Per-output epilogues: no state crosses outputs.
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (jb + r < nv) {
+          const long long j = j0 + jb + r;
+          if constexpr (MODE == kFir) {
+            orow[j] = yr[r];
+            p.out_i[c * n_out + j] = yi[r];
+          } else if constexpr (MODE == kAm) {
+            orow[j] = p.gain * sqrtf(yr[r] * yr[r] + yi[r] * yi[r]);
+          } else {
+            orow[j] = p.gain * usb_sig(yr[r], yi[r], ph_r, ph_i,
+                                       p.ramp_r[j], p.ramp_i[j]);
+          }
+        }
+      }
+      __syncthreads();  // every read of s_x is done
+      continue;  // the rest of the loop is mode kFm's
+    }
+
     // Discriminator over the thread's outputs; y[jb - 1] comes from the
     // previous lane, the previous warp or the previous segment.
     if (lane == 31) {
@@ -419,10 +393,12 @@ fir_fm_exact_kernel(const Params p) {
       }
     }
   }
-  __syncthreads();
-  if (tid == 0 && k == p.K - 1) {
-    p.ylast_r[c] = s_state[0];
-    p.ylast_i[c] = s_state[1];
+  if constexpr (MODE == kFm) {
+    __syncthreads();
+    if (tid == 0 && k == p.K - 1) {
+      p.ylast_r[c] = s_state[0];
+      p.ylast_i[c] = s_state[1];
+    }
   }
 }
 
@@ -463,9 +439,8 @@ __global__ void deemph_chunk_fixup(const Params p) {
 
 // Picks the largest R whose segment fits in shared memory, then either
 // reports how many blocks of that kernel an SM holds (per_sm != nullptr) or
-// launches the kernel and, for de-emphasis across chunks, the two follow-up
-// kernels.
-template <typename Tin, int R>
+// launches the kernel.
+template <int MODE, typename Tin, int R>
 int dispatch(const Params& p, long long C, cudaStream_t stream, int smem_max,
              int* per_sm) {
   constexpr int N = kThreads * R;
@@ -474,12 +449,12 @@ int dispatch(const Params& p, long long C, cudaStream_t stream, int smem_max,
   const size_t bytes = smem_bytes<Tin, R>(p.T, p.D, q.Q);
   if (bytes > (size_t)smem_max) {
     if constexpr (R > 1) {
-      return dispatch<Tin, R / 2>(p, C, stream, smem_max, per_sm);
+      return dispatch<MODE, Tin, R / 2>(p, C, stream, smem_max, per_sm);
     } else {
       return -1;
     }
   }
-  auto kernel = fir_fm_exact_kernel<Tin, R>;
+  auto kernel = fir_fm_exact_kernel<MODE, Tin, R>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -488,13 +463,26 @@ int dispatch(const Params& p, long long C, cudaStream_t stream, int smem_max,
         per_sm, kernel, kThreads, bytes);
   }
   kernel<<<(unsigned)(C * p.K), kThreads, bytes, stream>>>(q);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || !p.deemph || p.K == 1) return (int)e;
-  deemph_chunk_scan<<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(q, C);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  deemph_chunk_fixup<<<(unsigned)(C * (p.K - 1)), 256, 0, stream>>>(q);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int staged(const Params& p, long long C, int bf16, cudaStream_t stream,
+           int smem_max, int* per_sm) {
+  return bf16 ? dispatch<MODE, __nv_bfloat16, 4>(p, C, stream, smem_max,
+                                                 per_sm)
+              : dispatch<MODE, float, 4>(p, C, stream, smem_max, per_sm);
+}
+
+int staged_mode(int mode, const Params& p, long long C, int bf16,
+                cudaStream_t stream, int smem_max, int* per_sm) {
+  switch (mode) {
+    case kFm: return staged<kFm>(p, C, bf16, stream, smem_max, per_sm);
+    case kFir: return staged<kFir>(p, C, bf16, stream, smem_max, per_sm);
+    case kAm: return staged<kAm>(p, C, bf16, stream, smem_max, per_sm);
+    case kUsb: return staged<kUsb>(p, C, bf16, stream, smem_max, per_sm);
+  }
+  return -1;
 }
 
 int device_limits(int* smem_max, int* sms) {
@@ -510,62 +498,141 @@ int device_limits(int* smem_max, int* sms) {
   return (int)e;
 }
 
-constexpr long long kMinChunk = 4096;  // outputs per chunk, at least
+constexpr long long kMinChunk = 4096;  // staged: outputs per chunk, at least
+
+bool bad_shape(long long C, long long B, int T, int D) {
+  return C <= 0 || T < 1 || D < 1 || B < D || B % D;
+}
+
+// Whether K chunks of ceil(n_out/K) outputs leave none empty.
+bool bad_chunks(long long n_out, long long C, int K) {
+  return K < 1 || K > n_out || C * K > 0x7fffffffLL ||
+         (K - 1) * ((n_out + K - 1) / K) >= n_out;
+}
+
+// Launches the FIR kernel of the shape's path for one mode.
+int launch(int mode, const Params& p, long long C, int bf16,
+           cudaStream_t stream, int smem_max) {
+  if (p.D > staged_max_d(mode)) {
+    return warp_launch(mode, p, C, bf16, stream, smem_max);
+  }
+  return staged_mode(mode, p, C, bf16, stream, smem_max, nullptr);
+}
 
 }  // namespace
+}  // namespace sdr
+
+using namespace sdr;
 
 extern "C" {
 
-// Chunks per channel for a launch: as many as fill the resident block slots
-// of the card in one wave, each at least kMinChunk outputs.  Returns K >= 1,
-// -1 if the shape is outside the kernel's gate, or -2 - cudaError_t.
-int sdr_fir_fm_exact_chunks(long long C, long long B, int T, int D,
-                            int bf16) {
-  if (C <= 0 || T < 1 || D < 1 || B < D || B % D) return -1;
+// Chunks per channel for a launch of `mode`: as many as fill the resident
+// block slots of the card in one wave, with a least chunk length per path.
+// Returns K >= 1, -1 if the shape is outside the kernel's gate, or
+// -2 - cudaError_t.
+int sdr_fir_chunks(int mode, long long C, long long B, int T, int D,
+                   int bf16) {
+  if (bad_shape(C, B, T, D) || mode < kFm || mode > kUsb) return -1;
   int smem_max = 0, sms = 0, per_sm = 0;
   int e = device_limits(&smem_max, &sms);
   if (e != 0) return -2 - e;
+  if (D > staged_max_d(mode)) return warp_chunks(mode, C, B, T, D, bf16, smem_max,
+                                          sms);
   Params p{};
   p.T = T;
   p.D = D;
-  e = bf16 ? dispatch<__nv_bfloat16, 4>(p, C, nullptr, smem_max, &per_sm)
-           : dispatch<float, 4>(p, C, nullptr, smem_max, &per_sm);
+  e = staged_mode(mode, p, C, bf16, nullptr, smem_max, &per_sm);
   if (e != 0) return e == -1 ? -1 : -2 - e;
-  long long k = (long long)sms * per_sm / C;
-  k = k < (B / D) / kMinChunk ? k : (B / D) / kMinChunk;
-  return k < 1 ? 1 : (int)k;
+  const long long k = (long long)sms * per_sm / C;
+  const long long most = (B / D) / kMinChunk;
+  return fit_chunks(B / D, k < most ? k : most);
 }
 
-// Runs the fused op on one block.  Returns 0 on success, -1 if the shape
-// is outside the kernel's gate, else a cudaError_t.  All pointers are
-// device pointers; planes are row-major (C, B) and (C, T-1) of float
-// (bf16 == 0) or __nv_bfloat16 (bf16 == 1); ends is (C, K) float scratch,
-// needed when K > 1 and deemph.
-int sdr_fir_fm_exact(const void* xr, const void* xi, const void* tail_r,
-                     const void* tail_i, const float* taps_r,
-                     const float* taps_i, const float* prev_r,
-                     const float* prev_i, const float* dstate, float* out,
-                     float* ylast_r, float* ylast_i, float* ends,
-                     long long C, long long B, int T, int D, int K,
-                     float rot_r, float rot_i, float gain, float a, float b,
-                     int deemph, int bf16, void* stream) {
-  if (C <= 0 || T < 1 || D < 1 || B < D || B % D || K < 1 ||
-      K > B / D || C * K > 0x7fffffffLL || (K > 1 && deemph && !ends)) {
-    return -1;
-  }
-  const long long n_out = B / D;
-  if ((K - 1) * ((n_out + K - 1) / K) >= n_out) return -1;  // empty chunk
+// Chunks per channel of the AGC passes over (C, n_out) outputs.
+int sdr_agc_chunks(long long C, long long n_out) {
   int smem_max = 0, sms = 0;
   const int e = device_limits(&smem_max, &sms);
+  if (e != 0) return -2 - e;
+  return agc_chunks(C, n_out, sms);
+}
+
+// Runs one mode on one block.  Returns 0 on success, -1 if the shape or the
+// arguments are outside the kernel's gate, else a cudaError_t.  All
+// pointers are device pointers; planes are row-major (C, B) and (C, T-1) of
+// float (bf16 == 0) or __nv_bfloat16 (bf16 == 1); out is (C, B/D) float,
+// out_i (kFir) too.  By mode:
+//   kFm   prev_r/prev_i (C,) is y[-1] and ylast_r/ylast_i (C,) get y[B/D-1];
+//         with iir != 0 the de-emphasis out = a*out[-1] + b*audio runs from
+//         s_in (C,), with ends (C, K) scratch when K > 1;
+//   kUsb  ramp_r/ramp_i are (B/D,) and ph_r/ph_i point at one float each;
+//   kAm, kUsb with iir != 0: the AGC with lam = a from s_in (C,) into
+//         s_out (C,), ends (C, K_agc) scratch; out then holds gain*sig/sd,
+//         else gain*sig.
+int sdr_fir_exact(int mode, const void* xr, const void* xi,
+                  const void* tail_r, const void* tail_i, const float* taps_r,
+                  const float* taps_i, const float* prev_r,
+                  const float* prev_i, const float* ramp_r,
+                  const float* ramp_i, const float* ph_r, const float* ph_i,
+                  float* out, float* out_i, float* ylast_r, float* ylast_i,
+                  const float* s_in, float* s_out, float* ends, long long C,
+                  long long B, int T, int D, int K, int K_agc, float rot_r,
+                  float rot_i, float gain, double a, double b, int iir,
+                  int bf16, void* stream) {
+  const long long n_out = B / D;
+  const bool agc = iir && (mode == kAm || mode == kUsb);
+  if (bad_shape(C, B, T, D) || bad_chunks(n_out, C, K) || !out ||
+      mode < kFm || mode > kUsb || (mode == kFir && (!out_i || iir)) ||
+      (mode == kFm && !(prev_r && prev_i && ylast_r && ylast_i)) ||
+      (mode == kFm && iir && (!s_in || (K > 1 && !ends))) ||
+      (mode == kUsb && !(ramp_r && ramp_i && ph_r && ph_i)) ||
+      (agc && (!s_in || !s_out || !ends || bad_chunks(n_out, C, K_agc)))) {
+    return -1;
+  }
+  int smem_max = 0, sms = 0;
+  int e = device_limits(&smem_max, &sms);
   if (e != 0) return e;
-  Params p{xr,     xi,     tail_r, tail_i, taps_r,  taps_i,
-           prev_r, prev_i, dstate, out,    ylast_r, ylast_i,
-           ends,   B,      (n_out + K - 1) / K,   T,       D,
-           K,      0,      rot_r,  rot_i,  gain,    a,
-           b,      deemph};
+  Params p{};
+  p.xr = xr;
+  p.xi = xi;
+  p.tail_r = tail_r;
+  p.tail_i = tail_i;
+  p.taps_r = taps_r;
+  p.taps_i = taps_i;
+  p.prev_r = prev_r;
+  p.prev_i = prev_i;
+  p.dstate = s_in;
+  p.ramp_r = ramp_r;
+  p.ramp_i = ramp_i;
+  p.ph_r = ph_r;
+  p.ph_i = ph_i;
+  p.out = out;
+  p.out_i = out_i;
+  p.ylast_r = ylast_r;
+  p.ylast_i = ylast_i;
+  p.ends = mode == kFm ? ends : nullptr;
+  p.B = B;
+  p.chunk = (n_out + K - 1) / K;
+  p.T = T;
+  p.D = D;
+  p.K = K;
+  p.rot_r = rot_r;
+  p.rot_i = rot_i;
+  p.gain = agc ? 1.f : gain;  // with the AGC the kernel writes sig
+  p.a = (float)a;
+  p.b = (float)b;
+  p.deemph = mode == kFm && iir;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16, 4>(p, C, s, smem_max, nullptr)
-              : dispatch<float, 4>(p, C, s, smem_max, nullptr);
+  e = launch(mode, p, C, bf16, s, smem_max);
+  if (e != 0 || !iir) return e;
+  if (agc) {
+    return agc_launch(out, s_in, s_out, ends, C, n_out, K_agc, a, gain, s);
+  }
+  if (K == 1) return 0;
+  deemph_chunk_scan<<<(unsigned)((C + 255) / 256), 256, 0, s>>>(p, C);
+  e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  deemph_chunk_fixup<<<(unsigned)(C * (K - 1)), 256, 0, s>>>(p);
+  return (int)cudaGetLastError();
 }
 
 const char* sdr_cuda_error_string(int code) {

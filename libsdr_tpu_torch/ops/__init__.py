@@ -1,4 +1,4 @@
-"""DSP ops of the FM receive chain.  Every op is a
+"""DSP ops of the analog receive chains.  Every op is a
 :class:`~libsdr_tpu_torch.core.block.Processor` over blocks with time on the
 trailing axis."""
 
@@ -6,12 +6,21 @@ from libsdr_tpu_torch.ops import firdesign, siggen
 from libsdr_tpu_torch.ops.fir import FIRFilter, fir_overlap_save, set_mxu_precision
 from libsdr_tpu_torch.ops.nco import FreqShift
 from libsdr_tpu_torch.ops.baseband import IQBaseBand
-from libsdr_tpu_torch.ops.demod import FMDemod, FMDeemph
+from libsdr_tpu_torch.ops.demod import AMDemod, USBDemod, FMDemod, FMDeemph
+from libsdr_tpu_torch.ops.agc import AGC
 from libsdr_tpu_torch.ops.iir import iir_first_order
-from libsdr_tpu_torch.ops.fir_fm import fir_fm_exact
+from libsdr_tpu_torch.ops.fir_fm import (fir_am_exact, fir_exact,
+                                         fir_fm_exact, fir_usb_exact)
+from libsdr_tpu_torch.ops.utils import (
+    Scale, Cast, AutoCast, ToComplex, RealPart, ImagPart, IQBalance,
+    UnsignedToSigned, SignedToUnsigned, Interleave, Deinterleave,
+)
 
 __all__ = [
     "firdesign", "siggen", "FIRFilter", "fir_overlap_save",
-    "set_mxu_precision", "FreqShift", "IQBaseBand", "FMDemod", "FMDeemph",
-    "iir_first_order", "fir_fm_exact",
+    "set_mxu_precision", "FreqShift", "IQBaseBand", "AMDemod", "USBDemod",
+    "FMDemod", "FMDeemph", "AGC", "iir_first_order", "fir_fm_exact",
+    "fir_exact", "fir_am_exact", "fir_usb_exact", "Scale", "Cast",
+    "AutoCast", "ToComplex", "RealPart", "ImagPart", "IQBalance",
+    "UnsignedToSigned", "SignedToUnsigned", "Interleave", "Deinterleave",
 ]

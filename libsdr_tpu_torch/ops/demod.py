@@ -1,5 +1,5 @@
-"""FM demodulation and de-emphasis (counterpart of the FM half of
-``libsdr_tpu.ops.demod``)."""
+"""Analog demodulators: AM, SSB (USB), FM and FM de-emphasis (counterpart
+of ``libsdr_tpu.ops.demod``)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,33 @@ from libsdr_tpu_torch.core import cplx
 from libsdr_tpu_torch.core.block import Processor
 from libsdr_tpu_torch.core.stream import StreamSpec, real_dtype_of
 from libsdr_tpu_torch.ops.iir import iir_first_order
+
+
+class AMDemod(Processor):
+    """AM envelope: ``|x| = sqrt(re^2 + im^2)``."""
+
+    def _bind(self, in_spec: StreamSpec) -> StreamSpec:
+        in_spec.require_complex("AMDemod")
+        return in_spec.with_(dtype=real_dtype_of(in_spec.dtype),
+                             plane_dtype=None)
+
+    def apply(self, carry, x):
+        # bf16 planes are widened: the output is the spec's float32
+        return carry, x.to(self.out_spec.dtype).abs()
+
+
+class USBDemod(Processor):
+    """SSB demod as ``(re + im)/2`` after the baseband shift.  LSB is the
+    negative band selected in IQBaseBand."""
+
+    def _bind(self, in_spec: StreamSpec) -> StreamSpec:
+        in_spec.require_complex("USBDemod")
+        return in_spec.with_(dtype=real_dtype_of(in_spec.dtype),
+                             plane_dtype=None)
+
+    def apply(self, carry, x):
+        x = x.to(self.out_spec.dtype)
+        return carry, (x.re + x.im) * 0.5
 
 
 class FMDemod(Processor):

@@ -8,8 +8,10 @@ multiplies the newest sample.  The zero initial tail is a zero-initialized
 ring buffer.  Complex streams are planar; complex taps on a complex stream
 run as one 2-in, 2-out channel convolution.
 
-This is the plain path: the fused FM receive chain, the system's hot path,
-goes through the hand-written kernel of ``ops/fir_fm.py`` instead.
+A complex block on a CUDA device, decimated with the standard offset
+``stride - 1``, goes through the hand-written FIR kernel instead
+(``ops/fir_fm.fir_exact``, one launch per block); every other shape, and
+every CPU block, runs the plain batched correlation here.
 """
 
 from __future__ import annotations
@@ -86,11 +88,21 @@ def _conv1d(x, k, stride: int = 1):
     return Complex(y[..., 0, :], y[..., 1, :])
 
 
+def _n_taps(taps) -> int:
+    """T of numpy taps, a tap tensor or a Complex of tap planes."""
+    if isinstance(taps, Complex):
+        return taps.re.shape[-1]
+    if isinstance(taps, torch.Tensor):
+        return taps.shape[-1]
+    return int(np.asarray(taps).shape[0])
+
+
 def fir_overlap_save(taps, x, tail, stride: int = 1, offset: int = 0):
     """One overlap-save FIR block step.
 
     Args:
-      taps: (T,) filter taps (numpy real or complex).
+      taps: (T,) filter taps (numpy real or complex, or their tensors on
+        x's device).
       x: (..., B) input block (real tensor or planar Complex).
       tail: (..., T-1) last samples of the previous block (zeros initially).
       stride: output decimation.
@@ -100,12 +112,38 @@ def fir_overlap_save(taps, x, tail, stride: int = 1, offset: int = 0):
       (y, new_tail): y has trailing length ``(B - offset - 1)//stride + 1``;
       new_tail is the last T-1 samples of ``concat(tail, x)``.
     """
-    t = int(np.asarray(taps).shape[0])
+    t = _n_taps(taps)
     if t <= 1:
         return _conv1d(x[..., offset:], taps, stride), tail
+    if (isinstance(x, Complex) and x.re.device.type == "cuda"
+            and stride > 1 and offset == stride - 1):
+        return _fir_exact_block(taps, x, tail, stride, t)
     xc = cplx.concatenate([tail, x], axis=-1)
     y = _conv1d(xc[..., offset:], taps, stride)
     return y, xc[..., xc.shape[-1] - (t - 1):]
+
+
+def new_tail(x, tail, t: int):
+    """The last t-1 samples of concat(tail, x), as a copy: a view of x would
+    keep the whole block alive."""
+    b = x.shape[-1]
+    if b >= t - 1:
+        return x[..., b - (t - 1):].map(torch.clone)
+    xc = cplx.concatenate([tail.to(x.re.dtype), x], axis=-1)
+    return xc[..., xc.shape[-1] - (t - 1):]
+
+
+def _fir_exact_block(taps, x: Complex, tail: Complex, stride: int, t: int):
+    """fir_overlap_save through the FIR kernel: the leading channel axes
+    flattened to one, and complex taps."""
+    from libsdr_tpu_torch.ops.fir_fm import fir_exact
+
+    lead, b = x.re.shape[:-1], x.re.shape[-1]
+    kr, ki = _taps_planes(taps, torch.float32, x.re.device)
+    g = Complex(kr, torch.zeros_like(kr) if ki is None else ki)
+    c = int(np.prod(lead, dtype=np.int64))
+    y = fir_exact(x.reshape(c, b), g, stride, tail.reshape(c, t - 1))
+    return y.reshape(lead + (b // stride,)), new_tail(x, tail, t)
 
 
 def set_mxu_precision(mode: str) -> None:
@@ -144,6 +182,7 @@ class FIRFilter(Processor):
         self.enabled = enabled
         self._custom_taps = None if taps is None else np.asarray(taps)
         self.taps: Optional[np.ndarray] = None
+        self._taps_dev = {}
 
     def _design_taps(self, fs: float) -> np.ndarray:
         if self.kind == "custom":
@@ -169,6 +208,7 @@ class FIRFilter(Processor):
         if self.decim > 1:
             in_spec.require_block_multiple("FIRFilter", self.decim)
         self.taps = np.asarray(self._design_taps(in_spec.rate_hz))
+        self._taps_dev = {}
         out_dtype = in_spec.dtype
         if np.iscomplexobj(self.taps) and not in_spec.is_complex:
             out_dtype = torch.complex64
@@ -179,6 +219,17 @@ class FIRFilter(Processor):
             plane_dtype=None,
             sample_rate=in_spec.sample_rate / self.decim,
             block_size=in_spec.block_size // self.decim)
+
+    def _taps_on(self, x):
+        """The taps for block x: numpy on the CPU; on a card, float32 planes
+        made once per device (no host-to-device copy per block)."""
+        dev = (x.re if isinstance(x, Complex) else x).device
+        if dev.type == "cpu":
+            return self.taps
+        if dev not in self._taps_dev:
+            self._taps_dev[dev] = cplx.constant(self.taps, torch.float32,
+                                                dev)
+        return self._taps_dev[dev]
 
     def init_carry(self, device=None):
         t = self.taps.shape[0]
@@ -191,7 +242,8 @@ class FIRFilter(Processor):
         if not self.enabled:
             return carry, x
         y, tail = fir_overlap_save(
-            self.taps, x, carry, stride=self.decim, offset=self.decim - 1)
+            self._taps_on(x), x, carry, stride=self.decim,
+            offset=self.decim - 1)
         want = self.out_spec.real_dtype
         if isinstance(y, Complex):
             if y.re.dtype != want:

@@ -1,37 +1,65 @@
-"""Fused decimating FIR + quadrature FM discriminator (+ de-emphasis): the
-counterpart of ``libsdr_tpu.ops.pallas_fir_mxu.fir_fm_exact`` in mode 'fm'.
+"""Fused decimating FIR + demodulator: the counterpart of
+``libsdr_tpu.ops.pallas_fir_mxu.fir_fm_exact`` in its modes 'fm', 'am' and
+'usb', and of ``pallas_fir_mxu.fir_exact`` (mode 'fir').
 
 For a block x (C, B) of planar IQ, the (C, T-1) carry ``tail`` and complex
-taps g (T,), with ``xc = concat(tail, x)``:
+taps g (T,), with ``xc = concat(tail, x)``, every entry computes
 
     y[j]   = sum_i g[i] * xc[j*D + D-1 + i]      (window ends at x[(j+1)D-1])
-    audio  = gain * atan2_poly(y[j] * conj(y[j-1]) * rot),  y[-1] = prev
-    out[j] = a*out[j-1] + b*audio[j]             (if deemph_ab; out[-1] = dstate)
 
-:func:`fir_fm_exact` dispatches on the device of its input: a CPU tensor
-takes the plain PyTorch version :func:`fir_fm_exact_plain`; a CUDA tensor
-launches the hand-written kernel ``csrc/fir_fm_exact.cu`` or raises.
+and then:
 
-Each channel's B/D outputs are cut into K chunks of at least 4096 outputs,
-K as large as the card's resident block slots allow in one wave, and each
-chunk is one block of the kernel.  The de-emphasis state crosses chunk
-edges through two small follow-up kernels: a per-channel scan of the
-chunk-end values and a fix-up of each later chunk's head.
+* :func:`fir_fm_exact`: ``audio = gain * atan2_poly(y[j] * conj(y[j-1]) *
+  rot)`` with y[-1] = prev, then optionally the de-emphasis
+  ``out[j] = a*out[j-1] + b*audio[j]`` (out[-1] = dstate);
+* :func:`fir_exact`: y itself;
+* :func:`fir_am_exact`: ``sig = |y|``;
+* :func:`fir_usb_exact`: ``sig = (re + im)/2`` of ``y[j] * (a0 * ramp[j])``
+  with a0 the carried unit phasor and ramp the host-exact NCO ramp;
 
-The kernel's shape gate.  The kernel takes any C with C*K < 2^31, any
-T >= 1, any D >= 1 and any B that is a multiple of D, with one limit: a
-block of 256 threads stages one segment of 256*R outputs (R = 4, 2 or 1,
-the largest that fits) in shared memory, polyphase with one pad slot after
-every R samples (none for R = 1), which takes about
+and for the AM and USB modes ``out = gain * sig`` or, with the AGC,
+``sd[j] = lam*sd[j-1] + (1-lam)*|sig[j]|`` (sd[-1] = sd) and
+``out = gain * sig / sd``; they return the last sd as the AGC carry.
 
-    8*D*ceil(T/D) + 2*D*Q*(1 + 1/R)*itemsize + 144   bytes,
-    Q = 256*R + (T-1)//D,
+Each entry dispatches on the device of its input: a CPU tensor takes its
+plain PyTorch version (``*_plain``, beside it); a CUDA tensor launches the
+hand-written kernels of ``csrc/`` or raises.  Each entry counts its kernel
+launches in ``<entry>.launches``.
 
-itemsize 4 for float32 planes and 2 for bfloat16.  With R = 1 this must
-fit in the card's opt-in shared memory per block (232,448 bytes on an
-H100), so roughly 256*D + 2*T <= 29,000 for float32 planes.  The bench
-configuration (T = 67, D = 4) runs at R = 4 in 42 KB.  A shape outside the
-gate raises ``ValueError``; the plain version takes every shape.
+Two kernels, by stride.  Strides up to 40 in modes fm and usb, and up to
+16 in modes fir and am, take the staged kernel; larger ones the
+warp-per-output kernel.  The cut is where the two kernels' times on an
+H100 cross (``tools/fir_paths.py``; PERF.md).
+
+Chunks.  Each channel's B/D outputs are cut into K chunks, K as large as the
+card's resident slots allow in one wave, and each chunk is one block of the
+staged kernel (chunks of at least 4096 outputs) or one warp of the warp
+kernel (at least 64 outputs).  The de-emphasis state crosses chunk edges
+through two small follow-up kernels: a per-channel scan of the chunk-end
+values and a fix-up of each later chunk's head.  The AGC runs after the FIR
+kernel in three launches of its own (``csrc/agc.cu``).
+
+The kernels' shape gate.  They take any C with C*K < 2^31, any T >= 1, any
+D >= 1 and any B that is a multiple of D, with one limit on shared memory
+(232,448 bytes a block on an H100):
+
+* the staged kernel: a block of 256 threads stages one segment of 256*R
+  outputs (R = 4, 2 or 1, the largest that fits) polyphase with one pad
+  slot after every R samples (none for R = 1), about
+
+      8*D*ceil(T/D) + 2*D*Q*(1 + 1/R)*itemsize + 144   bytes,
+      Q = 256*R + (T-1)//D,
+
+  itemsize 4 for float32 planes and 2 for bfloat16; with float32 planes
+  this holds for T up to about 12,000 at D = 16 and 9,400 at D = 40.  The
+  bench configuration (T = 67, D = 4) runs at R = 4 in 42 KB.
+* the warp kernel: the taps and eight per-warp staging buffers of
+  max(512, T) samples, 8*T + 16*max(512, T)*itemsize bytes, so
+  T <= 3,228 for float32 planes and T <= 5,811 for bfloat16.
+
+So every stride up to 256 with up to 512 taps (the rx app's chains) is
+inside the gate.  A shape outside it raises ``ValueError``; the plain
+versions take every shape.
 """
 
 from __future__ import annotations
@@ -64,16 +92,30 @@ def atan2_poly(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(y < 0, -r, r)
 
 
+def _fir_y(x: Complex, taps: Complex, d: int, tail: Complex) -> Complex:
+    """y of every mode, in float32: the decimating FIR over tail + x."""
+    # The tail is stored in the plane dtype (it is a slice of the input).
+    xc = Complex(torch.cat([tail.re.to(x.re.dtype), x.re], -1).float(),
+                 torch.cat([tail.im.to(x.im.dtype), x.im], -1).float())
+    return _conv1d(xc[..., d - 1:], taps, d)
+
+
+def _agc_plain(sig, gain, agc_ab, sd):
+    """``gain * sig``, or the AGC ``gain * sig / sd`` and the last sd."""
+    if agc_ab is None:
+        return sig * float(gain), None
+    with full_f32():
+        sdv, sd_last = iir_first_order(sig.abs(), agc_ab[0], agc_ab[1],
+                                       sd.float())
+    return float(gain) * sig / sdv, sd_last
+
+
 def fir_fm_exact_plain(x: Complex, taps: Complex, stride: int,
                        tail: Complex, prev: Complex, rot: complex,
                        gain: float, deemph_ab=None, dstate=None):
     """Plain PyTorch version of :func:`fir_fm_exact` (same arguments and
     results), in float32."""
-    d = int(stride)
-    # The tail is stored in the plane dtype (it is a slice of the input).
-    xc = Complex(torch.cat([tail.re.to(x.re.dtype), x.re], -1).float(),
-                 torch.cat([tail.im.to(x.im.dtype), x.im], -1).float())
-    y = _conv1d(xc[..., d - 1:], taps, d)
+    y = _fir_y(x, taps, int(stride), tail)
     yp = Complex(torch.cat([prev.re[..., None].float(), y.re[..., :-1]], -1),
                  torch.cat([prev.im[..., None].float(), y.im[..., :-1]], -1))
     zr = y.re * yp.re + y.im * yp.im
@@ -108,81 +150,225 @@ def fir_fm_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
     Returns:
       (out (C, B/D) float32, y_last Complex (C,) float32).
     """
-    dev = x.re.device
-    if dev.type == "cpu":
+    if _plain(x, "fir_fm_exact"):
         return fir_fm_exact_plain(x, taps, stride, tail, prev, rot, gain,
                                   deemph_ab, dstate)
+    out, _, y_last, _ = _launch(fir_fm_exact, _MODE_FM, x, taps, int(stride),
+                                tail, gain, deemph_ab, dstate, prev,
+                                complex(rot))
+    return out, y_last
+
+
+def fir_exact_plain(x: Complex, taps: Complex, stride: int,
+                    tail: Complex) -> Complex:
+    """Plain PyTorch version of :func:`fir_exact`, in float32."""
+    return _fir_y(x, taps, int(stride), tail)
+
+
+def fir_exact(x: Complex, taps: Complex, stride: int,
+              tail: Complex) -> Complex:
+    """Decimating complex FIR over one block: Complex (C, B/D) float32 y
+    (arguments as for :func:`fir_fm_exact`)."""
+    if _plain(x, "fir_exact"):
+        return fir_exact_plain(x, taps, stride, tail)
+    out, out_i, _, _ = _launch(fir_exact, _MODE_FIR, x, taps, int(stride),
+                               tail)
+    return Complex(out, out_i)
+
+
+def fir_am_exact_plain(x: Complex, taps: Complex, stride: int,
+                       tail: Complex, gain: float, agc_ab=None, sd=None):
+    """Plain PyTorch version of :func:`fir_am_exact`, in float32."""
+    return _agc_plain(_fir_y(x, taps, int(stride), tail).abs(), gain,
+                      agc_ab, sd)
+
+
+def fir_am_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
+                 gain: float, agc_ab=None, sd=None):
+    """Fused FIR + AM envelope (+ AGC) over one block.
+
+    Args:
+      x, taps, stride, tail: as for :func:`fir_fm_exact`.
+      gain: output scale (``target/4`` with the AGC).
+      agc_ab: (lam, 1 - lam) of the AGC envelope, or None.
+      sd: (C,) float32 AGC envelope state sd[-1] (with agc_ab).
+
+    Returns:
+      (out (C, B/D) float32, sd_last (C,) float32 or None).
+    """
+    if _plain(x, "fir_am_exact"):
+        return fir_am_exact_plain(x, taps, stride, tail, gain, agc_ab, sd)
+    out, _, _, sd_last = _launch(fir_am_exact, _MODE_AM, x, taps,
+                                 int(stride), tail, gain, agc_ab, sd)
+    return out, sd_last
+
+
+def fir_usb_exact_plain(x: Complex, taps: Complex, stride: int,
+                        tail: Complex, phasor: Complex, ramp: Complex,
+                        gain: float, agc_ab=None, sd=None):
+    """Plain PyTorch version of :func:`fir_usb_exact`, in float32."""
+    z = _fir_y(x, taps, int(stride), tail) * (phasor * ramp)
+    return _agc_plain((z.re + z.im) * 0.5, gain, agc_ab, sd)
+
+
+def fir_usb_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
+                  phasor: Complex, ramp: Complex, gain: float, agc_ab=None,
+                  sd=None):
+    """Fused FIR + exact NCO rotation + SSB demod (+ AGC) over one block.
+
+    Args:
+      x, taps, stride, tail, gain, agc_ab, sd: as for :func:`fir_am_exact`.
+      phasor: Complex () float32 unit phasor a0 of this block.
+      ramp: Complex (B/D,) float32, ``exp(-i theta j)`` from the host.
+
+    Returns:
+      (out (C, B/D) float32, sd_last (C,) float32 or None).
+    """
+    if _plain(x, "fir_usb_exact"):
+        return fir_usb_exact_plain(x, taps, stride, tail, phasor, ramp,
+                                   gain, agc_ab, sd)
+    out, _, _, sd_last = _launch(fir_usb_exact, _MODE_USB, x, taps,
+                                 int(stride), tail, gain, agc_ab, sd,
+                                 phasor=phasor, ramp=ramp)
+    return out, sd_last
+
+
+# Kernel launches, counted where they happen.
+for _entry in (fir_fm_exact, fir_exact, fir_am_exact, fir_usb_exact):
+    _entry.launches = 0
+
+# The C interface's modes (csrc/fir_common.cuh).
+_MODE_FM, _MODE_FIR, _MODE_AM, _MODE_USB = 0, 1, 2, 3
+
+
+def _plain(x: Complex, name: str) -> bool:
+    """True for a CPU block; False for a CUDA block; raises otherwise."""
+    dev = x.re.device
+    if dev.type == "cpu":
+        return True
     if dev.type != "cuda":
-        raise ValueError(f"fir_fm_exact: no kernel for device {dev}")
-    return _launch(x, taps, int(stride), tail, prev, complex(rot),
-                   float(gain), deemph_ab, dstate)
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    return False
 
 
-fir_fm_exact.launches = 0  # kernel launches, counted where they happen
-
-
-def _launch(x, taps, d, tail, prev, rot, gain, deemph_ab, dstate):
-    from libsdr_tpu_torch import _build
-
+def _operands(name, x, taps, d, tail):
+    """Checked planes of x, the tail in the plane dtype and the taps."""
     xr, xi = x.re, x.im
     if xr.dtype not in _PLANE_DTYPES or xi.dtype != xr.dtype:
-        raise ValueError(f"fir_fm_exact: planes must be float32 or "
-                         f"bfloat16, got {xr.dtype}/{xi.dtype}")
+        raise ValueError(f"{name}: planes must be float32 or bfloat16, got "
+                         f"{xr.dtype}/{xi.dtype}")
     if xr.ndim != 2 or xi.shape != xr.shape:
-        raise ValueError(f"fir_fm_exact: planes must be (C, B), got "
+        raise ValueError(f"{name}: planes must be (C, B), got "
                          f"{tuple(xr.shape)}")
     if not (xr.is_contiguous() and xi.is_contiguous()):
-        raise ValueError("fir_fm_exact: planes must be contiguous")
-    dev = xr.device
+        raise ValueError(f"{name}: planes must be contiguous")
     c, b = xr.shape
     t = taps.re.shape[-1]
     if d < 1 or b % d or b < d:
-        raise ValueError(f"fir_fm_exact: block {b} must be a positive "
-                         f"multiple of the stride {d}")
+        raise ValueError(f"{name}: block {b} must be a positive multiple of "
+                         f"the stride {d}")
+    small = _small(name, xr.device)
+    return (xr, xi, small(tail.re, xr.dtype, (c, t - 1)),
+            small(tail.im, xr.dtype, (c, t - 1)),
+            small(taps.re, torch.float32, (t,)),
+            small(taps.im, torch.float32, (t,)), c, b, t)
 
+
+def _small(name, dev):
     def small(v, dtype, shape):
         v = v.to(dev, dtype).contiguous()
         if tuple(v.shape) != shape:
-            raise ValueError(f"fir_fm_exact: carry shape {tuple(v.shape)}, "
+            raise ValueError(f"{name}: operand shape {tuple(v.shape)}, "
                              f"expected {shape}")
         return v
+    return small
 
-    tr = small(tail.re, xr.dtype, (c, t - 1))
-    ti = small(tail.im, xr.dtype, (c, t - 1))
-    gr = small(taps.re, torch.float32, (t,))
-    gi = small(taps.im, torch.float32, (t,))
-    pr = small(prev.re, torch.float32, (c,))
-    pi = small(prev.im, torch.float32, (c,))
-    a, bc = (0.0, 0.0) if deemph_ab is None else map(float, deemph_ab)
-    ds = None if deemph_ab is None else small(dstate, torch.float32, (c,))
-    lib = _build.library()
-    bf16 = int(xr.dtype == torch.bfloat16)
-    with torch.cuda.device(dev):
-        k = lib.sdr_fir_fm_exact_chunks(c, b, t, d, bf16)
+
+def _chunks(name, lib, mode, c, b, t, d, xr):
+    """K for the launch, or ValueError outside the gate."""
+    with torch.cuda.device(xr.device):
+        k = lib.sdr_fir_chunks(mode, c, b, t, d,
+                               int(xr.dtype == torch.bfloat16))
     if k == -1:
-        raise ValueError(f"fir_fm_exact: shape outside the kernel's gate "
-                         f"(C={c}, B={b}, T={t}, D={d}, {xr.dtype}); see "
-                         f"the module docstring")
+        raise ValueError(f"{name}: shape outside the kernel's gate (C={c}, "
+                         f"B={b}, T={t}, D={d}, {xr.dtype}); see "
+                         f"ops/fir_fm.py")
     if k < -1:
         msg = lib.sdr_cuda_error_string(-2 - k).decode()
-        raise RuntimeError(f"fir_fm_exact: device query failed: {msg}")
-    ends = (torch.empty((c, k), dtype=torch.float32, device=dev)
-            if k > 1 and deemph_ab is not None else None)
-    out = torch.empty((c, b // d), dtype=torch.float32, device=dev)
-    ylr = torch.empty((c,), dtype=torch.float32, device=dev)
-    yli = torch.empty((c,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sdr_fir_fm_exact(
-            xr.data_ptr(), xi.data_ptr(), tr.data_ptr(), ti.data_ptr(),
-            gr.data_ptr(), gi.data_ptr(), pr.data_ptr(), pi.data_ptr(),
-            None if ds is None else ds.data_ptr(),
-            out.data_ptr(), ylr.data_ptr(), yli.data_ptr(),
-            None if ends is None else ends.data_ptr(),
-            c, b, t, d, k, rot.real, rot.imag, gain, a, bc,
-            int(deemph_ab is not None), bf16, ctypes.c_void_p(stream))
+        raise RuntimeError(f"{name}: device query failed: {msg}")
+    return k
+
+
+def _check(name, lib, rc):
+    if rc == -1:
+        raise ValueError(f"{name}: arguments outside the kernel's gate")
     if rc != 0:
         msg = lib.sdr_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fir_fm_exact: kernel launch failed: {msg}")
-    fir_fm_exact.launches += 1
-    return out, Complex(ylr, yli)
+        raise RuntimeError(f"{name}: kernel launch failed: {msg}")
+
+
+def _ptr(v):
+    return None if v is None else v.data_ptr()
+
+
+def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
+            state=None, prev=None, rot=0j, phasor=None, ramp=None):
+    """One launch of a mode: the FIR kernel, then the mode's IIR (mode fm's
+    de-emphasis, or the AGC of modes am and usb) when iir_ab is given with
+    its state.  Returns (out, out_i, y_last, sd_last), None where the mode
+    has no such result."""
+    from libsdr_tpu_torch import _build
+
+    name = entry.__name__
+    xr, xi, tr, ti, gr, gi, c, b, t = _operands(name, x, taps, d, tail)
+    dev = xr.device
+    small = _small(name, dev)
+    n = b // d
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    pr = pi = ylr = yli = rr = ri = phr = phi = None
+    if mode == _MODE_FM:
+        pr = small(prev.re, torch.float32, (c,))
+        pi = small(prev.im, torch.float32, (c,))
+        ylr, yli = empty(c), empty(c)
+    if mode == _MODE_USB:
+        rr = small(ramp.re, torch.float32, (n,))
+        ri = small(ramp.im, torch.float32, (n,))
+        phr = small(phasor.re, torch.float32, ())
+        phi = small(phasor.im, torch.float32, ())
+    lib = _build.library()
+    k = _chunks(name, lib, mode, c, b, t, d, xr)
+    out = empty(c, n)
+    out_i = empty(c, n) if mode == _MODE_FIR else None
+    s_in = s_out = ends = None
+    k_agc = 0
+    a = bc = 0.0
+    if iir_ab is not None:
+        a, bc = map(float, iir_ab)
+        s_in = small(state, torch.float32, (c,))
+        if mode == _MODE_FM:
+            ends = empty(c, k) if k > 1 else None
+        else:
+            s_out = empty(c)
+            with torch.cuda.device(dev):
+                k_agc = lib.sdr_agc_chunks(c, n)
+            if k_agc < 1:
+                msg = lib.sdr_cuda_error_string(-2 - k_agc).decode()
+                raise RuntimeError(f"{name}: device query failed: {msg}")
+            ends = empty(c, k_agc)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdr_fir_exact(
+            mode, xr.data_ptr(), xi.data_ptr(), tr.data_ptr(), ti.data_ptr(),
+            gr.data_ptr(), gi.data_ptr(), _ptr(pr), _ptr(pi), _ptr(rr),
+            _ptr(ri), _ptr(phr), _ptr(phi), out.data_ptr(), _ptr(out_i),
+            _ptr(ylr), _ptr(yli), _ptr(s_in), _ptr(s_out), _ptr(ends), c, b,
+            t, d, k, k_agc, rot.real, rot.imag, float(gain), a, bc,
+            int(iir_ab is not None), int(xr.dtype == torch.bfloat16),
+            ctypes.c_void_p(stream))
+    _check(name, lib, rc)
+    entry.launches += 1
+    y_last = None if ylr is None else Complex(ylr, yli)
+    return out, out_i, y_last, s_out

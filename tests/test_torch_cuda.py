@@ -1,12 +1,17 @@
-"""The CUDA kernel of ``ops/fir_fm.py`` against its plain PyTorch version on
-the card.  Every test carries the ``cuda`` marker and skips where there is no
-CUDA device (the kernel has no CPU mode); on the card run
-``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the test
-configuration in tests/conftest.py imports JAX).
+"""The CUDA kernels of ``ops/fir_fm.py`` against their plain PyTorch
+versions on the card.  Every test carries the ``cuda`` marker and skips
+where there is no CUDA device (the kernels have no CPU mode); on the card
+run ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
+test configuration in tests/conftest.py imports JAX).
 
-Bound: both versions compute in float32 with a different summation order
-and share the atan2 polynomial, so on a constant-envelope FM input the audio
-differs by ~1e-6 rad; an indexing or carry fault shows as errors of order 1.
+Bounds: FM: both versions compute in float32 with a different summation
+order and share the atan2 polynomial, so on a constant-envelope FM input the
+audio differs by ~1e-6 rad.  FIR, and AM/USB without the AGC: 1e-5 of the
+largest output (float32 sums in two orders).  AGC: 1e-4 absolute on outputs
+of ~0.1 and relative on the envelope (the envelope recurrence as a chunked
+float32 scan against frame matmuls, both with lam's powers taken at full
+precision, differ by float32 round-off).  An indexing or carry fault shows
+as errors of order 1.
 """
 
 import numpy as np
@@ -15,7 +20,9 @@ import torch
 
 import libsdr_tpu_torch as P
 from libsdr_tpu_torch.core.cplx import Complex
-from libsdr_tpu_torch.ops import FMDeemph, FMDemod, IQBaseBand, siggen
+from libsdr_tpu_torch.ops import (FIRFilter, FMDeemph, FMDemod, IQBaseBand,
+                                  siggen)
+from libsdr_tpu_torch.ops import fir_fm as F
 from libsdr_tpu_torch.ops.fir_fm import fir_fm_exact, fir_fm_exact_plain
 
 pytestmark = pytest.mark.cuda
@@ -51,8 +58,21 @@ def _fm(c, b, d, k):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("deemph", [True, False])
 @pytest.mark.parametrize("d,t,c", [(2, 37, 3), (4, 67, 64), (8, 67, 5),
-                                   (1, 9, 2)])
+                                   (1, 9, 2), (5, 68, 3), (40, 71, 3),
+                                   (100, 131, 3)])
 def test_kernel_matches_plain(cuda, dtype, deemph, d, t, c):
+    _fm_matches_plain(cuda, dtype, deemph, d, t, c)
+
+
+@pytest.mark.parametrize("dtype,t", [(torch.float32, 12001),
+                                     (torch.bfloat16, 14001)])
+def test_staged_kernel_one_output_per_thread_matches_plain(cuda, dtype, t):
+    """At D = 16 and these tap counts the staged kernel's segment fits in
+    shared memory only at one output per thread (R = 1)."""
+    _fm_matches_plain(cuda, dtype, True, 16, t, 3)
+
+
+def _fm_matches_plain(cuda, dtype, deemph, d, t, c):
     b = d * (5 * 2048 + 777)
     op = _op(d, t, c, b, dtype)
     carry = op.init_carry(cuda)
@@ -92,13 +112,17 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
                 torch.zeros(2, 4096, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError):
         fir_fm_exact(x, op._taps(cuda), 4, carry[0], carry[1], op._rot, 1.0)
-    # outside the shared-memory gate: 256*D + 2*T far above ~28,700
-    d = 512
-    x = Complex(torch.zeros(2, 4 * d, device=cuda),
-                torch.zeros(2, 4 * d, device=cuda))
-    taps = Complex(torch.zeros(67, device=cuda), torch.zeros(67, device=cuda))
-    with pytest.raises(ValueError):
-        fir_fm_exact(x, taps, d, carry[0], carry[1], op._rot, 1.0)
+    # outside the shared-memory gate: the warp kernel's taps (8*T bytes,
+    # D > 40) and the staged kernel's segment (D <= 40) above 227 KB
+    for d in (512, 4):
+        x = Complex(torch.zeros(2, 4 * d, device=cuda),
+                    torch.zeros(2, 4 * d, device=cuda))
+        taps = Complex(torch.zeros(40_000, device=cuda),
+                       torch.zeros(40_000, device=cuda))
+        tail = Complex(torch.zeros(2, 39_999, device=cuda),
+                       torch.zeros(2, 39_999, device=cuda))
+        with pytest.raises(ValueError, match="gate"):
+            fir_fm_exact(x, taps, d, tail, carry[1], op._rot, 1.0)
 
 
 def test_pipeline_on_card_matches_cpu(cuda):
@@ -116,3 +140,157 @@ def test_pipeline_on_card_matches_cpu(cuda):
         cc, yc = rx.apply(cc, Complex(torch.tensor(x.real),
                                       torch.tensor(x.imag)))
         assert float((yg.cpu() - yc).abs().max()) < ERR_BOUND
+
+
+def _noise(gen, shape, dtype, dev):
+    return Complex(torch.randn(shape, generator=gen, device=dev).to(dtype),
+                   torch.randn(shape, generator=gen, device=dev).to(dtype))
+
+
+def _mode_err(got, ref, agc):
+    """The error under the mode's bound (see the module docstring)."""
+    if isinstance(got, Complex):
+        scale = float(torch.maximum(ref.re.abs().max(), ref.im.abs().max()))
+        return max(float((got.re - ref.re).abs().max()),
+                   float((got.im - ref.im).abs().max())) / scale, 1e-5
+    (out, sd), (rout, rsd) = got, ref
+    assert bool(torch.isfinite(out).all())
+    if not agc:
+        return float((out - rout).abs().max()) / float(rout.abs().max()), 1e-5
+    return max(float((out - rout).abs().max()),
+               float(((sd - rsd) / rsd).abs().max())), 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,agc", [("fir", False), ("am", False),
+                                      ("am", True), ("usb", False),
+                                      ("usb", True)])
+@pytest.mark.parametrize("d,t,c", [(2, 37, 3), (4, 67, 64), (40, 71, 1),
+                                   (80, 143, 64), (100, 131, 1),
+                                   (200, 263, 3), (256, 512, 2)])
+def test_mode_kernels_match_plain(cuda, dtype, mode, agc, d, t, c):
+    """K1b/K1c/K1d over a warm block and three carry-chained blocks; the
+    AGC runs in K > 1 chunks (asserted)."""
+    from libsdr_tpu_torch import _build
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1000 * d + t)
+    n_out = 3 * 4096 + 333
+    b = d * n_out
+    if agc:
+        assert _build.library().sdr_agc_chunks(c, n_out) > 1
+    taps = Complex(torch.randn(t, generator=gen, device=cuda) / t ** 0.5,
+                   torch.randn(t, generator=gen, device=cuda) / t ** 0.5)
+    th = 0.01 * d * np.arange(n_out)
+    ramp = Complex(torch.tensor(np.cos(th), dtype=torch.float32, device=cuda),
+                   torch.tensor(-np.sin(th), dtype=torch.float32,
+                                device=cuda))
+    ph = Complex(torch.tensor(0.6, device=cuda), torch.tensor(0.8,
+                                                              device=cuda))
+    lam = float(np.exp(-1.0 / (0.1 * FS / d)))
+    ab, gain = ((lam, 1 - lam), 0.125) if agc else (None, 1.0)
+    sd = torch.full((c,), 0.5, device=cuda)
+    tail = _noise(gen, (c, t - 1), dtype, cuda)
+    entry = {"fir": F.fir_exact, "am": F.fir_am_exact,
+             "usb": F.fir_usb_exact}[mode]
+    plain = getattr(F, entry.__name__ + "_plain")
+    for k in range(4):
+        x = _noise(gen, (c, b), dtype, cuda)
+        args = {"fir": (x, taps, d, tail),
+                "am": (x, taps, d, tail, gain, ab, sd),
+                "usb": (x, taps, d, tail, ph, ramp, gain, ab, sd)}[mode]
+        n0 = entry.launches
+        got = entry(*args)
+        assert entry.launches == n0 + 1
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        if k:  # block 0 warms the carries up
+            err, bound = _mode_err(got, ref, agc)
+            assert err < bound, (k, err)
+        if agc:
+            sd = ref[1]
+        tail = x[..., b - (t - 1):].map(torch.clone)
+
+
+def test_mode_kernels_refuse_what_they_do_not_take(cuda):
+    """A shape outside the gate raises ValueError and launches nothing: the
+    warp kernel's taps (8*T bytes) above the card's shared memory, and the
+    staged kernel's segment likewise."""
+    for d, t in ((64, 40_000), (4, 40_000)):
+        x = Complex(torch.zeros(2, 4 * d, device=cuda),
+                    torch.zeros(2, 4 * d, device=cuda))
+        taps = Complex(torch.zeros(t, device=cuda),
+                       torch.zeros(t, device=cuda))
+        tail = Complex(torch.zeros(2, t - 1, device=cuda),
+                       torch.zeros(2, t - 1, device=cuda))
+        for entry, extra in ((F.fir_exact, ()), (F.fir_am_exact, (1.0,))):
+            n0 = entry.launches
+            with pytest.raises(ValueError, match="gate"):
+                entry(x, taps, d, tail, *extra)
+            assert entry.launches == n0
+    x = Complex(torch.zeros(2, 4096, device=cuda, dtype=torch.float64),
+                torch.zeros(2, 4096, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        F.fir_exact(x, taps, 4, tail)
+
+
+@pytest.mark.parametrize("mode", ["AM", "USB", "LSB"])
+def test_fused_ops_one_launch_per_block_match_cpu(cuda, mode):
+    """The rx chains' fused ops on the card: exactly one kernel call per
+    block, and the CPU's plain result within the AGC bound."""
+    from libsdr_tpu_torch.apps.chains import rx_stages
+
+    rx = P.Pipeline(rx_stages(mode, 960e3, 120e3))
+    rx.bind(P.StreamSpec(np.complex64, 960e3, 96_000, channels=(3,)))
+    op = rx.stages[0]
+    entry = F.fir_am_exact if mode == "AM" else F.fir_usb_exact
+    cg, cc = rx.init_carry(cuda), rx.init_carry()
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        x = (rng.normal(size=(3, 96_000))
+             + 1j * rng.normal(size=(3, 96_000))).astype(np.complex64)
+        n0 = entry.launches
+        cg, yg = rx.apply(cg, Complex(torch.tensor(x.real, device=cuda),
+                                      torch.tensor(x.imag, device=cuda)))
+        assert entry.launches == n0 + 1
+        cc, yc = rx.apply(cc, Complex(torch.tensor(x.real),
+                                      torch.tensor(x.imag)))
+        assert float((yg.cpu() - yc).abs().max()) < 1e-4
+    assert type(op).__name__ in ("AMBasebandFused", "USBBasebandFused")
+
+
+@pytest.mark.parametrize("decim", [4, 1])
+def test_real_fir_filter_on_card_matches_cpu(cuda, decim):
+    """A real FIRFilter (the FM chains' audio decimator) on a real stream:
+    its taps live on the card and the block runs the plain correlation."""
+    f = FIRFilter(order=33, kind="lowpass", fu=4000.0, decim=decim)
+    f.bind(P.StreamSpec(np.float32, 48_000.0, 4800, channels=(2,)))
+    cg, cc = f.init_carry(cuda), f.init_carry()
+    rng = np.random.default_rng(7)
+    for _ in range(3):
+        x = rng.normal(size=(2, 4800)).astype(np.float32)
+        cg, yg = f.apply(cg, torch.tensor(x, device=cuda))
+        cc, yc = f.apply(cc, torch.tensor(x))
+        assert float((yg.cpu() - yc).abs().max()) < 1e-5
+
+
+def test_fir_overlap_save_one_launch_per_block(cuda):
+    """The DDC chain (an unfused IQBaseBand): fir_overlap_save sends each
+    block to fir_exact once, and matches the CPU's plain result."""
+    rx = P.Pipeline([IQBaseBand(fc=FS / 8, width=FS / 4.8, order=64,
+                                decim=4, design="textbook")])
+    rx.bind(P.StreamSpec(np.complex64, FS, 16384, channels=(4,)))
+    cg, cc = rx.init_carry(cuda), rx.init_carry()
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        x = (rng.normal(size=(4, 16384))
+             + 1j * rng.normal(size=(4, 16384))).astype(np.complex64)
+        n0 = F.fir_exact.launches
+        cg, yg = rx.apply(cg, Complex(torch.tensor(x.real, device=cuda),
+                                      torch.tensor(x.imag, device=cuda)))
+        assert F.fir_exact.launches == n0 + 1
+        cc, yc = rx.apply(cc, Complex(torch.tensor(x.real),
+                                      torch.tensor(x.imag)))
+        scale = float(yc.abs().max())
+        assert float((yg.re.cpu() - yc.re).abs().max()) / scale < 1e-5
+        assert float((yg.im.cpu() - yc.im).abs().max()) / scale < 1e-5

@@ -20,7 +20,10 @@ def test_import_leaves_jax_out():
             "import libsdr_tpu_torch, libsdr_tpu_torch.core, "
             "libsdr_tpu_torch.ops, libsdr_tpu_torch.interop, "
             "libsdr_tpu_torch._build\n"
-            "from libsdr_tpu_torch.ops import fm_fused, fir_fm\n"
+            "from libsdr_tpu_torch.ops import fm_fused, fir_fm, agc, utils\n"
+            "from libsdr_tpu_torch.apps import chains, rx, fm_rx, wavplay\n"
+            "from libsdr_tpu_torch import io\n"
+            "from libsdr_tpu_torch.utils import options, logging\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'libsdr_tpu' or "
             "m.startswith('libsdr_tpu.'))\n"
