@@ -15,7 +15,9 @@ its own line; the first failure exits non-zero:
    K1b (FIR), K1c (AM) and K1d (USB) across plane dtypes, strides 2 to 200
    (the rx app's 40, 80, 100 and 200 among them),
    tap counts, channel counts and AGC on/off, three carry-chained blocks,
-   with the AGC's chunk count K > 1;
+   with the AGC's chunk count K > 1; K1e (AFSK) across strides 2-100 and
+   windows 2-128; K2/K3 (the bit-clock PLL) bit-exact across windows
+   2-512, 1-1000 lanes, both bit mappings and widened bounds;
 4. drive the paths through the user's entry points, bind, compile and the
    step, on 64 channels x ~2^24 complex samples in float32 and bfloat16
    planes, with each path's kernel launches counted from 0 and checked: the
@@ -23,13 +25,22 @@ its own line; the first failure exits non-zero:
    FMDeemph()])`` (K1a), the AM bank ``rx_stages("AM", 960e3)`` (K1c), the
    USB bank ``rx_stages("USB", 960e3)`` (K1d) and the DDC bank
    ``[IQBaseBand(order=64, decim=4)]`` (K1b); each bank's kernel is also
-   timed against its plain version at the bank's shapes;
+   timed against its plain version at the bank's shapes; then the digital
+   receive paths on message traffic (``libsdr_tpu_torch/tools/
+   digital_signals.py``), each with its launches counted from 0, every
+   message decoded, and its kernels held against their plain versions on
+   the path's own inputs: P1, the AX.25 bank (64 ch x 2^21 at 192 kHz,
+   K1e + K2, both plane dtypes); P2, the POCSAG bank (256 ch x 117,760 at
+   240 kHz, 4 blocks, K1a + K2); P3, the multi-mode bank's PLL (3 x 64 ch
+   x 2^18 at 24 kHz, one K3 launch a step);
 5. demodulate a 1 kHz FM tone through ``run_pipeline`` on the card and check
    the FFT peak and its height over the median bin;
 6. run the apps on the card on synthesized WAV captures with the tone checks
    of tests/test_apps.py: ``rx`` in AM, USB and LSB at 2.4 MHz (strides 100
    and 200), in WFM, and in NFM switched live to AM; ``fm_rx``; ``wavplay``;
-   and hold each WAV against the same app run with ``--device cpu``.
+   and hold each WAV against the same app run with ``--device cpu``; then
+   ``pocsag_rx``, ``ax25_rx`` (IQ and ``--audio``) and ``rtty_rx`` on
+   captures from ``tx``, their messages against ``--device cpu``'s.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -49,6 +60,14 @@ import numpy as np
 FS = 960_000.0
 CHANNELS, BLOCK = 64, 1 << 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
+FLOPS_F32 = 67e12          # float32 outside the tensor cores, the same
+# K1e against its plain version: disc relative to each channel's largest
+# |disc| (both compute y and the discriminator in float32 in two orders,
+# ~1e-6 relative, and sum each window oldest first); the carried products,
+# audio times a unit template, absolutely within the discriminator's bound
+# ERR_BOUND (on noisy inputs their error relative to the largest product
+# reached 1.7e-5).  A fault shows as errors of order 1.
+AFSK_BOUND = 1e-4
 # Kernel vs plain, FM: both compute y in float32 with a different summation
 # order (about T*eps relative on |y| ~ 1) and share the atan2 polynomial, so
 # on a constant-envelope FM input the audio differs by ~1e-6 rad; 1e-4
@@ -416,7 +435,7 @@ def phase_banks(torch, L, gen, smi):
         steps, launches = drive_path(
             torch, L, label, lambda mode=mode: rx_stages(mode, FS, FS / 8),
             b, x32, n_out, [entry] + [e for e in entries if e is not entry])
-        out[entry.__name__] = (res, steps, launches, d, b)
+        out[entry.__name__] = (res, steps, launches, d, b, op._t)
         del x32
         torch.cuda.empty_cache()
 
@@ -439,10 +458,28 @@ def phase_banks(torch, L, gen, smi):
     res = bank_kernel(torch, "DDC bank", F.fir_exact, F.fir_exact_plain,
                       fir_args, False, x32,
                       lambda isz: CHANNELS * BLOCK * (2 * isz + 2), smi)
+    # The library call that computes the same function: one strided
+    # conv1d of the stacked planes (its input stacked beforehand), in full
+    # float32 as the plain version runs it.
+    import torch.nn.functional as tf
+    from libsdr_tpu_torch.ops.fir import full_f32
+    taps = fir_args(x32)[1]
+    t = taps.re.shape[0]
+    zt = torch.zeros((CHANNELS, t - 1), device="cuda")   # the zero tail
+    xb = torch.stack([torch.cat([zt, x32.re], -1),
+                      torch.cat([zt, x32.im], -1)], dim=1)[..., 3:]
+    w = torch.stack([torch.stack([taps.re, -taps.im]),
+                     torch.stack([taps.im, taps.re])])
+    with full_f32():
+        lib_ms = cuda_ms(torch, lambda: tf.conv1d(xb, w, stride=4), 2)
+    del xb
+    print(f"phase 4 DDC bank library conv1d (stacked planes, full f32): "
+          f"{lib_ms:.3f} ms | {smi}")
     steps, launches = drive_path(
         torch, L, "DDC bank", ddc, BLOCK, x32, BLOCK // 4,
         [F.fir_exact] + [e for e in entries if e is not F.fir_exact])
-    out["fir_exact"] = (res, steps, launches, 4, BLOCK)
+    out["fir_exact"] = (res, steps, launches, 4, BLOCK, t)
+    out["library_fir_exact"] = lib_ms
     del x32
     torch.cuda.empty_cache()
     return out
@@ -552,6 +589,542 @@ def phase_apps(tmp: Path):
     check(rate == 8000 and err < 2e-3, "wavplay output")
 
 
+def bound(nbytes, ops):
+    """The least time (ms) the card could take for a call and what sets it:
+    the bytes it must move at the HBM rate, or its operations at the
+    float32 (non-tensor-core) rate, H100 SXM published peaks."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / FLOPS_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def afsk_op(L, d, ell, c, b, plane_dtype=None):
+    """The fused AFSK op at stride d with correlator window ell (the tone
+    rate chosen so that int(audio_fs / baud) == ell)."""
+    from libsdr_tpu_torch.ops import FMDemod, FSKDetector, IQBaseBand
+    from libsdr_tpu_torch.ops.afsk_fused import AFSKFrontendFused
+
+    audio_fs = FS / d
+    rx = L.Pipeline([IQBaseBand(fc=FS / 8, width=min(FS / 4.8, 0.8 * FS / d),
+                                order=48, decim=d, design="textbook"),
+                     FMDemod(), FSKDetector(audio_fs / (ell + 0.5),
+                                            0.05 * audio_fs,
+                                            0.09 * audio_fs)])
+    rx.bind(L.StreamSpec(np.complex64, FS, b, channels=(c,),
+                         plane_dtype=plane_dtype))
+    op = rx.stages[0]
+    check(isinstance(op, AFSKFrontendFused) and op.corr_len == ell,
+          f"fusion did not install AFSKFrontendFused: {rx.stages}")
+    return op
+
+
+def afsk_args(op, x, carry):
+    tail, prev, n0, um, us = carry
+    return (x, op._taps(x.re.device), op._decim, tail, prev, op._rot,
+            op._gain, op._on("mark", op._tones[0], x.re.device),
+            op._on("space", op._tones[1], x.re.device), n0, um, us)
+
+
+def afsk_errs(torch, got, ref):
+    """K1e against its plain version: (disc error over each channel's
+    largest |disc|, absolute tail error, y_last error); the symbols must
+    agree wherever |disc| is above the bound."""
+    disc, y_last, um, us = got
+    rdisc, ry, rum, rus = ref
+    check(bool(torch.isfinite(disc).all()), "fir_afsk_exact not finite")
+    scale = rdisc.abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+    err = float(((disc - rdisc).abs() / scale).max())
+    clear = rdisc.abs() > AFSK_BOUND * scale
+    check(bool(((disc > 0) == (rdisc > 0))[clear].all()),
+          "fir_afsk_exact symbols differ where |disc| is above the bound")
+    terr = max(float((a - r).abs().max())
+               for t, rt in ((um, rum), (us, rus))
+               for a, r in ((t.re, rt.re), (t.im, rt.im)))
+    yerr = max(float((y_last.re - ry.re).abs().max()),
+               float((y_last.im - ry.im).abs().max()))
+    return err, terr, yerr
+
+
+def phase_afsk_parity(torch, L, gen):
+    """K1e against its plain version: both plane dtypes, strides 2-100 (the
+    warp kernel above 40), windows 2-128, channels 1, 3 and 64 in turn,
+    n0 != 0 and nonzero carried products, a warm block and three
+    carry-chained blocks of several chunks each."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import fir_fm as F
+
+    worst = 0.0
+    n_out = 3 * 4096 + 333
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, d in enumerate((2, 4, 5, 10, 40, 100)):
+            for j, ell in enumerate((2, 20, 40, 128)):
+                c = (1, 3, 64)[(i + j) % 3]
+                b = d * n_out
+                op = afsk_op(L, d, ell, c, b, dtype)
+                tail, prev, _, _, _ = op.init_carry("cuda")
+                carry = (tail, prev,
+                         torch.tensor(7 % ell, dtype=torch.int32,
+                                      device="cuda"),
+                         noise(torch, gen, c, ell - 1),
+                         noise(torch, gen, c, ell - 1))
+                errs = [0.0, 0.0, 0.0]
+                for k in range(4):
+                    xr, xi = fm_signal(torch, gen, c, b, d, "cuda", k * b)
+                    x = Complex(xr.to(dtype), xi.to(dtype))
+                    args = afsk_args(op, x, carry)
+                    ref = F.fir_afsk_exact_plain(*args)
+                    got = F.fir_afsk_exact(*args)
+                    torch.cuda.synchronize()
+                    if k:  # block 0 warms the discriminator up
+                        errs = [max(a, b_) for a, b_ in
+                                zip(errs, afsk_errs(torch, got, ref))]
+                    carry = (x[..., b - (op._t - 1):].map(torch.clone),
+                             ref[1], (carry[2] + n_out) % ell, ref[2],
+                             ref[3])
+                name = f"{str(dtype)[6:]} D={d} L={ell} C={c}"
+                print(f"parity K1e {name}: disc {errs[0]:.3e} (of max), "
+                      f"tails {errs[1]:.3e} (abs), y_last {errs[2]:.3e}")
+                check(errs[0] < AFSK_BOUND and errs[1] < ERR_BOUND
+                      and errs[2] < ERR_BOUND,
+                      f"fir_afsk_exact vs plain {name}: {errs}")
+                worst = max(worst, errs[0])
+    return worst
+
+
+def pll_symbols(rng, m, t, run):
+    """(m, t) uint8 symbols in runs of about ``run`` steps, with flips."""
+    sym = np.repeat(rng.integers(0, 2, (m, t // run + 2)), run, axis=1)
+    flips = rng.random((m, sym.shape[1])) < 0.02
+    return (sym ^ flips)[:, :t].astype(np.uint8)
+
+
+def bank_params(ells, trans):
+    """Per-lane pll_bank parameters of BitStreams at windows ``ells`` (the
+    BitStream's omega0 = 1/L at fs = L * baud)."""
+    om0 = (1.0 / np.asarray(ells, np.float64))
+    return dict(omega_min=(om0 * 0.995).astype(np.float32),
+                omega_max=(om0 * 1.005).astype(np.float32),
+                gain=np.full(len(ells), 0.0005, np.float32),
+                transition=np.asarray(trans, np.int32),
+                ell=np.asarray(ells, np.int32)), om0.astype(np.float32)
+
+
+def phase_pll_parity(torch):
+    """K2 and K3 bit-exact against their plain versions: windows 2-512,
+    1-1000 lanes, both bit mappings, the real +-0.5% bounds and bounds
+    widened to 0.5-2x omega0, two chained blocks (one of a length that is
+    not a multiple of 16); then a bank mixing three configurations."""
+    from libsdr_tpu_torch.ops.pll import (pll, pll_bank, pll_bank_plain,
+                                          pll_plain)
+
+    rng = np.random.default_rng(11)
+    cases = 0
+    for ell in (2, 20, 40, 264, 512):
+        for m in (1, 64, 256, 1000):
+            for mode in ("normal", "transition"):
+                om0 = 1.0 / ell
+                for lo, hi, t in ((0.995, 1.005, 2048), (0.5, 2.0, 2056)):
+                    kw = dict(omega_min=om0 * lo, omega_max=om0 * hi,
+                              gain=0.0005, transition=mode == "transition")
+                    st = [torch.zeros(m, ell - 1, dtype=torch.int32),
+                          torch.zeros(m, dtype=torch.int32), torch.zeros(m),
+                          torch.full((m,), om0),
+                          torch.zeros(m, dtype=torch.int32)]
+                    sg = [v.cuda() for v in st]
+                    for _ in range(2):
+                        sym = torch.from_numpy(pll_symbols(rng, m, t, ell))
+                        got = pll(sym.cuda(), *sg, **kw)
+                        ref = pll_plain(sym, *st, **kw)
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(a.cpu(), r)
+                                  for a, r in zip(got, ref)),
+                              f"pll vs plain L={ell} M={m} {mode} "
+                              f"bounds {lo}-{hi}: not bit-exact")
+                        st, sg = list(ref[1:]), list(got[1:])
+                    cases += 1
+    print(f"parity K2: {cases} cases (L 2-512, M 1-1000, both mappings, "
+          "real and widened bounds, 2 chained blocks): bit-exact")
+    cfg = [(20, 0, 64), (20, 1, 64), (264, 0, 64)]
+    ells = np.concatenate([np.full(n, e) for e, _, n in cfg])
+    trans = np.concatenate([np.full(n, tr) for _, tr, n in cfg])
+    kw, om0 = bank_params(ells, trans)
+    m, r = len(ells), int(ells.max()) - 1
+    st = [torch.zeros(m, r, dtype=torch.int32),
+          torch.zeros(m, dtype=torch.int32), torch.zeros(m),
+          torch.from_numpy(om0), torch.zeros(m, dtype=torch.int32)]
+    sg = [v.cuda() for v in st]
+    for t in (4096, 4104):
+        sym = torch.from_numpy(pll_symbols(rng, m, t, 20))
+        got = pll_bank(sym.cuda(), *sg, **kw)
+        ref = pll_bank_plain(sym, *st, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a.cpu(), b_) for a, b_ in zip(got, ref)),
+              "pll_bank vs plain: not bit-exact")
+        st, sg = list(ref[1:]), list(got[1:])
+    print("parity K3: a bank of L=20 normal, L=20 transition and L=264 "
+          "normal lanes, 2 chained blocks: bit-exact")
+
+
+def counts_now(entries):
+    return {e.__name__: e.launches for e in entries}
+
+
+def set_counts_zero(entries):
+    for e in entries:
+        e.launches = 0
+
+
+def phase_p1(torch, L, gen, smi):
+    """P1, the AX.25/APRS bank: 64 channels x 2^21 samples at 192 kHz
+    through [IQBaseBand(fc=24e3, order=48, out_rate=48e3), FMDemod,
+    FSKDetector(1200, 1200, 2200), BitStream(1200, transition)], which
+    fusion makes AFSKFrontendFused (K1e) + BitStream (K2).  Every channel
+    carries FM-modulated AX.25 frames (tools/digital_signals.ax25_bank)
+    and must decode all of them, in both plane dtypes.  Then K1e and K2
+    are timed at the path's shapes against their plain versions on the
+    same inputs, and K2 held bit-exact to its plain version: over the
+    whole block with float32 planes, on an 8,192-step prefix with
+    bfloat16 planes."""
+    from libsdr_tpu_torch.core.ragged import Ragged, compact
+    from libsdr_tpu_torch.decode import AX25Decoder
+    from libsdr_tpu_torch.ops import (BitStream, FMDemod, FSKDetector,
+                                      IQBaseBand)
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops.afsk_fused import AFSKFrontendFused
+    from libsdr_tpu_torch.ops.pll import pll, pll_plain
+    from libsdr_tpu_torch.tools.digital_signals import AX25_INFO, ax25_bank
+
+    fs, c, b = 192_000.0, CHANNELS, 1 << 21
+    entries = all_entries()
+    res = {}
+    for plane, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = ax25_bank(c, b, gen, fs).to(dtype)
+        p = L.Pipeline([IQBaseBand(fc=24e3, width=12.5e3, order=48,
+                                   out_rate=48e3, design="textbook"),
+                        FMDemod(), FSKDetector(1200.0, 1200.0, 2200.0),
+                        BitStream(1200.0, mode="transition")])
+        p.bind(L.StreamSpec(np.complex64, fs, b, channels=(c,),
+                            plane_dtype=dtype))
+        check([type(s) for s in p.stages] == [AFSKFrontendFused, BitStream],
+              f"P1 stages {p.stages}")
+        op = p.stages[0]
+        check(op._t == 51 and op._decim == 4 and op.corr_len == 40,
+              f"P1 shape T={op._t} D={op._decim} L={op.corr_len}")
+        step = p.compile()
+        set_counts_zero(entries)
+        carry = p.init_carry("cuda")
+        carry, y = step(carry, x)
+        torch.cuda.synchronize()
+        check(tuple(y.data.shape) == (c, b // 4), "P1 output shape")
+        bits = compact(Ragged(y.data.cpu().numpy(), y.valid.cpu().numpy()))
+        decoded = 0
+        want = [AX25_INFO + str(f).encode() for f in range(8)]
+        for ch_bits in bits:
+            dec = AX25Decoder()
+            dec.process(ch_bits)
+            decoded += sum(any(m.payload.endswith(w) for m in dec.messages)
+                           for w in want)
+        iters, best = 5, float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            cc = carry
+            for _ in range(iters):
+                cc, y = step(cc, x)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        counts = counts_now(entries)
+        n_steps = 1 + 3 * iters
+        check(counts["fir_afsk_exact"] == n_steps and counts["pll"] == n_steps
+              and all(v == 0 for k, v in counts.items()
+                      if k not in ("fir_afsk_exact", "pll")),
+              f"P1 {plane} launches {counts}")
+        ms_step = best / iters * 1e3
+        # The kernels at the path's shapes, timed with CUDA events, on the
+        # second block's inputs (the carry after the first block).
+        args = afsk_args(op, x, carry[0])
+        got, ref = F.fir_afsk_exact(*args), F.fir_afsk_exact_plain(*args)
+        torch.cuda.synchronize()
+        e_afsk = afsk_errs(torch, got, ref)
+        check(e_afsk[0] < AFSK_BOUND and e_afsk[1] < ERR_BOUND,
+              f"P1 {plane} K1e vs plain {e_afsk}")
+        sym = (ref[0] > 0).to(torch.uint8)
+        del got, ref
+        k1e_ms = cuda_ms(torch, lambda: F.fir_afsk_exact(*args), 5)
+        k1e_plain = cuda_ms(torch, lambda: F.fir_afsk_exact_plain(*args), 2)
+        bs = p.stages[1]
+        st = carry[1]
+        pargs = (st["signs"], st["sym_sum"], st["phase"], st["omega"],
+                 st["last_bits"])
+        kw = dict(omega_min=bs._omega_min, omega_max=bs._omega_max,
+                  gain=bs._pll_gain, transition=True)
+        # kernel and plain on the same symbols: the whole block (f32) or
+        # an 8,192-step prefix (bf16: the plain loop takes ~10 s a block)
+        held = sym if plane == "f32" else sym[:, :8192].contiguous()
+        k2_ms = cuda_ms(torch, lambda: pll(sym, *pargs, **kw), 3)
+        k2_held = cuda_ms(torch, lambda: pll(held, *pargs, **kw), 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = pll_plain(held.cpu(), *(v.cpu() for v in pargs), **kw)
+        k2_plain = (time.perf_counter() - t0) * 1e3
+        got = pll(held, *pargs, **kw)
+        check(all(torch.equal(a.cpu(), r) for a, r in zip(got, ref)),
+              f"P1 {plane} K2 vs plain on {held.shape[1]} steps")
+        n_out = b // 4
+        isz = x.re.element_size()
+        # operations a K1e output: the FIR's 8T, the discriminator's ~50,
+        # and ~20 for the tone products, an O(1) update of each sliding
+        # window sum and the two squared magnitudes
+        k1e_bound = bound(c * (2 * isz * b + 4 * n_out),
+                          c * n_out * (8 * op._t + 50 + 20))
+        k2_bound = bound(2 * c * n_out, 30 * c * n_out)
+        res[plane] = dict(decoded=decoded, ms_step=ms_step, counts=counts,
+                          k1e=(e_afsk[0], k1e_ms, k1e_plain, k1e_bound),
+                          k2=(k2_ms, k2_plain, k2_held, held.shape[1],
+                              k2_bound))
+        print(f"phase P1 {plane} planes ({c}x{b} @ 192 kHz, T={op._t}, D=4, "
+              f"L=40): {ms_step:.2f} ms/step "
+              f"({c * b / ms_step / 1e3:.1f} Msps), frames decoded "
+              f"{decoded}/{8 * c}, launches {counts} | {smi}")
+        print(f"phase P1 {plane} K1e: max_err={e_afsk[0]:.3e} (of max "
+              f"|disc|) kernel {k1e_ms:.3f} ms, plain {k1e_plain:.3f} ms, "
+              f"bound {k1e_bound[0]:.3f} ms ({k1e_bound[1]})")
+        print(f"phase P1 {plane} K2: kernel {k2_ms:.3f} ms ({n_out} steps x "
+              f"{c} lanes); on {held.shape[1]} steps kernel {k2_held:.3f} "
+              f"ms, plain {k2_plain:.1f} ms (bit-exact); bound "
+              f"{k2_bound[0]:.4f} ms ({k2_bound[1]})")
+        check(decoded == 8 * c, f"P1 {plane}: {decoded} of {8 * c} frames")
+        del x, carry, y, args, sym, held
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_p2(torch, L, gen, smi):
+    """P2, the POCSAG decoder bank: 256 channels x 117,760 samples at
+    240 kHz, 4 blocks, through apps/chains.pocsag_front_end (K1a without
+    de-emphasis, ASKDetector, BitStream: K2), one page per channel at
+    per-channel gains with noise (tools/digital_signals.pocsag_blocks);
+    every channel must decode its page.  Then, on the second block and
+    the carries the path left after the first, K1a is held against its
+    plain version and K2 bit-exact against its plain version on the
+    symbols of the path's own ASKDetector."""
+    from libsdr_tpu_torch.apps.chains import pocsag_front_end
+    from libsdr_tpu_torch.core.ragged import Ragged, compact
+    from libsdr_tpu_torch.decode import pocsag_decode_bits
+    from libsdr_tpu_torch.ops.pll import pll, pll_plain
+    from libsdr_tpu_torch.tools.digital_signals import (POCSAG_ADDRESS,
+                                                        pocsag_blocks)
+
+    fs, c, blk, nb = 240e3, 256, 117_760, 4
+    blocks = pocsag_blocks(c, blk, nb, gen, fs)
+    fe = pocsag_front_end(fs, blk, channels=(c,))
+    op, ask, bs = fe.stages
+    check(type(op).__name__ == "FMBasebandFused" and op._decim == 10
+          and op._t == 41 and bs.corr_len == 20, f"P2 stages {fe.stages}")
+    step = fe.compile()
+    entries = all_entries()
+    best, outs = float("inf"), None
+    for rep in range(2):
+        set_counts_zero(entries)
+        carry = fe.init_carry("cuda")
+        ys, first = [], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in blocks:
+            carry, y = step(carry, x)
+            first = carry if first is None else first
+            ys.append(y)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        counts = counts_now(entries)
+        outs = ys
+    check(counts["fir_fm_exact"] == nb and counts["pll"] == nb
+          and all(v == 0 for k, v in counts.items()
+                  if k not in ("fir_fm_exact", "pll")),
+          f"P2 launches {counts}")
+    t0 = time.perf_counter()
+    chan_bits = compact(Ragged(
+        np.concatenate([y.data.cpu().numpy() for y in outs], -1),
+        np.concatenate([y.valid.cpu().numpy() for y in outs], -1)))
+    decoded = sum(1 for cb in chan_bits
+                  if any(m.address == POCSAG_ADDRESS
+                         for m in pocsag_decode_bits(cb)))
+    host_s = time.perf_counter() - t0
+    ms_step = best / nb * 1e3
+    # The path's kernels against their plain versions on its own inputs.
+    (audio, y_last), (ref, ry) = run_pair(op, blocks[1], first[0], False)
+    torch.cuda.synchronize()
+    k1a_err = max(float((audio - ref).abs().max()),
+                  float((y_last.re - ry.re).abs().max()),
+                  float((y_last.im - ry.im).abs().max()))
+    _, sym = ask.apply(first[1], ref)
+    st = first[2]
+    pargs = (st["signs"], st["sym_sum"], st["phase"], st["omega"],
+             st["last_bits"])
+    kw = dict(omega_min=bs._omega_min, omega_max=bs._omega_max,
+              gain=bs._pll_gain, transition=False)
+    got = pll(sym, *pargs, **kw)
+    ref = pll_plain(sym.cpu(), *(v.cpu() for v in pargs), **kw)
+    k2_exact = all(torch.equal(a.cpu(), r) for a, r in zip(got, ref))
+    print(f"phase P2 POCSAG bank ({c}x{blk} @ 240 kHz, T=41, D=10, L=20, "
+          f"{nb} blocks): {ms_step:.2f} ms/step, pages decoded "
+          f"{decoded}/{c} (host decode {host_s:.1f} s), launches {counts} "
+          f"| {smi}")
+    print(f"phase P2 kernels on block 2: K1a max_abs_err={k1a_err:.3e} "
+          f"(bound {ERR_BOUND:g}); K2 on {tuple(sym.shape)} ASKDetector "
+          f"symbols: {'bit-exact' if k2_exact else 'DIFFERS'}")
+    check(k1a_err < ERR_BOUND, f"P2 K1a vs plain: {k1a_err}")
+    check(k2_exact, "P2 K2 vs plain: not bit-exact")
+    check(decoded == c, f"P2: {decoded} of {c} pages decoded")
+    return dict(ms_step=ms_step, decoded=decoded, counts=counts)
+
+
+def mode_decoded(mode, bits):
+    """Whether one channel of the mode bank decoded its mode's message."""
+    from libsdr_tpu_torch.decode import (AX25Decoder, BaudotDecoder,
+                                         pocsag_decode_bits)
+    from libsdr_tpu_torch.tools import digital_signals as S
+
+    if mode == "pocsag":
+        return any(m.address == S.POCSAG_ADDRESS
+                   for m in pocsag_decode_bits(bits))
+    if mode == "ax25":
+        dec = AX25Decoder()
+        dec.process(bits)
+        return any(m.payload.endswith(S.AX25_INFO) for m in dec.messages)
+    return S.RTTY_TEXT in BaudotDecoder(stop_bits="1.5").process(bits)
+
+
+def phase_p3(torch, L, gen, smi):
+    """P3, the mode bank's PLL: apply_mode_chains over a 24 kHz complex bank
+    of three 64-channel groups (pocsag FMDemod -> ASKDetector ->
+    BitStream(normal); ax25 FMDemod -> FSKDetector -> BitStream
+    (transition); rtty USBDemod -> FSKDetector(2 x 45.45) -> BitStream
+    (normal)), 2^18 steps a block, each channel carrying its mode's
+    messages (tools/digital_signals.mode_bank): one K3 launch per step for
+    the three BitStreams, and every channel decodes its messages.  K3 is
+    then timed, and held bit-exact to its plain version, on the arguments
+    of the path's own pll_bank call (its detectors' symbols)."""
+    from libsdr_tpu_torch.core.ragged import Ragged, compact
+    from libsdr_tpu_torch.ops import bitsync
+    from libsdr_tpu_torch.ops.pll import pll_bank, pll_bank_plain
+    from libsdr_tpu_torch.tools.digital_signals import mode_bank, mode_chains
+
+    fs, per, t = 24_000.0, 64, 1 << 18
+    y, groups = mode_bank(per, t, gen, fs)
+    sub, windows = mode_chains(per, t, fs)
+    check(sorted(p.stages[-1].corr_len for p in sub.values()) ==
+          [20, 20, 264], "P3 windows")
+    carries = {m: p.init_carry("cuda") for m, p in sub.items()}
+    entries = all_entries()
+    # The first step, with the arguments of its one pll_bank call kept.
+    calls = []
+
+    def keep(*a, **kw):
+        calls.append((a, kw))
+        return pll_bank(*a, **kw)
+    bitsync.pll_bank = keep
+    try:
+        outs, carries = bitsync.apply_mode_chains(sub, carries, y, groups,
+                                                 windows)
+    finally:
+        bitsync.pll_bank = pll_bank
+    torch.cuda.synchronize()
+    check(len(calls) == 1, f"P3: {len(calls)} pll_bank calls in a step")
+    t0 = time.perf_counter()
+    decoded = {}
+    for mode, out in outs.items():
+        rows = compact(Ragged(out.data.cpu().numpy(),
+                              out.valid.cpu().numpy()))
+        decoded[mode] = sum(mode_decoded(mode, bits) for bits in rows)
+    host_s = time.perf_counter() - t0
+    set_counts_zero(entries)
+    steps, t0 = 3, time.perf_counter()
+    for _ in range(steps):
+        outs, carries = bitsync.apply_mode_chains(sub, carries, y, groups,
+                                                 windows)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / steps * 1e3
+    counts = counts_now(entries)
+    check(counts["pll_bank"] == steps and all(
+        v == 0 for k, v in counts.items() if k != "pll_bank"),
+        f"P3 launches {counts}")
+    check(all(outs[m].data.shape[-1] == t // windows[m] for m in sub),
+          "P3 compacted output shapes")
+    # K3 on the path's own call, kernel and plain on the whole block.
+    args, kw = calls[0]
+    k3_ms = cuda_ms(torch, lambda: pll_bank(*args, **kw), 3)
+    t0 = time.perf_counter()
+    ref = pll_bank_plain(*(a.cpu() for a in args), **kw)
+    k3_plain = (time.perf_counter() - t0) * 1e3
+    got = pll_bank(*args, **kw)
+    check(all(torch.equal(a.cpu(), b_) for a, b_ in zip(got, ref)),
+          "P3 K3 vs plain on the path's block: not bit-exact")
+    m = args[0].shape[0]
+    k3_bound = bound(2 * m * t, 30 * m * t)
+    print(f"phase P3 mode bank (3 x {per} ch x {t} steps @ 24 kHz, L=20/20/"
+          f"264): {ms_step:.2f} ms/step, launches {counts}; channels "
+          f"decoded {decoded} of {per} each (host decode {host_s:.1f} s); "
+          f"K3 kernel {k3_ms:.3f} ms, plain {k3_plain:.1f} ms on the same "
+          f"block (bit-exact), bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) "
+          f"| {smi}")
+    check(all(v == per for v in decoded.values()),
+          f"P3: channels decoded {decoded} of {per} each")
+    return dict(ms_step=ms_step, counts=counts, decoded=decoded,
+                k3=(k3_ms, k3_plain, k3_bound))
+
+
+def phase_digital_apps(tmp: Path):
+    """The digital apps on the card against the same app with --device cpu:
+    pocsag_rx, ax25_rx from IQ and with --audio, rtty_rx, on captures from
+    the tx app; the same decoded messages, and the path's kernels launched."""
+    from libsdr_tpu_torch.apps import ax25_rx, pocsag_rx, rtty_rx, tx
+    from libsdr_tpu_torch.io import read_wav, write_wav_iq
+    from libsdr_tpu_torch.ops import siggen
+
+    entries = all_entries()
+
+    def run(label, main, args, expect, summary):
+        set_counts_zero(entries)
+        got = main(args + ["--device", "cuda"])
+        counts = counts_now(entries)
+        for name in expect:
+            check(counts[name] > 0, f"{label}: {name} did not launch: "
+                                    f"{counts}")
+        ref = main(args + ["--device", "cpu"])
+        check(summary(got) == summary(ref) and summary(got),
+              f"{label}: card {summary(got)} != CPU {summary(ref)}")
+        print(f"phase apps {label}: card == CPU: {summary(got)!r}, "
+              f"launches {counts}")
+
+    f = tx.main(["pocsag", "-o", str(tmp / "p.wav"), "--address", "777",
+                 "--text", "LOOPBACK"])
+    run("pocsag_rx", pocsag_rx.main, ["--file", f, "--block-size", "24000"],
+        ["fir_fm_exact", "pll"],
+        lambda ms: [(m.address, m.as_text()) for m in ms])
+    f = tx.main(["afsk", "-o", str(tmp / "a.wav"), "--from-call", "K2TX"])
+    run("ax25_rx --audio", ax25_rx.main,
+        ["--file", f, "--audio", "--block-size", "12000"], ["pll"],
+        lambda d: [str(m) for m in d.messages])
+    audio, fs = read_wav(f)
+    iq = siggen.fm_modulate(10 * fs, np.repeat(audio, 10), deviation=3e3)
+    write_wav_iq(str(tmp / "aiq.wav"), 0.8 * iq, 10 * fs)
+    run("ax25_rx IQ", ax25_rx.main,
+        ["--file", str(tmp / "aiq.wav"), "--block-size", "24000"],
+        ["fir_fm_exact", "pll"], lambda d: [str(m) for m in d.messages])
+    f = tx.main(["rtty", "-o", str(tmp / "r.wav"), "--text", "RYRY TX LOOP",
+                 "--fs", "8000"])
+    run("rtty_rx", rtty_rx.main, ["--file", f, "--block-size", "8000"],
+        ["pll"], lambda text: text.strip())
+
+
+def all_entries():
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops.pll import pll, pll_bank
+
+    return (F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact,
+            F.fir_afsk_exact, pll, pll_bank)
+
+
 def main() -> int:
     import torch
 
@@ -590,6 +1163,10 @@ def main() -> int:
     mode_worst = phase_modes(torch, gen)
     print(f"phase 3 parity K1b/K1c/K1d: {mode_worst} (bounds: relative "
           f"{REL_BOUND:g}, AGC {AGC_BOUND:g})")
+    afsk_worst = phase_afsk_parity(torch, L, gen)
+    print(f"phase 3 parity K1e: max disc error {afsk_worst:.3e} of max "
+          f"|disc| (bound {AFSK_BOUND:g})")
+    phase_pll_parity(torch)
 
     # Kernel vs plain at the main path's shapes, timed with CUDA events.
     rx = fused_op(L, 4, 64, CHANNELS, BLOCK)
@@ -629,6 +1206,11 @@ def main() -> int:
     del x32, xr, xi
     torch.cuda.empty_cache()
     banks = phase_banks(torch, L, gen, smi)
+    # The digital receive paths, each driven with the launch counts set to
+    # 0 just before it and read just after.
+    p1 = phase_p1(torch, L, gen, smi)
+    p2 = phase_p2(torch, L, gen, smi)
+    p3 = phase_p3(torch, L, gen, smi)
 
     # Phase 5: a real signal through run_pipeline on the card.
     audio = siggen.sine(FS, int(FS), 1000.0, amps=0.8)
@@ -650,27 +1232,66 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         phase_apps(Path(tmp))
+        phase_digital_apps(Path(tmp))
 
+    # The kernels' record, float32 planes.  Bounds from this run's shapes:
+    # bytes (planes read once, outputs written once) and float32 operations
+    # (an FMA counts two; the FIR's 8T per output, the discriminator and
+    # the epilogues a few tens).
+    n_main = BLOCK // 4
     err, ms, plain_ms = main["f32"]
-    record = [{
-        "name": "fir_fm_exact", "route": "cuda",
-        "source": "libsdr_tpu_torch/csrc/fir_fm_exact.cu",
-        "replaces": "libsdr_tpu/ops/pallas_fir_mxu.py:777",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]
+    b_ms, b_by = bound(CHANNELS * (8 * BLOCK + 4 * n_main),
+                       CHANNELS * n_main * (8 * 67 + 50))
+    record = [dict(name="fir_fm_exact", route="cuda",
+                   source="libsdr_tpu_torch/csrc/fir_fm_exact.cu",
+                   replaces="libsdr_tpu/ops/pallas_fir_mxu.py:777",
+                   launches=launches, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None)]
     # at the banks' strides K1b (D = 4) runs the staged kernel, K1c (D = 40)
     # and K1d (D = 80) the warp kernel and the AGC passes (agc.cu)
     for name, src in (("fir_exact", "fir_fm_exact.cu"),
                       ("fir_am_exact", "fir_warp.cu"),
                       ("fir_usb_exact", "fir_warp.cu")):
-        res, _, n_launch, _, _ = banks[name]
+        res, _, n_launch, d, b, t = banks[name]
         err, ms, plain_ms = res["f32"]
-        record.append({
-            "name": name, "route": "cuda",
-            "source": f"libsdr_tpu_torch/csrc/{src}",
-            "replaces": "libsdr_tpu/ops/pallas_fir_mxu.py:777",
-            "launches": n_launch, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms})
+        n = b // d
+        out_bytes = 8 * n if name == "fir_exact" else 16 * n
+        b_ms, b_by = bound(CHANNELS * (8 * b + out_bytes),
+                           CHANNELS * n * (8 * t + 20))
+        record.append(dict(
+            name=name, route="cuda", source=f"libsdr_tpu_torch/csrc/{src}",
+            replaces="libsdr_tpu/ops/pallas_fir_mxu.py:777",
+            launches=n_launch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=banks["library_fir_exact"] if name == "fir_exact"
+            else None))
+    err, ms, plain_ms, (b_ms, b_by) = p1["f32"]["k1e"]
+    record.append(dict(
+        name="fir_afsk_exact", route="cuda",
+        source="libsdr_tpu_torch/csrc/fir_fm_exact.cu",
+        replaces="libsdr_tpu/ops/pallas_fir_mxu.py:777",
+        launches=p1["f32"]["counts"]["fir_afsk_exact"], max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None))
+    # K2 and K3: kernel and plain version timed on the same whole block
+    ms, plain_ms, _, _, (b_ms, b_by) = p1["f32"]["k2"]
+    record.append(dict(
+        name="pll", route="cuda", source="libsdr_tpu_torch/csrc/bitsync.cu",
+        replaces="libsdr_tpu/ops/pallas_bitsync.py:128",
+        launches=p1["f32"]["counts"]["pll"], max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    ms, plain_ms, (b_ms, b_by) = p3["k3"]
+    record.append(dict(
+        name="pll_bank", route="cuda",
+        source="libsdr_tpu_torch/csrc/bitsync.cu",
+        replaces="libsdr_tpu/ops/pallas_bitsync.py:504",
+        launches=p3["counts"]["pll_bank"], max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    print(f"paths: P1 {p1['f32']['ms_step']:.2f} / "
+          f"{p1['bf16']['ms_step']:.2f} ms/step (f32 / bf16 planes), P2 "
+          f"{p2['ms_step']:.2f} ms/step with {p2['decoded']}/256 pages, P3 "
+          f"{p3['ms_step']:.2f} ms/step")
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

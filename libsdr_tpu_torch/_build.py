@@ -110,9 +110,19 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         i32, i32,            # K, K_agc (chunks per channel)
         f32, f32, f32,       # rot_r, rot_i, gain
         f64, f64, i32,       # a, b, iir (de-emphasis or AGC)
+        p, i32,              # afsk: 13 operand pointers, window L
         i32, p]              # bf16 planes, stream
     lib.sdr_fir_exact.restype = i32
-    lib.sdr_fir_chunks.argtypes = [i32, i64, i64, i32, i32, i32]
+    lib.sdr_pll.argtypes = [
+        p, p, p, p, p, p,    # sym, signs, ss_in, ph_in, om_in, lb_in
+        p, p, p, p, p,       # per-lane omin, omax, gain, transition, ell
+        f32, f32, f32,       # omin, omax, gain (scalars)
+        i32, i32,            # transition, ell (scalars)
+        p, p,                # bncr scratch, out
+        p, p, p, p,          # ss_out, ph_out, om_out, lb_out
+        i64, i64, i32, p]    # M, T, R, stream
+    lib.sdr_pll.restype = i32
+    lib.sdr_fir_chunks.argtypes = [i32, i64, i64, i32, i32, i32, i32]
     lib.sdr_fir_chunks.restype = i32
     lib.sdr_agc_chunks.argtypes = [i64, i64]
     lib.sdr_agc_chunks.restype = i32

@@ -1,14 +1,18 @@
-"""Receive chains shared by the app CLIs (counterpart of the analog chains
-of ``libsdr_tpu.apps.chains``)."""
+"""Receive chains shared by the app CLIs (counterpart of
+``libsdr_tpu.apps.chains``)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from libsdr_tpu_torch.core.graph import Pipeline
+from libsdr_tpu_torch.core import cplx
+from libsdr_tpu_torch.core.graph import Pipeline, resolve_device
+from libsdr_tpu_torch.core.ragged import compact, concat_host
+from libsdr_tpu_torch.core.runtime import stream_blocks
 from libsdr_tpu_torch.core.stream import StreamSpec
-from libsdr_tpu_torch.ops import (AGC, AMDemod, FIRFilter, FMDeemph,
-                                  FMDemod, IQBaseBand, USBDemod)
+from libsdr_tpu_torch.ops import (AGC, AMDemod, ASKDetector, BitStream,
+                                  FIRFilter, FMDeemph, FMDemod, FSKDetector,
+                                  IQBaseBand, USBDemod)
 
 
 def fm_chain(fs: float, block: int, fc: float = 0.0, width: float = 200e3,
@@ -77,3 +81,58 @@ def rx_chain(mode: str, fs: float, block: int, fc: float = 0.0) -> Pipeline:
     p = Pipeline(rx_stages(mode, fs, fc), name=f"rx_{mode.upper()}")
     p.bind(StreamSpec(np.complex64, fs, block))
     return p
+
+
+def pocsag_front_end(fs: float, block: int, fc: float = 0.0,
+                     baud: float = 1200.0, channels=()) -> Pipeline:
+    """POCSAG bit front end: IQBaseBand -> FMDemod -> ASKDetector ->
+    BitStream(NORMAL); the fusion pass makes the first two one
+    FMBasebandFused op."""
+    p = Pipeline([
+        IQBaseBand(fc=fc, width=12.5e3, order=32, out_rate=24e3,
+                   design="textbook"),
+        FMDemod(),
+        ASKDetector(invert=True),  # POCSAG mark (1) = negative deviation
+        BitStream(baud, mode="normal"),
+    ], name="pocsag_fe")
+    p.bind(StreamSpec(np.complex64, fs, block, channels=tuple(channels)))
+    return p
+
+
+def afsk_front_end(fs_audio: float, block: int, baud: float = 1200.0,
+                   f_mark: float = 1200.0, f_space: float = 2200.0) -> Pipeline:
+    """AFSK1200 bit front end from demodulated audio: FSKDetector ->
+    BitStream(TRANSITION)."""
+    p = Pipeline([
+        FSKDetector(baud, f_mark, f_space),
+        BitStream(baud, mode="transition"),
+    ], name="afsk_fe")
+    p.bind(StreamSpec(np.float32, fs_audio, block))
+    return p
+
+
+def rtty_front_end(fs_audio: float, block: int, baud: float = 45.45,
+                   f_mark: float = 930.0, f_space: float = 1100.0) -> Pipeline:
+    """RTTY front end: FSK at twice the baud rate (half-bits, for the
+    1.5-stop-bit framing) -> BitStream(NORMAL)."""
+    p = Pipeline([
+        FSKDetector(2 * baud, f_mark, f_space),
+        BitStream(2 * baud, mode="normal"),
+    ], name="rtty_fe")
+    p.bind(StreamSpec(np.float32, fs_audio, block))
+    return p
+
+
+def run_bit_chain(pipeline: Pipeline, samples: np.ndarray, device=None):
+    """Stream samples through a bit front end on ``device`` (default: the
+    card) and return the dense bit vector (a list of them for a bank)."""
+    device = resolve_device(device)
+    block = pipeline.in_spec.block_size
+    step = pipeline.compile()
+    carry = pipeline.init_carry(device)
+    outs = []
+    for blk in stream_blocks(samples, block):
+        carry, y = step(carry, cplx.as_block(blk, pipeline.in_spec.real_dtype,
+                                             device))
+        outs.append(y.to_numpy())
+    return compact(concat_host(outs))

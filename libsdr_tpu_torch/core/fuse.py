@@ -9,16 +9,20 @@ Rules, each exact in exact arithmetic, on adjacent stages of one Pipeline:
    demod folds the constant in.
 2. ``FreqShift(f, exact) -> AMDemod``: ``|x|`` is rotation invariant; the
    FreqShift is dropped.
-3. ``IQBaseBand -> FMDemod(quadrature) [-> FMDeemph]``: one
+3. ``IQBaseBand -> FMDemod(quadrature) -> FSKDetector``: one
+   :class:`AFSKFrontendFused` op computes the symbols straight from the raw
+   IQ block through the fused FIR + FM + FSK correlator kernel.  Tried
+   before rule 4, which would take the first two stages.
+4. ``IQBaseBand -> FMDemod(quadrature) [-> FMDeemph]``: one
    :class:`FMBasebandFused` op computes the audio straight from the raw IQ
    block through the fused FIR + FM + de-emphasis kernel.
-4. ``IQBaseBand -> USBDemod [-> AGC]``: one :class:`USBBasebandFused` op
+5. ``IQBaseBand -> USBDemod [-> AGC]``: one :class:`USBBasebandFused` op
    (FIR + exact NCO phasor + SSB demod + AGC in one kernel call).
-5. ``IQBaseBand -> AMDemod [-> AGC]``: one :class:`AMBasebandFused` op
+6. ``IQBaseBand -> AMDemod [-> AGC]``: one :class:`AMBasebandFused` op
    (FIR + envelope + AGC in one kernel call).
 
 An AGC is absorbed only when it is enabled.  The JAX package gates rules
-3-5 on a TPU backend; the fused ops here are exact on every device, so the
+3-6 on a TPU backend; the fused ops here are exact on every device, so the
 rules apply wherever they match.
 """
 
@@ -43,9 +47,11 @@ def fuse_stages(stages: List) -> List:
     from libsdr_tpu_torch.ops.baseband import IQBaseBand
     from libsdr_tpu_torch.ops.demod import (AMDemod, FMDeemph, FMDemod,
                                             USBDemod)
+    from libsdr_tpu_torch.ops.afsk_fused import AFSKFrontendFused
     from libsdr_tpu_torch.ops.fm_fused import (AMBasebandFused,
                                                FMBasebandFused,
                                                USBBasebandFused)
+    from libsdr_tpu_torch.ops.fsk import FSKDetector
     from libsdr_tpu_torch.ops.nco import FreqShift
 
     # Re-binding, or reusing a stage in another pipeline, must not inherit
@@ -76,6 +82,11 @@ def fuse_stages(stages: List) -> List:
         if type(st) is not IQBaseBand:
             out.append(st)
             i += 1
+            continue
+        if (demod_takes_rot(nxt) and not nxt._pending_rot_freqs
+                and type(nxt2) is FSKDetector):
+            out.append(AFSKFrontendFused(st, nxt, nxt2))
+            i += 3
             continue
         if demod_takes_rot(nxt) and not nxt._pending_rot_freqs:
             fused = FMBasebandFused(st, nxt)

@@ -19,7 +19,21 @@ import torch
 
 from libsdr_tpu_torch.core.block import Carry, Processor
 from libsdr_tpu_torch.core.cplx import Complex
-from libsdr_tpu_torch.core.stream import ConfigError, StreamSpec
+from libsdr_tpu_torch.core.stream import (ConfigError, RuntimeSDRError,
+                                          StreamSpec)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The torch device of a library entry point: ``device``, or the card
+    (``"cuda"``) when it is None.  A CUDA device that is not there raises
+    :class:`RuntimeSDRError`: nothing falls back to the CPU, which a caller
+    asks for with ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeSDRError(
+            f"device {dev}: no CUDA device is available (pass "
+            "device='cpu' for the plain PyTorch versions)")
+    return dev
 
 
 class Pipeline(Processor):
@@ -60,6 +74,9 @@ class Pipeline(Processor):
         return spec
 
     def init_carry(self, device=None) -> Carry:
+        """Every stage's initial state on ``device`` (default: the card,
+        see :func:`resolve_device`)."""
+        device = resolve_device(device)
         return tuple(stage.init_carry(device) for stage in self.stages)
 
     def apply(self, carry: Carry, x) -> Tuple[Carry, Any]:
@@ -105,6 +122,11 @@ def _leaves(tree):
     structure, the analog of a pytree flatten."""
     if isinstance(tree, Complex):
         return [tree.re, tree.im], "C"
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [_leaves(tree[k]) for k in keys]
+        return ([x for p in parts for x in p[0]],
+                ("dict", tuple(keys), tuple(p[1] for p in parts)))
     if isinstance(tree, (tuple, list)):
         parts = [_leaves(t) for t in tree]
         return ([x for p in parts for x in p[0]],

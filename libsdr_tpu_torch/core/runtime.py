@@ -7,10 +7,10 @@ from __future__ import annotations
 from typing import Any, Callable, Iterable, Iterator, Optional
 
 import numpy as np
-import torch
 
 from libsdr_tpu_torch.core import cplx
-from libsdr_tpu_torch.core.graph import Pipeline
+from libsdr_tpu_torch.core.graph import Pipeline, resolve_device
+from libsdr_tpu_torch.core.ragged import compact, concat_host
 
 
 def stream_blocks(samples: np.ndarray, block_size: int,
@@ -29,7 +29,7 @@ def stream_blocks(samples: np.ndarray, block_size: int,
 
 def run_pipeline(pipeline: Pipeline,
                  blocks: Iterable[Any],
-                 sink: Optional[Callable[[np.ndarray], None]] = None,
+                 sink: Optional[Callable[[Any], None]] = None,
                  carry: Any = None,
                  collect: bool = True,
                  device=None):
@@ -40,28 +40,35 @@ def run_pipeline(pipeline: Pipeline,
       pipeline: a bound Pipeline.
       blocks: input blocks (numpy arrays, tensors or Complex) of
         ``pipeline.in_spec.shape``.
-      sink: optional callback receiving each output block as numpy.
+      sink: optional callback receiving each output block as numpy (a host
+        :class:`~libsdr_tpu_torch.core.ragged.Ragged` for a ragged stream).
       carry: initial carry; defaults to ``pipeline.init_carry(device)``.
       collect: if True, concatenate and return all outputs along time.
-      device: where the blocks are processed (default: the CPU).
+      device: where the blocks are processed (default: the card, see
+        ``core.graph.resolve_device``; ``"cpu"`` for the plain versions).
 
     Returns:
       (carry, outputs): outputs is the concatenated numpy output if
-      ``collect``, else None.
+      ``collect``, else None.  A ragged output stream (the bit-sync PLL's)
+      is compacted once at the end: a dense vector for one stream, a list of
+      per-channel vectors for a bank.
     """
-    device = torch.device("cpu") if device is None else torch.device(device)
+    device = resolve_device(device)
     step = pipeline.compile()
     if carry is None:
         carry = pipeline.init_carry(device)
+    ragged = pipeline.out_spec.ragged
     real_dtype = pipeline.in_spec.real_dtype
     outs = []
     for blk in blocks:
         carry, y = step(carry, cplx.as_block(blk, real_dtype, device))
-        y = cplx.to_numpy(y)
+        y = y.to_numpy() if ragged else cplx.to_numpy(y)
         if sink is not None:
             sink(y)
         if collect:
             outs.append(y)
     if not (collect and outs):
         return carry, None
+    if ragged:
+        return carry, compact(concat_host(outs))
     return carry, np.concatenate(outs, axis=-1)

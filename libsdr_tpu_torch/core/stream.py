@@ -58,6 +58,9 @@ class StreamSpec:
       sample_rate: samples per second, exact rational.
       block_size: samples per block on the trailing time axis.
       channels: leading batch shape, ``()`` for one stream.
+      ragged: True when blocks are :class:`~libsdr_tpu_torch.core.ragged.
+        Ragged` (data, valid) pairs at capacity ``block_size`` and nominal
+        rate ``sample_rate`` (the bit-sync PLL's output).
       plane_dtype: storage dtype of the planar samples when narrower than
         the logical dtype (``torch.bfloat16`` planes), else None.
     """
@@ -66,14 +69,17 @@ class StreamSpec:
     sample_rate: Fraction
     block_size: int
     channels: Tuple[int, ...] = ()
+    ragged: bool = False
     plane_dtype: object = None
 
     def __init__(self, dtype, sample_rate: RateLike, block_size: int,
-                 channels: Tuple[int, ...] = (), plane_dtype=None):
+                 channels: Tuple[int, ...] = (), ragged: bool = False,
+                 plane_dtype=None):
         object.__setattr__(self, "dtype", as_torch_dtype(dtype))
         object.__setattr__(self, "sample_rate", _as_fraction(sample_rate))
         object.__setattr__(self, "block_size", int(block_size))
         object.__setattr__(self, "channels", tuple(int(c) for c in channels))
+        object.__setattr__(self, "ragged", bool(ragged))
         object.__setattr__(self, "plane_dtype",
                            None if plane_dtype is None else
                            as_torch_dtype(plane_dtype))
@@ -102,9 +108,16 @@ class StreamSpec:
         """Functional update."""
         cur = dict(dtype=self.dtype, sample_rate=self.sample_rate,
                    block_size=self.block_size, channels=self.channels,
-                   plane_dtype=self.plane_dtype)
+                   ragged=self.ragged, plane_dtype=self.plane_dtype)
         cur.update(kw)
         return StreamSpec(**cur)
+
+    def require_dtype(self, who: str, *allowed) -> None:
+        allowed_d = tuple(as_torch_dtype(a) for a in allowed)
+        if self.dtype not in allowed_d:
+            raise ConfigError(
+                f"Can not configure {who}: invalid dtype {self.dtype}, "
+                f"expected one of {[str(d) for d in allowed_d]}")
 
     def require_complex(self, who: str) -> None:
         if not self.is_complex:

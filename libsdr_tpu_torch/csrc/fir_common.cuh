@@ -13,6 +13,12 @@
 //   kFir  the two planes of y;
 //   kAm   sig = |y|;
 //   kUsb  sig = (re + im)/2 of y[j] * (a0 * ramp[j]), a0 a unit phasor;
+//   kAfsk the audio of kFm (no de-emphasis), then the dual-tone FSK
+//         correlator: u_m[j] = audio[j] * mark[(n0 + j) mod L] and u_s the
+//         same with space (complex (L,) templates), s_m[j] = the sum of
+//         the L products u_m ending at j (the first reach back into the
+//         carried last L-1 products), and out = |s_m|^2 - |s_s|^2; exports
+//         y[B/D - 1] and the last L-1 products of each tone;
 // and for kAm / kUsb out = gain*sig, or with the AGC
 //   sd[j] = lam*sd[j-1] + (1-lam)*|sig[j]|,  out = gain*sig/sd  (agc.cu).
 
@@ -26,14 +32,19 @@ namespace sdr {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-enum Mode { kFm = 0, kFir = 1, kAm = 2, kUsb = 3 };
+enum Mode { kFm = 0, kFir = 1, kAm = 2, kUsb = 3, kAfsk = 4 };
+
+// kAfsk: the correlator window L and the per-warp ring of tone products of
+// the warp kernel (a power of two, at least L).
+constexpr int kAfskMaxL = 256;
 
 // The largest stride that takes the staged kernel (fir_fm_exact.cu); larger
 // ones take the warp kernel (fir_warp.cu).  Set from both kernels timed in
 // every mode at D = 5..80 on an H100 (libsdr_tpu_torch/tools/fir_paths.py,
 // PERF.md): the warp kernel runs each output's epilogue on all 32 lanes, so
 // the modes with the heavier epilogues (the discriminator, the NCO
-// rotation) keep the staged kernel to a larger stride.  The comparison
+// rotation) keep the staged kernel to a larger stride.  kAfsk runs kFm's
+// epilogue and more, so it takes kFm's cut.  The comparison
 // builds set SDR_STAGED_MAX_D for every mode (0: all strides on the warp
 // kernel; a large value: all on the staged one).
 inline int staged_max_d(int mode) {
@@ -41,7 +52,7 @@ inline int staged_max_d(int mode) {
   (void)mode;
   return SDR_STAGED_MAX_D;
 #else
-  return mode == kFm || mode == kUsb ? 40 : 16;
+  return mode == kFm || mode == kUsb || mode == kAfsk ? 40 : 16;
 #endif
 }
 
@@ -64,6 +75,14 @@ struct Params {
   float* ylast_r;
   float* ylast_i;
   float* ends;  // kFm: (C, K) de-emphasis state at each chunk's end
+  // kAfsk: the (L,) templates [mark re, mark im, space re, space im], the
+  // template phase n0 (one int on the device), the carried (C, L-1) tone
+  // products [u_m re, u_m im, u_s re, u_s im] and their (C, L-1) exports.
+  const float* tpl[4];
+  const int* n0;
+  const float* u_in[4];
+  float* u_out[4];
+  int L;
   long long B;
   long long chunk;  // outputs per chunk (the last chunk may be shorter)
   int T;
@@ -138,8 +157,8 @@ inline int fit_chunks(long long n_out, long long k) {
 // The warp kernel for strides above staged_max_d (fir_warp.cu).  Chunks per
 // channel for C channels (or -1 when its taps and staging buffers do not
 // fit in shared memory, else -2 - cudaError_t), and the launch itself.
-int warp_chunks(int mode, long long C, long long B, int T, int D, int bf16,
-                int smem_max, int sms);
+int warp_chunks(int mode, long long C, long long B, int T, int D, int L,
+                int bf16, int smem_max, int sms);
 int warp_launch(int mode, const Params& p, long long C, int bf16,
                 cudaStream_t stream, int smem_max);
 

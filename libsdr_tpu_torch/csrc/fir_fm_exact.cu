@@ -5,11 +5,13 @@
 //   kFir  FIR alone, both planes of y
 //   kAm   FIR + envelope |y| (+ AGC)
 //   kUsb  FIR + exact per-output NCO rotation + (re+im)/2 (+ AGC)
+//   kAfsk FIR + FM discriminator + dual-tone FSK correlator (fir_common.cuh)
 //
 // Replaces the TPU kernel libsdr_tpu/ops/pallas_fir_mxu.py::_kernel_fm2 in
-// its modes 'fm' (entry fir_fm_exact), 'fir' (entry fir_exact), 'am' and
-// 'usb', which ran the FIR as block-Toeplitz frame matmuls on the TPU's
-// matrix unit.  These kernels compute the same functions directly:
+// its modes 'fm' (entry fir_fm_exact), 'fir' (entry fir_exact), 'am',
+// 'usb' and 'afsk' (entry fir_afsk_exact), which ran the FIR as
+// block-Toeplitz frame matmuls on the TPU's matrix unit and the
+// correlator's window sums as banded matmuls.  These kernels compute the same functions directly:
 //
 //   xc      = concat(tail, x)                         (tail: last T-1 samples)
 //   y[j]    = sum_i g[i] * xc[j*D + D-1 + i]          (correlation form, no conj)
@@ -64,6 +66,17 @@
 //   its time constant spans tens of thousands of outputs, so no fix-up can
 //   carry it across chunks: the kernel writes sig and agc.cu runs the AGC
 //   in a second pass (8/D bytes per input sample).
+// * kAfsk: the audio of each segment is multiplied by the tone templates
+//   and the products u (4 floats) go to a shared-memory history behind the
+//   last L-1 products of the previous segment (or, at the block's start,
+//   the carried ones); each thread sums the L products of each of its R
+//   outputs in one fixed order, oldest first (a running add-and-subtract
+//   sum would drift in float32), reading each product once for its R
+//   outputs.  A chunk after the first starts L outputs early: those outputs
+//   only fill the history (the first has no true y[j-1]), so no chunk
+//   needs another's products and no y is recomputed by another path.
+//   Per output that adds 4L additions to the FIR's 4T FMAs (L = 40, T = 51
+//   on the AX.25 bank), and 16*(L-1 + 256R) bytes of shared memory.
 // * bf16 planes are read as bf16 and widened in registers; all arithmetic is
 //   f32.  Offsets into the (C, B) planes are 64-bit.
 // * The kernels allocate nothing and do not synchronise; the entry points
@@ -85,15 +98,24 @@ __host__ __device__ __forceinline__ constexpr int skew(int q) {
   return R == 1 ? q : q + q / R;
 }
 
-// Shared memory: taps by phase (D rows of ceil(T/D) float2), the polyphase
-// input (D rows of Qs complex samples), then per-warp scratch and the block
-// state (floats).
+// kAfsk's history of tone products (float4, skewed like the input): the
+// last L-1 products before the segment, then the segment's 256*R; none in
+// the other modes (L = 0).
+template <int R>
+__host__ __device__ __forceinline__ size_t u_bytes(int L) {
+  return L ? 16 * ((size_t)skew<R>(L - 1 + kThreads * R - 1) + 1) : 0;
+}
+
+// Shared memory: kAfsk's history (16-byte aligned at the base), taps by
+// phase (D rows of ceil(T/D) float2), the polyphase input (D rows of Qs
+// complex samples), then per-warp scratch and the block state (floats).
 template <typename Tin, int R>
-size_t smem_bytes(int T, int D, int Q) {
+size_t smem_bytes(int T, int D, int Q, int L) {
   const size_t taps = 8 * (size_t)D * ((T + D - 1) / D);
   const size_t qs = (size_t)skew<R>(Q - 1) + 1;
   const size_t x = (size_t)D * qs * sizeof(typename Cplx<Tin>::type);
-  return taps + ((x + 7) / 8) * 8 + (4 * kWarps + 4) * sizeof(float);
+  return u_bytes<R>(L) + taps + ((x + 7) / 8) * 8 +
+         (4 * kWarps + 4) * sizeof(float);
 }
 
 template <int MODE, typename Tin, int R>
@@ -105,10 +127,13 @@ fir_fm_exact_kernel(const Params p) {
   const int T = p.T, D = p.D, Q = p.Q;
   const int Qs = skew<R>(Q - 1) + 1;
   const int Tq = (T + D - 1) / D;  // taps per phase, at most
-  float2* s_g = reinterpret_cast<float2*>(smem);  // [ph][qi] = g[qi*D + ph]
-  CT* s_x = reinterpret_cast<CT*>(smem + 8 * (size_t)D * Tq);
+  const int ell = MODE == kAfsk ? p.L : 0;  // kAfsk: the window
+  float4* s_u = reinterpret_cast<float4*>(smem);  // kAfsk: the history
+  unsigned char* base = smem + u_bytes<R>(ell);
+  float2* s_g = reinterpret_cast<float2*>(base);  // [ph][qi] = g[qi*D + ph]
+  CT* s_x = reinterpret_cast<CT*>(base + 8 * (size_t)D * Tq);
   float* s_wtot = reinterpret_cast<float*>(
-      smem + 8 * (size_t)D * Tq +
+      base + 8 * (size_t)D * Tq +
       (((size_t)D * Qs * sizeof(CT) + 7) / 8) * 8);
   float* s_wpre = s_wtot + kWarps;
   float* s_wy = s_wpre + kWarps;        // last y of each warp (re, im)
@@ -131,6 +156,8 @@ fir_fm_exact_kernel(const Params p) {
     ph_r = p.ph_r[0];
     ph_i = p.ph_i[0];
   }
+  // kAfsk: a later chunk starts L outputs early to fill its history.
+  const long long j_start = MODE == kAfsk && k > 0 ? j_begin - ell : j_begin;
 
   for (int i = tid; i < T; i += kThreads) {
     s_g[(i % D) * Tq + i / D] = make_float2(p.taps_r[i], p.taps_i[i]);
@@ -166,6 +193,21 @@ fir_fm_exact_kernel(const Params p) {
       }
     }
   }
+  if constexpr (MODE == kAfsk) {
+    // The first chunk starts from the carried y[-1] and products; a later
+    // one from zeros, which only reach outputs it does not write.
+    if (tid == 0) {
+      s_state[0] = k == 0 ? p.prev_r[c] : 0.f;
+      s_state[1] = k == 0 ? p.prev_i[c] : 0.f;
+    }
+    if (tid < ell - 1) {
+      const long long o = c * (ell - 1) + tid;
+      s_u[skew<R>(tid)] =
+          k == 0 ? make_float4(p.u_in[0][o], p.u_in[1][o], p.u_in[2][o],
+                               p.u_in[3][o])
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
   // De-emphasis scan constants: A = a^R per thread.
   const float a = p.a, bco = p.b;
   float aR = 1.f;
@@ -198,10 +240,10 @@ fir_fm_exact_kernel(const Params p) {
       }
     }
   };
-  prefetch(j_begin);
+  prefetch(j_start);
   __syncthreads();
 
-  for (long long j0 = j_begin; j0 < j_end; j0 += N) {
+  for (long long j0 = j_start; j0 < j_end; j0 += N) {
     const int nv = (int)(j_end - j0 < N ? j_end - j0 : N);
     const int L = (nv - 1) * D + T;
     // Stage samples [base, base + L) as [m % D][skew(m / D)]: the prefetched
@@ -295,7 +337,7 @@ fir_fm_exact_kernel(const Params p) {
       }
     }
 
-    if constexpr (MODE != kFm) {
+    if constexpr (MODE != kFm && MODE != kAfsk) {
       // Per-output epilogues: no state crosses outputs.
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -313,7 +355,7 @@ fir_fm_exact_kernel(const Params p) {
         }
       }
       __syncthreads();  // every read of s_x is done
-      continue;  // the rest of the loop is mode kFm's
+      continue;  // the rest of the loop is modes kFm's and kAfsk's
     }
 
     // Discriminator over the thread's outputs; y[jb - 1] comes from the
@@ -339,6 +381,45 @@ fir_fm_exact_kernel(const Params p) {
       loc[r] = p.gain * atan2_poly(zi2, zr2);
       pr = yr[r];
       pi = yi[r];
+    }
+
+    if constexpr (MODE == kAfsk) {
+      // Tone products of this thread's outputs into the history, then each
+      // output's window sum over the L products ending at it.
+      int tix = (int)((*p.n0 + j0 + jb) % ell);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (jb + r < nv) {
+          const float a = loc[r];
+          s_u[skew<R>(ell - 1 + jb + r)] =
+              make_float4(a * p.tpl[0][tix], a * p.tpl[1][tix],
+                          a * p.tpl[2][tix], a * p.tpl[3][tix]);
+        }
+        tix = tix + 1 == ell ? 0 : tix + 1;
+      }
+      __syncthreads();
+      float4 acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+      // Output r sums history slots jb + r .. jb + r + L - 1.
+      const float4* hb = s_u + skew<R>(jb);
+      for (int q = 0; q < ell + R - 1; ++q) {
+        const float4 v = hb[skew<R>(q)];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (q >= r && q < r + ell) {
+            acc[r].x += v.x;
+            acc[r].y += v.y;
+            acc[r].z += v.z;
+            acc[r].w += v.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        loc[r] = (acc[r].x * acc[r].x + acc[r].y * acc[r].y) -
+                 (acc[r].z * acc[r].z + acc[r].w * acc[r].w);
+      }
     }
 
     if (p.deemph) {  // uniform across the block: the barriers are safe
@@ -379,12 +460,29 @@ fir_fm_exact_kernel(const Params p) {
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (jb + r < nv) orow[j0 + jb + r] = loc[r];
+      if (jb + r < nv && j0 + jb + r >= j_begin) orow[j0 + jb + r] = loc[r];
       if (p.ends && jb + r == nv - 1 && j0 + nv == j_end) {
         p.ends[blockIdx.x] = loc[r];
       }
     }
-    __syncthreads();  // every read of s_x, s_wy and s_state is done
+    __syncthreads();  // every read of s_x, s_wy, s_state and s_u is done
+    if constexpr (MODE == kAfsk) {
+      // The last L-1 products move to the front of the history; after the
+      // block's last segment they are the carry.
+      float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (tid < ell - 1) h = s_u[skew<R>(nv + tid)];
+      __syncthreads();
+      if (tid < ell - 1) {
+        s_u[skew<R>(tid)] = h;
+        if (k == p.K - 1 && j0 + nv == j_end) {
+          const long long o = c * (ell - 1) + tid;
+          p.u_out[0][o] = h.x;
+          p.u_out[1][o] = h.y;
+          p.u_out[2][o] = h.z;
+          p.u_out[3][o] = h.w;
+        }
+      }
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       if (jb + r == nv - 1) {
@@ -393,7 +491,7 @@ fir_fm_exact_kernel(const Params p) {
       }
     }
   }
-  if constexpr (MODE == kFm) {
+  if constexpr (MODE == kFm || MODE == kAfsk) {
     __syncthreads();
     if (tid == 0 && k == p.K - 1) {
       p.ylast_r[c] = s_state[0];
@@ -446,7 +544,8 @@ int dispatch(const Params& p, long long C, cudaStream_t stream, int smem_max,
   constexpr int N = kThreads * R;
   Params q = p;
   q.Q = N + (p.T - 1) / p.D;
-  const size_t bytes = smem_bytes<Tin, R>(p.T, p.D, q.Q);
+  const size_t bytes =
+      smem_bytes<Tin, R>(p.T, p.D, q.Q, MODE == kAfsk ? p.L : 0);
   if (bytes > (size_t)smem_max) {
     if constexpr (R > 1) {
       return dispatch<MODE, Tin, R / 2>(p, C, stream, smem_max, per_sm);
@@ -481,6 +580,7 @@ int staged_mode(int mode, const Params& p, long long C, int bf16,
     case kFir: return staged<kFir>(p, C, bf16, stream, smem_max, per_sm);
     case kAm: return staged<kAm>(p, C, bf16, stream, smem_max, per_sm);
     case kUsb: return staged<kUsb>(p, C, bf16, stream, smem_max, per_sm);
+    case kAfsk: return staged<kAfsk>(p, C, bf16, stream, smem_max, per_sm);
   }
   return -1;
 }
@@ -530,17 +630,22 @@ extern "C" {
 // block slots of the card in one wave, with a least chunk length per path.
 // Returns K >= 1, -1 if the shape is outside the kernel's gate, or
 // -2 - cudaError_t.
-int sdr_fir_chunks(int mode, long long C, long long B, int T, int D,
+int sdr_fir_chunks(int mode, long long C, long long B, int T, int D, int L,
                    int bf16) {
-  if (bad_shape(C, B, T, D) || mode < kFm || mode > kUsb) return -1;
+  if (bad_shape(C, B, T, D) || mode < kFm || mode > kAfsk ||
+      (mode == kAfsk && (L < 2 || L > kAfskMaxL))) {
+    return -1;
+  }
   int smem_max = 0, sms = 0, per_sm = 0;
   int e = device_limits(&smem_max, &sms);
   if (e != 0) return -2 - e;
-  if (D > staged_max_d(mode)) return warp_chunks(mode, C, B, T, D, bf16, smem_max,
-                                          sms);
+  if (D > staged_max_d(mode)) {
+    return warp_chunks(mode, C, B, T, D, L, bf16, smem_max, sms);
+  }
   Params p{};
   p.T = T;
   p.D = D;
+  p.L = L;
   e = staged_mode(mode, p, C, bf16, nullptr, smem_max, &per_sm);
   if (e != 0) return e == -1 ? -1 : -2 - e;
   const long long k = (long long)sms * per_sm / C;
@@ -567,7 +672,12 @@ int sdr_agc_chunks(long long C, long long n_out) {
 //   kUsb  ramp_r/ramp_i are (B/D,) and ph_r/ph_i point at one float each;
 //   kAm, kUsb with iir != 0: the AGC with lam = a from s_in (C,) into
 //         s_out (C,), ends (C, K_agc) scratch; out then holds gain*sig/sd,
-//         else gain*sig.
+//         else gain*sig;
+//   kAfsk as kFm without de-emphasis, with afsk pointing at 13 device
+//         pointers: the (L,) templates mark re/im and space re/im, the
+//         template phase n0 (one int32), the carried (C, L-1) products
+//         u_m re/im and u_s re/im, and their (C, L-1) exports in the same
+//         order; 2 <= L <= kAfskMaxL.
 int sdr_fir_exact(int mode, const void* xr, const void* xi,
                   const void* tail_r, const void* tail_i, const float* taps_r,
                   const float* taps_i, const float* prev_r,
@@ -577,12 +687,16 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
                   const float* s_in, float* s_out, float* ends, long long C,
                   long long B, int T, int D, int K, int K_agc, float rot_r,
                   float rot_i, float gain, double a, double b, int iir,
-                  int bf16, void* stream) {
+                  const void* const* afsk, int L, int bf16, void* stream) {
   const long long n_out = B / D;
   const bool agc = iir && (mode == kAm || mode == kUsb);
+  const bool disc = mode == kFm || mode == kAfsk;
+  bool afsk_ok = mode == kAfsk && afsk && !iir && L >= 2 && L <= kAfskMaxL;
+  for (int i = 0; afsk_ok && i < 13; ++i) afsk_ok = afsk[i] != nullptr;
   if (bad_shape(C, B, T, D) || bad_chunks(n_out, C, K) || !out ||
-      mode < kFm || mode > kUsb || (mode == kFir && (!out_i || iir)) ||
-      (mode == kFm && !(prev_r && prev_i && ylast_r && ylast_i)) ||
+      mode < kFm || mode > kAfsk || (mode == kFir && (!out_i || iir)) ||
+      (disc && !(prev_r && prev_i && ylast_r && ylast_i)) ||
+      (mode == kAfsk && (!afsk_ok || (K > 1 && (n_out + K - 1) / K < L))) ||
       (mode == kFm && iir && (!s_in || (K > 1 && !ends))) ||
       (mode == kUsb && !(ramp_r && ramp_i && ph_r && ph_i)) ||
       (agc && (!s_in || !s_out || !ends || bad_chunks(n_out, C, K_agc)))) {
@@ -621,6 +735,15 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
   p.a = (float)a;
   p.b = (float)b;
   p.deemph = mode == kFm && iir;
+  if (mode == kAfsk) {
+    for (int i = 0; i < 4; ++i) {
+      p.tpl[i] = static_cast<const float*>(afsk[i]);
+      p.u_in[i] = static_cast<const float*>(afsk[5 + i]);
+      p.u_out[i] = static_cast<float*>(const_cast<void*>(afsk[9 + i]));
+    }
+    p.n0 = static_cast<const int*>(afsk[4]);
+    p.L = L;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   e = launch(mode, p, C, bf16, s, smem_max);
   if (e != 0 || !iir) return e;

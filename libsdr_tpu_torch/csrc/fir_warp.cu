@@ -27,6 +27,12 @@
 //   the discriminator (a later chunk starts one output early to seed it),
 //   and the de-emphasis state, which starts from 0 in every chunk but the
 //   first and is fixed up across chunks as in fir_fm_exact.cu.
+// * kAfsk: each warp keeps its last kAfskMaxL tone products in a ring in
+//   shared memory (16 B each); lane 0 writes each output's products, the
+//   lanes split the L products of its window (product i on lane i % 32, in
+//   order) and five xor-shuffles per plane give the sums.  A later chunk
+//   starts L outputs early to fill the ring (the first of them has no true
+//   y[j-1] and reaches no written output).
 // * Outputs are gathered one per lane and stored 32 at a time, so a warp
 //   writes whole 128-byte lines.
 // * K chunks per channel, K from the occupancy API so that all C*K warps
@@ -44,11 +50,16 @@ constexpr long long kMinWarpChunk = 64;
 constexpr int kLoads = 8;   // staging loads in flight per plane and lane
 constexpr int kSpan = 512;  // samples staged per warp, at least T
 
-// Shared memory: the taps, then each warp's staging buffer of
-// max(kSpan, T) complex samples of `item` bytes.
-size_t warp_smem_bytes(int T, size_t item) {
+// Shared memory: kAfsk's per-warp rings of tone products (16-byte aligned
+// at the base), the taps, then each warp's staging buffer of max(kSpan, T)
+// complex samples of `item` bytes.
+__host__ __device__ __forceinline__ size_t ring_bytes(int mode) {
+  return mode == kAfsk ? (size_t)kWarps * kAfskMaxL * 16 : 0;
+}
+
+size_t warp_smem_bytes(int mode, int T, size_t item) {
   const size_t span = T > kSpan ? T : kSpan;
-  return 8 * (size_t)T + kWarps * span * item;
+  return ring_bytes(mode) + 8 * (size_t)T + kWarps * span * item;
 }
 
 template <int MODE, typename Tin>
@@ -57,14 +68,17 @@ fir_warp_kernel(const Params p, long long C) {
   using CT = typename Cplx<Tin>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int T = p.T, D = p.D, W = p.Q;  // W: samples staged per warp
-  float2* s_g = reinterpret_cast<float2*>(smem);
+  const int L = MODE == kAfsk ? p.L : 0;
+  unsigned char* base = smem + ring_bytes(MODE);
+  float2* s_g = reinterpret_cast<float2*>(base);
   for (int i = threadIdx.x; i < T; i += kThreads) {
     s_g[i] = make_float2(p.taps_r[i], p.taps_i[i]);
   }
   __syncthreads();  // the only block barrier: warps leave independently below
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  CT* buf = reinterpret_cast<CT*>(smem + 8 * (size_t)T) + (size_t)warp * W;
+  CT* buf = reinterpret_cast<CT*>(base + 8 * (size_t)T) + (size_t)warp * W;
+  float4* ring = reinterpret_cast<float4*>(smem) + warp * kAfskMaxL;
   const long long w = (long long)blockIdx.x * kWarps + warp;
   if (w >= C * p.K) return;
   const long long c = w / p.K;
@@ -81,11 +95,21 @@ fir_warp_kernel(const Params p, long long C) {
 
   float pr = 0.f, pi = 0.f, st = 0.f;  // kFm: y[j-1], de-emphasis state
   float ph_r = 0.f, ph_i = 0.f;        // kUsb: the block's unit phasor
-  if constexpr (MODE == kFm) {
+  if constexpr (MODE == kFm || MODE == kAfsk) {
     if (k == 0) {
       pr = p.prev_r[c];
       pi = p.prev_i[c];
       st = p.deemph ? p.dstate[c] : 0.f;
+    }
+  }
+  int tix = 0;  // kAfsk: the template index of the next output
+  if constexpr (MODE == kAfsk) {
+    // The first chunk's ring starts with the carried products at slots
+    // -(L-1)..-1 (mod kAfskMaxL).
+    for (int i = lane; i < L - 1 && k == 0; i += 32) {
+      const long long o = c * (L - 1) + i;
+      ring[(i - (L - 1)) & (kAfskMaxL - 1)] = make_float4(
+          p.u_in[0][o], p.u_in[1][o], p.u_in[2][o], p.u_in[3][o]);
     }
   }
   if constexpr (MODE == kUsb) {
@@ -96,8 +120,13 @@ fir_warp_kernel(const Params p, long long C) {
   float* oirow = MODE == kFir ? p.out_i + c * n_out : nullptr;
   float v0 = 0.f, v1 = 0.f;  // this lane's gathered output (kFir: re, im)
   // A later chunk of mode kFm starts one output early: y[j_begin - 1]
-  // seeds the discriminator and is not written.
-  const long long j_first = MODE == kFm && k > 0 ? j_begin - 1 : j_begin;
+  // seeds the discriminator and is not written; one of mode kAfsk starts L
+  // outputs early to fill its ring.
+  const long long j_first = k == 0             ? j_begin
+                            : MODE == kFm      ? j_begin - 1
+                            : MODE == kAfsk    ? j_begin - L
+                                               : j_begin;
+  if constexpr (MODE == kAfsk) tix = (int)((*p.n0 + j_first) % L);
   for (long long j0 = j_first; j0 < j_end; j0 += U) {
     const int nu = (int)min((long long)U, j_end - j0);
     const int span = (nu - 1) * D + T;
@@ -161,6 +190,38 @@ fir_warp_kernel(const Params p, long long C) {
         }
         pr = yr;
         pi = yi;
+      } else if constexpr (MODE == kAfsk) {
+        const float zr = yr * pr + yi * pi;
+        const float zi = yi * pr - yr * pi;
+        const float a = p.gain * atan2_poly(zr * p.rot_i + zi * p.rot_r,
+                                            zr * p.rot_r - zi * p.rot_i);
+        pr = yr;
+        pi = yi;
+        __syncwarp();  // every lane's reads of this ring slot are done
+        if (lane == 0) {
+          ring[j & (kAfskMaxL - 1)] =
+              make_float4(a * p.tpl[0][tix], a * p.tpl[1][tix],
+                          a * p.tpl[2][tix], a * p.tpl[3][tix]);
+        }
+        tix = tix + 1 == L ? 0 : tix + 1;
+        __syncwarp();
+        float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int i = lane; i < L; i += 32) {
+          const float4 v = ring[(j - (L - 1) + i) & (kAfskMaxL - 1)];
+          s.x += v.x;
+          s.y += v.y;
+          s.z += v.z;
+          s.w += v.w;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          s.x += __shfl_xor_sync(0xffffffffu, s.x, off);
+          s.y += __shfl_xor_sync(0xffffffffu, s.y, off);
+          s.z += __shfl_xor_sync(0xffffffffu, s.z, off);
+          s.w += __shfl_xor_sync(0xffffffffu, s.w, off);
+        }
+        if (j < j_begin) continue;  // fills the ring only
+        u0 = (s.x * s.x + s.y * s.y) - (s.z * s.z + s.w * s.w);
       } else if constexpr (MODE == kAm) {
         u0 = p.gain * sqrtf(yr * yr + yi * yi);
       } else if constexpr (MODE == kUsb) {
@@ -180,12 +241,25 @@ fir_warp_kernel(const Params p, long long C) {
       }
     }
   }
-  if constexpr (MODE == kFm) {
+  if constexpr (MODE == kFm || MODE == kAfsk) {
     if (lane == 0) {
       if (p.ends) p.ends[w] = st;
       if (k == p.K - 1) {
         p.ylast_r[c] = pr;
         p.ylast_i[c] = pi;
+      }
+    }
+  }
+  if constexpr (MODE == kAfsk) {
+    if (k == p.K - 1) {  // the last L-1 products are the carry
+      __syncwarp();
+      for (int i = lane; i < L - 1; i += 32) {
+        const float4 v = ring[(j_end - (L - 1) + i) & (kAfskMaxL - 1)];
+        const long long o = c * (L - 1) + i;
+        p.u_out[0][o] = v.x;
+        p.u_out[1][o] = v.y;
+        p.u_out[2][o] = v.z;
+        p.u_out[3][o] = v.w;
       }
     }
   }
@@ -197,7 +271,8 @@ int warp_run(const Params& p, long long C, cudaStream_t stream,
   auto kernel = fir_warp_kernel<MODE, Tin>;
   Params q = p;
   q.Q = p.T > kSpan ? p.T : kSpan;
-  const size_t bytes = warp_smem_bytes(p.T, sizeof(typename Cplx<Tin>::type));
+  const size_t bytes =
+      warp_smem_bytes(MODE, p.T, sizeof(typename Cplx<Tin>::type));
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
@@ -225,29 +300,34 @@ int warp_mode(int mode, const Params& p, long long C, int bf16,
     case kFir: return warp_dtype<kFir>(p, C, bf16, stream, per_sm);
     case kAm: return warp_dtype<kAm>(p, C, bf16, stream, per_sm);
     case kUsb: return warp_dtype<kUsb>(p, C, bf16, stream, per_sm);
+    case kAfsk: return warp_dtype<kAfsk>(p, C, bf16, stream, per_sm);
   }
   return -1;
 }
 
 }  // namespace
 
-int warp_chunks(int mode, long long C, long long B, int T, int D, int bf16,
-                int smem_max, int sms) {
-  if (warp_smem_bytes(T, bf16 ? 4 : 8) > (size_t)smem_max) return -1;
+int warp_chunks(int mode, long long C, long long B, int T, int D, int L,
+                int bf16, int smem_max, int sms) {
+  if (warp_smem_bytes(mode, T, bf16 ? 4 : 8) > (size_t)smem_max) return -1;
   Params p{};
   p.T = T;
   p.D = D;
+  p.L = L;
   int per_sm = 0;
   const int e = warp_mode(mode, p, C, bf16, nullptr, &per_sm);
   if (e != 0) return e == -1 ? -1 : -2 - e;
   long long k = (long long)sms * per_sm * kWarps / C;
-  const long long most = (B / D) / kMinWarpChunk;
+  // kAfsk: a later chunk starts L outputs early, so chunks hold L at least
+  const long long min_chunk =
+      mode == kAfsk && L > kMinWarpChunk ? L : kMinWarpChunk;
+  const long long most = (B / D) / min_chunk;
   return fit_chunks(B / D, k < most ? k : most);
 }
 
 int warp_launch(int mode, const Params& p, long long C, int bf16,
                 cudaStream_t stream, int smem_max) {
-  if (warp_smem_bytes(p.T, bf16 ? 4 : 8) > (size_t)smem_max) return -1;
+  if (warp_smem_bytes(mode, p.T, bf16 ? 4 : 8) > (size_t)smem_max) return -1;
   return warp_mode(mode, p, C, bf16, stream, nullptr);
 }
 

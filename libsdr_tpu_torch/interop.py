@@ -1,7 +1,7 @@
 """Carry states across between the JAX package and this one.
 
-A carry is a nest of tuples whose leaves are arrays or planar complex
-values.  :func:`state_from_numpy` takes any such nest whose leaves are
+A carry is a nest of tuples and dicts (the BitStream's carry is a dict)
+whose leaves are arrays or planar complex values.  :func:`state_from_numpy` takes any such nest whose leaves are
 array-likes or objects with ``.re``/``.im`` (a JAX ``Complex`` among them,
 without importing JAX) and returns this package's carry on a device;
 :func:`state_to_numpy` returns numpy leaves, with planar values as
@@ -39,6 +39,8 @@ def state_from_numpy(tree, device=None):
     """A carry nest of host arrays (or JAX arrays) as tensors on ``device``."""
     if hasattr(tree, "re") and hasattr(tree, "im"):
         return Complex(_tensor(tree.re, device), _tensor(tree.im, device))
+    if isinstance(tree, dict):
+        return {k: state_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(state_from_numpy(t, device) for t in tree)
     return _tensor(tree, device)
@@ -48,6 +50,8 @@ def state_to_numpy(tree):
     """A carry nest of tensors as numpy, planar values as PlanarArray."""
     if isinstance(tree, Complex):
         return PlanarArray(_host(tree.re), _host(tree.im))
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(state_to_numpy(t) for t in tree)
     return _host(tree)

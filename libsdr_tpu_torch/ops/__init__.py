@@ -1,4 +1,4 @@
-"""DSP ops of the analog receive chains.  Every op is a
+"""DSP ops of the analog and digital receive chains.  Every op is a
 :class:`~libsdr_tpu_torch.core.block.Processor` over blocks with time on the
 trailing axis."""
 
@@ -9,8 +9,12 @@ from libsdr_tpu_torch.ops.baseband import IQBaseBand
 from libsdr_tpu_torch.ops.demod import AMDemod, USBDemod, FMDemod, FMDeemph
 from libsdr_tpu_torch.ops.agc import AGC
 from libsdr_tpu_torch.ops.iir import iir_first_order
-from libsdr_tpu_torch.ops.fir_fm import (fir_am_exact, fir_exact,
-                                         fir_fm_exact, fir_usb_exact)
+from libsdr_tpu_torch.ops.fir_fm import (fir_afsk_exact, fir_am_exact,
+                                         fir_exact, fir_fm_exact,
+                                         fir_usb_exact)
+from libsdr_tpu_torch.ops.fsk import ASKDetector, FSKDetector, sliding_sum
+from libsdr_tpu_torch.ops.pll import pll, pll_bank
+from libsdr_tpu_torch.ops.bitsync import BitStream
 from libsdr_tpu_torch.ops.utils import (
     Scale, Cast, AutoCast, ToComplex, RealPart, ImagPart, IQBalance,
     UnsignedToSigned, SignedToUnsigned, Interleave, Deinterleave,
@@ -20,7 +24,9 @@ __all__ = [
     "firdesign", "siggen", "FIRFilter", "fir_overlap_save",
     "set_mxu_precision", "FreqShift", "IQBaseBand", "AMDemod", "USBDemod",
     "FMDemod", "FMDeemph", "AGC", "iir_first_order", "fir_fm_exact",
-    "fir_exact", "fir_am_exact", "fir_usb_exact", "Scale", "Cast",
+    "fir_exact", "fir_am_exact", "fir_usb_exact", "fir_afsk_exact",
+    "ASKDetector", "FSKDetector", "sliding_sum", "pll", "pll_bank",
+    "BitStream", "Scale", "Cast",
     "AutoCast", "ToComplex", "RealPart", "ImagPart", "IQBalance",
     "UnsignedToSigned", "SignedToUnsigned", "Interleave", "Deinterleave",
 ]

@@ -1,6 +1,7 @@
 """Fused decimating FIR + demodulator: the counterpart of
 ``libsdr_tpu.ops.pallas_fir_mxu.fir_fm_exact`` in its modes 'fm', 'am' and
-'usb', and of ``pallas_fir_mxu.fir_exact`` (mode 'fir').
+'usb', of ``pallas_fir_mxu.fir_exact`` (mode 'fir') and of
+``pallas_fir_mxu.fir_afsk_exact`` (mode 'afsk').
 
 For a block x (C, B) of planar IQ, the (C, T-1) carry ``tail`` and complex
 taps g (T,), with ``xc = concat(tail, x)``, every entry computes
@@ -16,6 +17,11 @@ and then:
 * :func:`fir_am_exact`: ``sig = |y|``;
 * :func:`fir_usb_exact`: ``sig = (re + im)/2`` of ``y[j] * (a0 * ramp[j])``
   with a0 the carried unit phasor and ramp the host-exact NCO ramp;
+* :func:`fir_afsk_exact`: the audio of :func:`fir_fm_exact` (no
+  de-emphasis), then the dual-tone FSK correlator ``disc[j] = |s_m[j]|^2 -
+  |s_s[j]|^2`` with ``s_m[j]`` the sum of ``audio[k] * mark[(n0 + k) mod
+  L]`` over the L samples k ending at j (the first reaching back into the
+  carried last L-1 products) and ``s_s`` the same with space;
 
 and for the AM and USB modes ``out = gain * sig`` or, with the AGC,
 ``sd[j] = lam*sd[j-1] + (1-lam)*|sig[j]|`` (sd[-1] = sd) and
@@ -58,8 +64,10 @@ D >= 1 and any B that is a multiple of D, with one limit on shared memory
   T <= 3,228 for float32 planes and T <= 5,811 for bfloat16.
 
 So every stride up to 256 with up to 512 taps (the rx app's chains) is
-inside the gate.  A shape outside it raises ``ValueError``; the plain
-versions take every shape.
+inside the gate.  Mode afsk adds the correlator's products to shared
+memory (16*(L-1 + 256R) bytes in the staged kernel, 32 KB of per-warp rings
+in the warp kernel) and takes windows 2 <= L <= 256.  A shape outside the
+gate raises ``ValueError``; the plain versions take every shape.
 """
 
 from __future__ import annotations
@@ -69,8 +77,10 @@ import ctypes
 import numpy as np
 import torch
 
+from libsdr_tpu_torch.core import cplx
 from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.ops.fir import _conv1d, full_f32
+from libsdr_tpu_torch.ops.fsk import window_sum
 from libsdr_tpu_torch.ops.iir import iir_first_order
 
 _PLANE_DTYPES = (torch.float32, torch.bfloat16)
@@ -233,17 +243,71 @@ def fir_usb_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
     return out, sd_last
 
 
+def fir_afsk_exact_plain(x: Complex, taps: Complex, stride: int,
+                         tail: Complex, prev: Complex, rot: complex,
+                         gain: float, mark: Complex, space: Complex, n0,
+                         um_tail: Complex, us_tail: Complex):
+    """Plain PyTorch version of :func:`fir_afsk_exact`, in float32; each
+    window is summed oldest first, as the kernels sum it."""
+    audio, y_last = fir_fm_exact_plain(x, taps, stride, tail, prev, rot,
+                                       gain)
+    L = mark.re.shape[-1]
+    dev = audio.device
+    n0 = torch.as_tensor(n0, device=dev)
+    idx = (n0.to(torch.int64) + torch.arange(audio.shape[-1],
+                                             device=dev)) % L
+    sums, tails = [], []
+    for tone, tail_u in ((mark, um_tail), (space, us_tail)):
+        full = cplx.concatenate([tail_u.to(dev, torch.float32),
+                                 tone.to(dev, torch.float32)[idx] * audio])
+        s = full.map(lambda v: window_sum(v, L))
+        sums.append(s.re * s.re + s.im * s.im)
+        tails.append(full[..., full.shape[-1] - (L - 1):].map(torch.clone))
+    return sums[0] - sums[1], y_last, tails[0], tails[1]
+
+
+def fir_afsk_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
+                   prev: Complex, rot: complex, gain: float, mark: Complex,
+                   space: Complex, n0, um_tail: Complex, us_tail: Complex):
+    """Fused FIR + FM discriminator + dual-tone FSK correlator over one
+    block: the AFSK front end in one pass, so neither the baseband nor the
+    audio reaches device memory.
+
+    Args:
+      x, taps, stride, tail, prev, rot, gain: as for :func:`fir_fm_exact`.
+      mark, space: Complex (L,) float32 tone templates over one period of
+        the window L (2 <= L <= 256 on the card).
+      n0: int32 scalar tensor (or int), the template phase of the block's
+        first output, in [0, L).
+      um_tail, us_tail: Complex (C, L-1) float32, the last L-1 products of
+        each tone before the block.
+
+    Returns:
+      (disc (C, B/D) float32, y_last Complex (C,), um_tail', us_tail').
+    """
+    if _plain(x, "fir_afsk_exact"):
+        return fir_afsk_exact_plain(x, taps, stride, tail, prev, rot, gain,
+                                    mark, space, n0, um_tail, us_tail)
+    out, _, y_last, tails = _launch(
+        fir_afsk_exact, _MODE_AFSK, x, taps, int(stride), tail, gain,
+        prev=prev, rot=complex(rot),
+        afsk=(mark, space, n0, um_tail, us_tail))
+    return out, y_last, tails[0], tails[1]
+
+
 # Kernel launches, counted where they happen.
-for _entry in (fir_fm_exact, fir_exact, fir_am_exact, fir_usb_exact):
+for _entry in (fir_fm_exact, fir_exact, fir_am_exact, fir_usb_exact,
+               fir_afsk_exact):
     _entry.launches = 0
 
 # The C interface's modes (csrc/fir_common.cuh).
-_MODE_FM, _MODE_FIR, _MODE_AM, _MODE_USB = 0, 1, 2, 3
+_MODE_FM, _MODE_FIR, _MODE_AM, _MODE_USB, _MODE_AFSK = 0, 1, 2, 3, 4
 
 
-def _plain(x: Complex, name: str) -> bool:
-    """True for a CPU block; False for a CUDA block; raises otherwise."""
-    dev = x.re.device
+def _plain(x, name: str) -> bool:
+    """True for a CPU block (a tensor or a Complex); False for a CUDA
+    block; raises otherwise."""
+    dev = getattr(x, "re", x).device
     if dev.type == "cpu":
         return True
     if dev.type != "cuda":
@@ -284,14 +348,14 @@ def _small(name, dev):
     return small
 
 
-def _chunks(name, lib, mode, c, b, t, d, xr):
+def _chunks(name, lib, mode, c, b, t, d, ell, xr):
     """K for the launch, or ValueError outside the gate."""
     with torch.cuda.device(xr.device):
-        k = lib.sdr_fir_chunks(mode, c, b, t, d,
+        k = lib.sdr_fir_chunks(mode, c, b, t, d, ell,
                                int(xr.dtype == torch.bfloat16))
     if k == -1:
         raise ValueError(f"{name}: shape outside the kernel's gate (C={c}, "
-                         f"B={b}, T={t}, D={d}, {xr.dtype}); see "
+                         f"B={b}, T={t}, D={d}, L={ell}, {xr.dtype}); see "
                          f"ops/fir_fm.py")
     if k < -1:
         msg = lib.sdr_cuda_error_string(-2 - k).decode()
@@ -312,11 +376,14 @@ def _ptr(v):
 
 
 def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
-            state=None, prev=None, rot=0j, phasor=None, ramp=None):
+            state=None, prev=None, rot=0j, phasor=None, ramp=None,
+            afsk=None):
     """One launch of a mode: the FIR kernel, then the mode's IIR (mode fm's
     de-emphasis, or the AGC of modes am and usb) when iir_ab is given with
-    its state.  Returns (out, out_i, y_last, sd_last), None where the mode
-    has no such result."""
+    its state.  Mode afsk takes ``afsk = (mark, space, n0, um_tail,
+    us_tail)``.  Returns (out, out_i, y_last, sd_last), None where the mode
+    has no such result; mode afsk returns its two new tails in place of
+    sd_last."""
     from libsdr_tpu_torch import _build
 
     name = entry.__name__
@@ -329,7 +396,8 @@ def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     pr = pi = ylr = yli = rr = ri = phr = phi = None
-    if mode == _MODE_FM:
+    ell, ops, u_out = 0, None, None
+    if mode in (_MODE_FM, _MODE_AFSK):
         pr = small(prev.re, torch.float32, (c,))
         pi = small(prev.im, torch.float32, (c,))
         ylr, yli = empty(c), empty(c)
@@ -338,8 +406,19 @@ def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
         ri = small(ramp.im, torch.float32, (n,))
         phr = small(phasor.re, torch.float32, ())
         phi = small(phasor.im, torch.float32, ())
+    if mode == _MODE_AFSK:
+        mark, space, n0, um, us = afsk
+        ell = mark.re.shape[-1]
+        u_out = [empty(c, ell - 1) for _ in range(4)]
+        tpl = [small(v, torch.float32, (ell,))
+               for v in (mark.re, mark.im, space.re, space.im)]
+        u_in = [small(v, torch.float32, (c, ell - 1))
+                for v in (um.re, um.im, us.re, us.im)]
+        n0 = small(torch.as_tensor(n0), torch.int32, ())
+        ops = (ctypes.c_void_p * 13)(*[v.data_ptr() for v in (
+            tpl + [n0] + u_in + u_out)])
     lib = _build.library()
-    k = _chunks(name, lib, mode, c, b, t, d, xr)
+    k = _chunks(name, lib, mode, c, b, t, d, ell, xr)
     out = empty(c, n)
     out_i = empty(c, n) if mode == _MODE_FIR else None
     s_in = s_out = ends = None
@@ -366,9 +445,11 @@ def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
             _ptr(ri), _ptr(phr), _ptr(phi), out.data_ptr(), _ptr(out_i),
             _ptr(ylr), _ptr(yli), _ptr(s_in), _ptr(s_out), _ptr(ends), c, b,
             t, d, k, k_agc, rot.real, rot.imag, float(gain), a, bc,
-            int(iir_ab is not None), int(xr.dtype == torch.bfloat16),
-            ctypes.c_void_p(stream))
+            int(iir_ab is not None), ops, ell,
+            int(xr.dtype == torch.bfloat16), ctypes.c_void_p(stream))
     _check(name, lib, rc)
     entry.launches += 1
     y_last = None if ylr is None else Complex(ylr, yli)
+    if mode == _MODE_AFSK:
+        return out, None, y_last, (Complex(*u_out[:2]), Complex(*u_out[2:]))
     return out, out_i, y_last, s_out

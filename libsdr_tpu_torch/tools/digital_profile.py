@@ -1,0 +1,185 @@
+"""Where the time of the digital receive paths goes on the card.
+
+    python -m libsdr_tpu_torch.tools.digital_profile [--out profile.json]
+
+Needs one CUDA card and nvcc.  For each path it drives a few carry-chained
+steps under ``torch.profiler``, on the message traffic that
+``chip_smoke.py`` drives (``tools/digital_signals.py``), and prints the
+device time per kernel name and step, the step time on the host clock
+(ended by a synchronize) and the device's busy share (kernel time over
+step time):
+
+* P1, the AX.25/APRS bank: 64 channels x 2^21 samples at 192 kHz through
+  IQBaseBand(order 48, 48 kHz) -> FMDemod -> FSKDetector -> BitStream
+  (AFSKFrontendFused + BitStream: K1e, then K2's two kernels);
+* P2, the POCSAG bank: 256 channels x 117,760 samples at 240 kHz through
+  apps/chains.pocsag_front_end (K1a, ASKDetector, K2);
+* P3, the mode bank: apply_mode_chains over 3 x 64 channels x 2^18 steps
+  at 24 kHz (the plain demodulators and FSK detectors, one K3 launch).
+
+Then it profiles the PLL kernel alone at 2^16 steps for 64 to 65,536
+lanes (a recurrence per lane: the time per step stays flat while it is
+latency-bound) and writes the SASS of its serial loop (``cuobjdump``) to
+``--sass`` for reading the dependent chain of one step.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from libsdr_tpu_torch import _build
+from libsdr_tpu_torch.tools.digital_signals import (ax25_bank, mode_bank,
+                                                    mode_chains,
+                                                    pocsag_blocks)
+
+
+def _profile(label, step_fn, steps):
+    """Kernel device time per name and step, host step time, busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step_fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step_fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and getattr(ev, "device_type", None) is not None \
+                and str(ev.device_type).endswith("CUDA"):
+            kernels[ev.key] = dev_us / 1e3 / steps
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])
+    print(f"{label}: {wall_ms:.3f} ms/step (host clock), device "
+          f"{busy:.3f} ms/step, busy share {busy / wall_ms:.3f}")
+    for name, ms in top[:8]:
+        print(f"    {ms:9.3f} ms  {name[:100]}")
+    return dict(step_ms=wall_ms, device_ms=busy, busy=busy / wall_ms,
+                kernels=dict(top))
+
+
+def p1(gen):
+    import libsdr_tpu_torch as L
+    from libsdr_tpu_torch.ops import (BitStream, FMDemod, FSKDetector,
+                                      IQBaseBand)
+
+    c, b = 64, 1 << 21
+    p = L.Pipeline([IQBaseBand(fc=24e3, width=12.5e3, order=48,
+                               out_rate=48e3, design="textbook"),
+                    FMDemod(), FSKDetector(1200.0, 1200.0, 2200.0),
+                    BitStream(1200.0, mode="transition")])
+    p.bind(L.StreamSpec(np.complex64, 192_000.0, b, channels=(c,)))
+    x = ax25_bank(c, b, gen)
+    state = {"c": p.init_carry("cuda")}
+
+    def step():
+        state["c"], _ = p.apply(state["c"], x)
+    return _profile("P1 AX.25 bank 64 x 2^21 @ 192 kHz", step, 5)
+
+
+def p2(gen):
+    from libsdr_tpu_torch.apps.chains import pocsag_front_end
+
+    c, b = 256, 117_760
+    fe = pocsag_front_end(240e3, b, channels=(c,))
+    blocks = pocsag_blocks(c, b, 4, gen)
+    state = {"c": fe.init_carry("cuda"), "k": 0}
+
+    def step():
+        state["c"], _ = fe.apply(state["c"], blocks[state["k"] % 4])
+        state["k"] += 1
+    return _profile("P2 POCSAG bank 256 x 117,760 @ 240 kHz", step, 8)
+
+
+def p3(gen):
+    from libsdr_tpu_torch.ops.bitsync import apply_mode_chains
+
+    per, t = 64, 1 << 18
+    y, groups = mode_bank(per, t, gen)
+    sub, windows = mode_chains(per, t)
+    state = {"c": {m: p.init_carry("cuda") for m, p in sub.items()}}
+
+    def step():
+        _, state["c"] = apply_mode_chains(sub, state["c"], y, groups,
+                                          windows)
+    return _profile("P3 mode bank 3 x 64 x 2^18 @ 24 kHz", step, 3)
+
+
+def pll_scaling(gen):
+    """The PLL kernel alone: ms and ns per step at 2^16 steps by lanes."""
+    from libsdr_tpu_torch.ops.pll import pll
+
+    t, out = 1 << 16, {}
+    for m in (64, 1024, 8192, 65536):
+        sym = (torch.rand((m, t), generator=gen, device="cuda") > 0.5).to(
+            torch.uint8)
+        st = (torch.zeros((m, 39), dtype=torch.int32, device="cuda"),
+              torch.zeros(m, dtype=torch.int32, device="cuda"),
+              torch.zeros(m, device="cuda"),
+              torch.full((m,), 0.025, device="cuda"),
+              torch.zeros(m, dtype=torch.int32, device="cuda"))
+        kw = dict(omega_min=0.025 * 0.995, omega_max=0.025 * 1.005,
+                  gain=0.0005, transition=True)
+        res = _profile(f"pll alone, {m} lanes x {t} steps",
+                       lambda: pll(sym, *st, **kw), 3)
+        res["ns_per_step"] = res["device_ms"] * 1e6 / t
+        print(f"    {res['ns_per_step']:.2f} ns per step")
+        out[m] = res
+    return out
+
+
+def sass(path: Path) -> None:
+    """The SASS of the PLL's serial kernel, from the built library."""
+    lib, _ = _build.build()
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    keep, lines = False, []
+    for line in dump.splitlines():
+        if "Function :" in line:
+            keep = "pll_serial" in line
+        if keep:
+            lines.append(line)
+    path.write_text("\n".join(lines) + "\n")
+    print(f"SASS of pll_serial: {len(lines)} lines -> {path}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="digital_profile.json")
+    ap.add_argument("--sass", default="pll_serial.sass")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi)
+    _build.library()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    res = {"device": smi, "P1": p1(gen), "P2": p2(gen), "P3": p3(gen)}
+    torch.cuda.empty_cache()
+    res["pll_scaling"] = pll_scaling(gen)
+    sass(Path(args.sass))
+    Path(args.out).write_text(json.dumps(res, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

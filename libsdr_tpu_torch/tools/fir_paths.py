@@ -6,10 +6,11 @@
 Needs one CUDA card and nvcc.  Builds the kernel library twice, in
 parallel: with every stride on the staged kernel (``SDR_STAGED_MAX_D``
 large) and with every stride on the warp kernel (``SDR_STAGED_MAX_D=0``).
-Then, for every mode (fm with de-emphasis, fir, am and usb with the AGC),
-stride D and plane dtype, on C channels of about ``--block`` samples with
-T = order + D - 1 taps (the rx chains' orders: 32 for fm and am, 64 for
-fir and usb), it holds the staged and the warp kernel against the plain
+Then, for every mode (fm with de-emphasis, fir, am and usb with the AGC,
+afsk with a 40-sample correlator), stride D and plane dtype, on C channels
+of about ``--block`` samples with T = order + D - 1 taps (the rx chains'
+orders: 32 for fm and am, 64 for fir and usb; the AX.25 bank's 48 for
+afsk), it holds the staged and the warp kernel against the plain
 version twice: from the op's initial carry ("cold": block 0, zero
 history) and from a warm carry (block 1, after the plain version ran
 block 0).  It times each kernel on block 1 with CUDA events, in the order
@@ -18,7 +19,8 @@ in ``--out``.
 
 Errors are those of chip_smoke.py: fm absolute (rad times the gain), fir
 and AGC-free modes relative to the largest output, AGC absolute on the
-audio and relative on the exported envelope.
+audio and relative on the exported envelope, afsk relative to each
+channel's largest |disc|.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from libsdr_tpu_torch.core.cplx import Complex
 
 FS = 960_000.0
 DEV = "cuda"
-ORDER = {"fm": 32, "fir": 64, "am": 32, "usb": 64}
+ORDER = {"fm": 32, "fir": 64, "am": 32, "usb": 64, "afsk": 48}
+AFSK_L = 40   # the correlator window of mode afsk (the AX.25 bank's)
 VARIANTS = {"staged": ("SDR_STAGED_MAX_D=1000000",),
             "warp": ("SDR_STAGED_MAX_D=0",)}
 
@@ -78,13 +81,14 @@ class Case:
         self.gen = gen
         n_out = b // d
         name = {"fm": "fir_fm_exact", "fir": "fir_exact",
-                "am": "fir_am_exact", "usb": "fir_usb_exact"}[mode]
+                "am": "fir_am_exact", "usb": "fir_usb_exact",
+                "afsk": "fir_afsk_exact"}[mode]
         self.entry = getattr(F, name)
         self.plain = getattr(F, name + "_plain")
         tail = Complex(torch.zeros((c, t - 1), device=DEV),
                        torch.zeros((c, t - 1), device=DEV))
-        if mode == "fm":
-            self.op = _fm_op(d, t, c, b)
+        if mode in ("fm", "afsk"):
+            self.op = _fm_op(d, t, c, b, afsk=mode == "afsk")
             self.state0 = self.op.init_carry(DEV)
             return
         g = torch.Generator(device=DEV)
@@ -103,7 +107,7 @@ class Case:
         self.state0 = (tail, torch.full((c,), 0.5, device=DEV))
 
     def block(self, k, dtype):
-        if self.mode == "fm":
+        if self.mode in ("fm", "afsk"):
             x = fm_planes(self.gen, self.c, self.b, self.d, k * self.b)
         else:
             x = noise_planes(self.gen, self.c, self.b)
@@ -111,6 +115,12 @@ class Case:
 
     def args(self, x, state):
         d = self.d
+        if self.mode == "afsk":
+            op = self.op
+            return ((x, op._taps(DEV), d, state[0], state[1], op._rot,
+                     op._gain, op._on("mark", op._tones[0], DEV),
+                     op._on("space", op._tones[1], DEV)) + tuple(state[2:]),
+                    {})
         if self.mode == "fm":
             op = self.op
             return ((x, op._taps(DEV), d, state[0], state[1], op._rot,
@@ -125,6 +135,9 @@ class Case:
 
     def next_state(self, x, ref, state):
         tail = x[..., x.re.shape[-1] - (self.t - 1):].map(torch.clone)
+        if self.mode == "afsk":
+            n = x.re.shape[-1] // self.d
+            return (tail, ref[1], (state[2] + n) % AFSK_L, ref[2], ref[3])
         if self.mode == "fm":
             out, y_last = ref
             return (tail, y_last, out[..., -1])
@@ -133,6 +146,9 @@ class Case:
         return (tail, ref[1])
 
     def error(self, got, ref):
+        if self.mode == "afsk":
+            scale = ref[0].abs().amax(dim=1, keepdim=True).clamp_min(1e-30)
+            return float(((got[0] - ref[0]).abs() / scale).max())
         if self.mode == "fm":
             return float((got[0] - ref[0]).abs().max())
         if self.mode == "fir":
@@ -144,13 +160,19 @@ class Case:
                    float(((got[1] - ref[1]) / ref[1]).abs().max()))
 
 
-def _fm_op(d, t, c, b):
+def _fm_op(d, t, c, b, afsk=False):
+    """The fused FM op (with de-emphasis), or the fused AFSK op with its
+    tone rate set so that its window is AFSK_L."""
     import libsdr_tpu_torch as L
-    from libsdr_tpu_torch.ops import FMDeemph, FMDemod, IQBaseBand
+    from libsdr_tpu_torch.ops import (FMDeemph, FMDemod, FSKDetector,
+                                      IQBaseBand)
 
+    audio_fs = FS / d
+    last = (FSKDetector(audio_fs / (AFSK_L + 0.5), 0.05 * audio_fs,
+                        0.09 * audio_fs) if afsk else FMDeemph())
     rx = L.Pipeline([IQBaseBand(fc=FS / 8, width=min(FS / 4.8, 0.8 * FS / d),
                                 order=t - d + 1, decim=d, design="textbook"),
-                     FMDemod(), FMDeemph()])
+                     FMDemod(), last])
     rx.bind(L.StreamSpec(np.complex64, FS, b, channels=(c,)))
     return rx.stages[0]
 

@@ -27,14 +27,15 @@ def common_parser(description: str) -> argparse.ArgumentParser:
 def device_of(args):
     """The torch device of ``--device``; raises SystemExit for a CUDA
     device when the card is not there."""
-    import torch
+    from libsdr_tpu_torch.core.graph import resolve_device
+    from libsdr_tpu_torch.core.stream import RuntimeSDRError
 
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    try:
+        return resolve_device(args.device)
+    except RuntimeSDRError:
         raise SystemExit(f"--device {args.device}: no CUDA device is "
                          "available (use --device cpu for the plain "
-                         "PyTorch versions)")
-    return dev
+                         "PyTorch versions)") from None
 
 
 def add_source_args(p: argparse.ArgumentParser) -> None:

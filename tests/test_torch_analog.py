@@ -233,8 +233,8 @@ def _port_pipe(stages, block, n_ch, fused=True):
     return p
 
 
-def _stream(pipe, step, blocks, to_block, to_np, carry=None):
-    carry = pipe.init_carry() if carry is None else carry
+def _stream(pipe, step, blocks, to_block, to_np, carry=None, **kw):
+    carry = pipe.init_carry(**kw) if carry is None else carry
     outs = []
     for blk in blocks:
         carry, y = step(carry, to_block(blk))
@@ -251,7 +251,7 @@ def _run_jax(pipe, blocks, carry=None):
 
 def _run_port(pipe, blocks, carry=None):
     return _stream(pipe, pipe.compile(), blocks, cplx.as_block,
-                   lambda y: y.numpy(), carry)
+                   lambda y: y.numpy(), carry, device="cpu")
 
 
 def _blocks(seed, n_ch, block, n=4):
@@ -345,7 +345,7 @@ def test_fused_constants_and_carry_match_jax(kind, agc):
             a = np.complex64(a) if np.ndim(a) == 0 else a.astype(np.complex64)
             np.testing.assert_array_equal(a.real, np.asarray(b.re))
             np.testing.assert_array_equal(a.imag, np.asarray(b.im))
-    assert _signature(pp.init_carry()) == _signature(jp.init_carry())
+    assert _signature(pp.init_carry("cpu")) == _signature(jp.init_carry())
     jc, _ = _run_jax(jp, blocks)
     pc, _ = _run_port(pp, blocks)
     assert _signature(pc) == _signature(jc)
@@ -385,7 +385,7 @@ def test_carry_handoff_jax_port_jax(kind):
 def _stream_ops(jop, pop, spec_args, blocks):
     jop.bind(J.StreamSpec(*spec_args))
     pop.bind(P.StreamSpec(*spec_args))
-    jc, pc = jop.init_carry(), pop.init_carry()
+    jc, pc = jop.init_carry(), pop.init_carry("cpu")
     jo, po = [], []
     jstep = jax.jit(jop.apply)
     for blk in blocks:
@@ -483,7 +483,8 @@ def test_switch_stages_preserves_front_end(rng):
                               ("jax", jops, J, jcplx.as_block)):
         p = pkg.Pipeline([bb(m), m.FMDemod(), m.FMDeemph()])
         p.bind(pkg.StreamSpec(np.complex64, FS, block))
-        c, step = p.init_carry(), p.compile()
+        c = p.init_carry("cpu") if pkg is P else p.init_carry()
+        step = p.compile()
         for b in range(2):
             c, _ = step(c, blk(x[b]))
         c = p.switch_stages([bb(m), m.AMDemod()], c)

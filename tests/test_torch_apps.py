@@ -1,6 +1,8 @@
 """The port's CLIs (``libsdr_tpu_torch.apps``: rx in all five modes and
-with ``--switch``, fm_rx, wavplay) against the JAX package's, on the
-synthesized captures of tests/test_apps.py, run with ``--device cpu``.
+with ``--switch``, fm_rx, wavplay, pocsag_rx, ax25_rx, rtty_rx and tx)
+against the JAX package's, on the synthesized captures of
+tests/test_apps.py, run with ``--device cpu``.  The digital receivers
+decode the same messages as the JAX CLIs.
 
 Each port CLI writes the JAX CLI's WAV within 1 LSB of the 16-bit output:
 both chains compute in float32 and differ by round-off (~1e-6), by the AGC
@@ -188,3 +190,146 @@ def test_cuda_device_refused_without_a_card(tmp_path):
     with pytest.raises(SystemExit, match="no CUDA device"):
         rx.main(["--file", str(cap), "-m", "AM", "-o",
                  str(tmp_path / "out.wav")])
+
+
+# -- the digital receivers and the signal generator --------------------------
+
+def _nrzi(bits):
+    line, cur = [], 0
+    for b in np.asarray(bits):
+        if b == 0:
+            cur ^= 1
+        line.append(cur)
+    return np.asarray(line, np.uint8)
+
+
+def _pocsag(ms):
+    return [(m.address, m.function, m.bits, m.as_text()) for m in ms]
+
+
+def _ax25(dec):
+    return ([str(m) for m in dec.messages],
+            [str(a) for a in dec.aprs_messages])
+
+
+def test_pocsag_rx_like_jax(tmp_path):
+    """tests/test_apps.py::test_pocsag_rx_cli's capture."""
+    from libsdr_tpu.apps import pocsag_rx as j_pocsag_rx
+    from libsdr_tpu.decode import pocsag_encode_batch
+    from libsdr_tpu_torch.apps import pocsag_rx
+
+    fs = 240_000
+    bits = pocsag_encode_batch(address=4242, function=1, text="TPU PAGER")
+    spb = fs / 1200.0
+    n = int(len(bits) * spb)
+    idx = np.minimum((np.arange(n) / spb).astype(np.int64), len(bits) - 1)
+    dev = np.where(bits[idx] > 0, -4500.0, 4500.0)
+    iq = np.exp(1j * 2 * np.pi * np.cumsum(dev) / fs).astype(np.complex64)
+    cap = tmp_path / "pocsag.wav"
+    j_write_wav_iq(str(cap), 0.9 * iq, fs)
+    args = ["--file", str(cap), "--block-size", "24000"]
+    got = pocsag_rx.main(args + ["--device", "cpu"])
+    assert _pocsag(got) == _pocsag(j_pocsag_rx.main(args))
+    assert got[0].address == 4242 and got[0].as_text().startswith(
+        "TPU PAGER")
+
+
+def _afsk_audio(fs=24_000):
+    """tests/test_apps.py::test_ax25_rx_cli's audio."""
+    from libsdr_tpu.decode import ax25_frame_bits
+
+    line = _nrzi(ax25_frame_bits("N0CALL", "APRS",
+                                 b"!4903.50N/07201.75W-TPU", n_flags=50))
+    audio = siggen.fsk_modulate(fs, line, 1202.0, 1200.0, 2200.0).real
+    return np.concatenate([audio, np.zeros(4000, np.float32)])
+
+
+@pytest.mark.parametrize("iq", [False, True])
+def test_ax25_rx_like_jax(tmp_path, iq):
+    """From demodulated audio (--audio) and from an FM IQ capture at
+    240 kHz, which the NFM front end demodulates first."""
+    from libsdr_tpu.apps import ax25_rx as j_ax25_rx
+    from libsdr_tpu_torch.apps import ax25_rx
+
+    audio = _afsk_audio()
+    cap = tmp_path / "afsk.wav"
+    if iq:
+        j_write_wav_iq(str(cap), 0.8 * siggen.fm_modulate(
+            240_000, np.repeat(audio, 10), deviation=3e3), 240_000)
+        args = ["--file", str(cap), "--block-size", "24000"]
+    else:
+        j_write_wav(str(cap), 0.8 * audio.astype(np.float32), 24_000)
+        args = ["--file", str(cap), "--audio", "--block-size", "12000"]
+    got = ax25_rx.main(args + ["--device", "cpu"])
+    assert _ax25(got) == _ax25(j_ax25_rx.main(args))
+    assert got.messages and got.aprs_messages[0].has_location
+
+
+def test_rtty_rx_like_jax(tmp_path):
+    """tests/test_apps.py::test_rtty_rx_cli's capture."""
+    from libsdr_tpu.apps import rtty_rx as j_rtty_rx
+    from libsdr_tpu.decode import baudot_encode_bits
+    from libsdr_tpu_torch.apps import rtty_rx
+
+    fs = 8000
+    half_bits = baudot_encode_bits("RYRY HELLO RTTY", stop_bits="1.5")
+    audio = siggen.fsk_modulate(fs, half_bits, 2 * 45.45, 930.0, 1100.0).real
+    cap = tmp_path / "rtty.wav"
+    j_write_wav(str(cap), 0.8 * np.concatenate(
+        [audio, np.zeros(2000, np.float32)]).astype(np.float32), fs)
+    args = ["--file", str(cap), "--block-size", "8000"]
+    got = rtty_rx.main(args + ["--device", "cpu"])
+    assert got == j_rtty_rx.main(args) and "HELLO RTTY" in got
+
+
+def test_tx_loopback_like_jax(tmp_path):
+    """tests/test_apps.py::test_tx_loopback: the port's generator writes
+    the JAX generator's files byte for byte, and its receivers decode them
+    as the JAX receivers do."""
+    from libsdr_tpu.apps import ax25_rx as j_ax25_rx
+    from libsdr_tpu.apps import pocsag_rx as j_pocsag_rx
+    from libsdr_tpu.apps import rtty_rx as j_rtty_rx
+    from libsdr_tpu.apps import tx as j_tx
+    from libsdr_tpu_torch.apps import ax25_rx, pocsag_rx, rtty_rx, tx
+
+    for mode, extra in (("pocsag", ["--address", "777", "--text",
+                                    "LOOPBACK"]),
+                        ("afsk", ["--from-call", "K2TX", "--info",
+                                  "!4903.50N/07201.75W-tx"]),
+                        ("rtty", ["--text", "RYRY TX LOOP", "--fs", "8000"]),
+                        ("psk31", ["--text", "tx ok"]),
+                        ("fm", ["--seconds", "0.1"])):
+        f = tx.main([mode, "-o", str(tmp_path / f"{mode}.wav")] + extra)
+        jf = j_tx.main([mode, "-o", str(tmp_path / f"j{mode}.wav")] + extra)
+        assert (tmp_path / f"{mode}.wav").read_bytes() == (
+            tmp_path / f"j{mode}.wav").read_bytes()
+        if mode == "pocsag":
+            args = ["--file", f, "--block-size", "24000"]
+            got = pocsag_rx.main(args + ["--device", "cpu"])
+            assert _pocsag(got) == _pocsag(j_pocsag_rx.main(["--file", jf,
+                                                             "--block-size",
+                                                             "24000"]))
+            assert got[0].address == 777
+            assert got[0].as_text().startswith("LOOPBACK")
+        elif mode == "afsk":
+            args = ["--file", f, "--audio", "--block-size", "12000"]
+            got = ax25_rx.main(args + ["--device", "cpu"])
+            assert _ax25(got) == _ax25(j_ax25_rx.main(args))
+            assert got.messages[0].frm.call == "K2TX"
+        elif mode == "rtty":
+            args = ["--file", f, "--block-size", "8000"]
+            got = rtty_rx.main(args + ["--device", "cpu"])
+            assert got == j_rtty_rx.main(args) and "TX LOOP" in got
+
+
+@pytest.mark.parametrize("app", ["pocsag_rx", "ax25_rx", "rtty_rx"])
+def test_digital_apps_refuse_cuda_without_a_card(tmp_path, app):
+    import importlib
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    main = importlib.import_module(f"libsdr_tpu_torch.apps.{app}").main
+    cap = tmp_path / "cap.wav"
+    j_write_wav(str(cap), np.zeros(8000, np.float32), 8000)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        main(["--file", str(cap)])

@@ -130,7 +130,7 @@ def test_pipeline_on_card_matches_cpu(cuda):
                                 decim=4, design="textbook"),
                      FMDemod(), FMDeemph()])
     rx.bind(P.StreamSpec(np.complex64, FS, 16384, channels=(4,)))
-    cg, cc = rx.init_carry(cuda), rx.init_carry()
+    cg, cc = rx.init_carry(cuda), rx.init_carry("cpu")
     for k in range(3):
         x = _fm(4, 16384, 4, k)
         n0 = fir_fm_exact.launches
@@ -244,7 +244,7 @@ def test_fused_ops_one_launch_per_block_match_cpu(cuda, mode):
     rx.bind(P.StreamSpec(np.complex64, 960e3, 96_000, channels=(3,)))
     op = rx.stages[0]
     entry = F.fir_am_exact if mode == "AM" else F.fir_usb_exact
-    cg, cc = rx.init_carry(cuda), rx.init_carry()
+    cg, cc = rx.init_carry(cuda), rx.init_carry("cpu")
     rng = np.random.default_rng(5)
     for _ in range(3):
         x = (rng.normal(size=(3, 96_000))
@@ -265,7 +265,7 @@ def test_real_fir_filter_on_card_matches_cpu(cuda, decim):
     its taps live on the card and the block runs the plain correlation."""
     f = FIRFilter(order=33, kind="lowpass", fu=4000.0, decim=decim)
     f.bind(P.StreamSpec(np.float32, 48_000.0, 4800, channels=(2,)))
-    cg, cc = f.init_carry(cuda), f.init_carry()
+    cg, cc = f.init_carry(cuda), f.init_carry("cpu")
     rng = np.random.default_rng(7)
     for _ in range(3):
         x = rng.normal(size=(2, 4800)).astype(np.float32)
@@ -280,7 +280,7 @@ def test_fir_overlap_save_one_launch_per_block(cuda):
     rx = P.Pipeline([IQBaseBand(fc=FS / 8, width=FS / 4.8, order=64,
                                 decim=4, design="textbook")])
     rx.bind(P.StreamSpec(np.complex64, FS, 16384, channels=(4,)))
-    cg, cc = rx.init_carry(cuda), rx.init_carry()
+    cg, cc = rx.init_carry(cuda), rx.init_carry("cpu")
     rng = np.random.default_rng(6)
     for _ in range(3):
         x = (rng.normal(size=(4, 16384))
@@ -294,3 +294,258 @@ def test_fir_overlap_save_one_launch_per_block(cuda):
         scale = float(yc.abs().max())
         assert float((yg.re.cpu() - yc.re).abs().max()) / scale < 1e-5
         assert float((yg.im.cpu() - yc.im).abs().max()) / scale < 1e-5
+
+
+# -- the digital receive path: K1e (mode afsk) and the bit-sync PLL --------
+#
+# K1e against its plain version: disc within 1e-4 of each channel's largest
+# |disc| (float32 FIR sums in two orders move y by ~1e-6 relative, the
+# discriminator by ~1e-6 rad, and both sum each window oldest first); the
+# symbols equal wherever |disc| is above that bound; the carried products
+# (audio times a unit template) within the discriminator's bound ERR_BOUND.
+# The PLL is bit-exact.
+
+def _afsk_op(d, ell, c, b, plane_dtype=None):
+    """The fused AFSK op at stride d with window ell: the tone rate is
+    chosen so that int(audio_fs / baud) == ell."""
+    from libsdr_tpu_torch.ops import FSKDetector
+    from libsdr_tpu_torch.ops.afsk_fused import AFSKFrontendFused
+
+    audio_fs = FS / d
+    rx = P.Pipeline([IQBaseBand(fc=FS / 8, width=min(FS / 4.8, 0.8 * FS / d),
+                                order=48, decim=d, design="textbook"),
+                     FMDemod(), FSKDetector(audio_fs / (ell + 0.5),
+                                            0.05 * audio_fs,
+                                            0.09 * audio_fs)])
+    rx.bind(P.StreamSpec(np.complex64, FS, b, channels=(c,),
+                         plane_dtype=plane_dtype))
+    op = rx.stages[0]
+    assert isinstance(op, AFSKFrontendFused) and op.corr_len == ell
+    return op
+
+
+def _afsk_args(op, x, carry):
+    tail, prev, n0, um, us = carry
+    dev = x.re.device
+    return (x, op._taps(dev), op._decim, tail, prev, op._rot, op._gain,
+            op._on("mark", op._tones[0], dev),
+            op._on("space", op._tones[1], dev), n0, um, us)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,ell,c", [(4, 40, 64), (2, 2, 3), (5, 20, 1),
+                                     (10, 20, 3), (40, 128, 3),
+                                     (100, 40, 3), (4, 256, 2)])
+def test_afsk_kernel_matches_plain(cuda, dtype, d, ell, c):
+    """K1e over a warm block and three carry-chained blocks, each long
+    enough for several chunks per channel."""
+    n_out = 3 * 4096 + 333
+    b = d * n_out
+    op = _afsk_op(d, ell, c, b, dtype)
+    carry = op.init_carry(cuda)
+    t = op._t
+    for k in range(4):
+        x = _fm(c, b, d, k)
+        x = Complex(torch.tensor(x.real, device=cuda).to(dtype),
+                    torch.tensor(x.imag, device=cuda).to(dtype))
+        args = _afsk_args(op, x, carry)
+        ref = F.fir_afsk_exact_plain(*args)
+        n0 = F.fir_afsk_exact.launches
+        got = F.fir_afsk_exact(*args)
+        assert F.fir_afsk_exact.launches == n0 + 1
+        torch.cuda.synchronize()
+        disc, y_last, um, us = got
+        rdisc, ry, rum, rus = ref
+        assert disc.shape == (c, n_out) and bool(torch.isfinite(disc).all())
+        if k:  # block 0 warms the carry up
+            bound = 1e-4 * rdisc.abs().amax(dim=1, keepdim=True)
+            assert bool(((disc - rdisc).abs() <= bound).all()), k
+            clear = rdisc.abs() > bound
+            assert bool(((disc > 0) == (rdisc > 0))[clear].all())
+            for a, r in ((um, rum), (us, rus)):
+                for pa, pr in ((a.re, r.re), (a.im, r.im)):
+                    assert float((pa - pr).abs().max()) < ERR_BOUND
+            assert float((y_last.re - ry.re).abs().max()) < 1e-4
+        carry = (x[..., b - (t - 1):].map(torch.clone), ry,
+                 (carry[2] + n_out) % ell, rum, rus)
+
+
+def _pll_inputs(rng, m, t, run):
+    """Symbols in runs of about ``run`` steps (bit-like) with flips."""
+    sym = np.repeat(rng.integers(0, 2, (m, t // run + 2)), run, axis=1)
+    flips = rng.random((m, sym.shape[1])) < 0.02
+    return (sym ^ flips)[:, :t].astype(np.uint8)
+
+
+@pytest.mark.parametrize("mode", ["normal", "transition"])
+@pytest.mark.parametrize("ell", [2, 20, 40, 264, 512])
+@pytest.mark.parametrize("m", [1, 64, 256, 1000])
+def test_pll_kernel_matches_plain(cuda, mode, ell, m):
+    """K2 bit-exact against its plain version over two chained blocks,
+    with the real +-0.5% bounds and with bounds widened to 0.5-2x omega0
+    (where a nudge rounded twice would show); one block length is not a
+    multiple of 16 (the kernel's byte-at-a-time loop)."""
+    from libsdr_tpu_torch.ops.pll import pll, pll_plain
+
+    rng = np.random.default_rng(ell * 1000 + m)
+    om0 = 1.0 / ell
+    for lo, hi, t in ((0.995, 1.005, 2048), (0.5, 2.0, 2056)):
+        kw = dict(omega_min=om0 * lo, omega_max=om0 * hi, gain=0.0005,
+                  transition=mode == "transition")
+        st = [torch.zeros(m, ell - 1, dtype=torch.int32),
+              torch.zeros(m, dtype=torch.int32), torch.zeros(m),
+              torch.full((m,), om0), torch.zeros(m, dtype=torch.int32)]
+        sg = [v.to(cuda) for v in st]
+        for _ in range(2):
+            sym = torch.from_numpy(_pll_inputs(rng, m, t, max(1, ell)))
+            n0 = pll.launches
+            got = pll(sym.to(cuda), *sg, **kw)
+            assert pll.launches == n0 + 1
+            ref = pll_plain(sym, *st, **kw)
+            torch.cuda.synchronize()
+            for a, r in zip(got, ref):
+                assert torch.equal(a.cpu(), r), (lo, t)
+            st, sg = list(ref[1:]), list(got[1:])
+
+
+def test_pll_bank_mixes_three_configurations(cuda):
+    """K3 bit-exact against its plain version on a bank of the mode bank's
+    three BitStream configurations (L = 20 normal, 20 transition, 264
+    normal) over two chained blocks, and lane by lane equal to K2 run with
+    each configuration."""
+    from libsdr_tpu_torch.ops.pll import pll, pll_bank, pll_bank_plain
+
+    rng = np.random.default_rng(3)
+    cfg = [(20, 0, 48), (20, 1, 40), (264, 0, 40)]   # (L, transition, lanes)
+    ells = np.concatenate([np.full(n, e, np.int32) for e, _, n in cfg])
+    trans = np.concatenate([np.full(n, tr, np.int32) for _, tr, n in cfg])
+    om0 = (1.0 / ells).astype(np.float32)
+    kw = dict(omega_min=om0 * 0.995, omega_max=om0 * 1.005,
+              gain=np.full(len(ells), 0.0005, np.float32), transition=trans,
+              ell=ells)
+    m, r, t = len(ells), 263, 4096
+    st = [torch.zeros(m, r, dtype=torch.int32),
+          torch.zeros(m, dtype=torch.int32), torch.zeros(m),
+          torch.from_numpy(om0), torch.zeros(m, dtype=torch.int32)]
+    sg = [v.to(cuda) for v in st]
+    syms = [torch.from_numpy(_pll_inputs(rng, m, t, 20)) for _ in range(2)]
+    for sym in syms:
+        n0 = pll_bank.launches
+        got = pll_bank(sym.to(cuda), *sg, **kw)
+        assert pll_bank.launches == n0 + 1
+        ref = pll_bank_plain(sym, *st, **kw)
+        torch.cuda.synchronize()
+        for a, b_ in zip(got, ref):
+            assert torch.equal(a.cpu(), b_)
+        st, sg = list(ref[1:]), list(got[1:])
+    # lane by lane: each group through K2 with its own configuration
+    off = 0
+    for ell, tr, n in cfg:
+        sl = slice(off, off + n)
+        g = [torch.zeros(n, ell - 1, dtype=torch.int32, device=cuda),
+             torch.zeros(n, dtype=torch.int32, device=cuda),
+             torch.zeros(n, device=cuda),
+             torch.full((n,), float(om0[off]), device=cuda),
+             torch.zeros(n, dtype=torch.int32, device=cuda)]
+        for sym in syms:
+            out, *g = pll(sym[sl].to(cuda), *g,
+                          omega_min=float(kw["omega_min"][off]),
+                          omega_max=float(kw["omega_max"][off]),
+                          gain=0.0005, transition=bool(tr))
+        assert torch.equal(out.cpu(), got[0][sl].cpu())
+        assert torch.equal(g[0].cpu(), got[1][sl, r - (ell - 1):].cpu())
+        off += n
+
+
+def test_afsk_bank_decodes_on_card(cuda):
+    """An FM-modulated AX.25 frame on 64 channels through the fused AFSK
+    front end and the BitStream on the card: every channel decodes the
+    frame that the CPU's plain versions decode."""
+    from libsdr_tpu_torch.core.ragged import Ragged, compact
+    from libsdr_tpu_torch.decode import AX25Decoder, ax25_frame_bits
+    from libsdr_tpu_torch.ops import BitStream, FSKDetector
+    from libsdr_tpu_torch.ops import fir_fm
+    from libsdr_tpu_torch.ops.pll import pll
+
+    fs, nch, blk = 96_000.0, 64, 8192
+    info = b"!4903.50N/07201.75W-card"
+    line, cur = [], 0
+    for bb in ax25_frame_bits("N0CALL", "APRS", info, n_flags=20):
+        cur ^= int(bb == 0)
+        line.append(cur)
+    audio = siggen.fsk_modulate(48000.0, np.asarray(line, np.uint8), 1200.0,
+                                1200.0, 2200.0).real
+    up = np.repeat(audio, 2)
+    n = -(-len(up) // blk) * blk
+    up = np.pad(up, (256, n - len(up) - 256))
+    inst = 2 * np.pi * (24e3 / fs) + 2 * np.pi * (3e3 / fs) * up
+    iq = np.exp(1j * np.cumsum(inst)).astype(np.complex64)
+    x = np.broadcast_to(iq, (nch, len(iq)))
+    payloads = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = P.Pipeline([IQBaseBand(fc=24e3, width=12.5e3, order=48,
+                                   out_rate=48e3, design="textbook"),
+                        FMDemod(), FSKDetector(1200.0, 1200.0, 2200.0),
+                        BitStream(1200.0, mode="transition")])
+        p.bind(P.StreamSpec(np.complex64, fs, blk, channels=(nch,)))
+        c = p.init_carry(dev)
+        n_fir, n_pll = fir_fm.fir_afsk_exact.launches, pll.launches
+        ds, vs = [], []
+        for i in range(x.shape[1] // blk):
+            c, y = p.apply(c, Complex(
+                torch.tensor(x[:, i * blk:(i + 1) * blk].real, device=dev),
+                torch.tensor(x[:, i * blk:(i + 1) * blk].imag, device=dev)))
+            ds.append(y.data.cpu().numpy())
+            vs.append(y.valid.cpu().numpy())
+        if dev.type == "cuda":
+            k = x.shape[1] // blk
+            assert fir_fm.fir_afsk_exact.launches == n_fir + k
+            assert pll.launches == n_pll + k
+        bits = compact(Ragged(np.concatenate(ds, -1), np.concatenate(vs, -1)))
+        got = []
+        for ch_bits in bits:
+            dec = AX25Decoder()
+            dec.process(ch_bits)
+            got.append([m.payload for m in dec.messages])
+        payloads[dev.type] = got
+    assert all(g and g[0].endswith(info) for g in payloads["cuda"])
+    assert payloads["cuda"] == payloads["cpu"]
+
+
+def test_digital_kernels_refuse_what_they_do_not_take(cuda):
+    """K1e's window outside 2..256 and the PLL's above 896 (the prefix sums
+    its majority pass keeps) raise ValueError and launch nothing."""
+    from libsdr_tpu_torch.ops.pll import MAX_WINDOW, pll, pll_bank
+
+    op = _afsk_op(4, 40, 2, 4 * 8192)
+    for ell in (1, 257):
+        tone = Complex(torch.ones(ell, device=cuda),
+                       torch.zeros(ell, device=cuda))
+        tails = Complex(torch.zeros(2, max(ell - 1, 0), device=cuda),
+                        torch.zeros(2, max(ell - 1, 0), device=cuda))
+        tail, prev, n0, _, _ = op.init_carry(cuda)
+        x = Complex(torch.zeros(2, 4 * 8192, device=cuda),
+                    torch.zeros(2, 4 * 8192, device=cuda))
+        n_before = F.fir_afsk_exact.launches
+        with pytest.raises(ValueError, match="gate"):
+            F.fir_afsk_exact(x, op._taps(cuda), 4, tail, prev, op._rot, 1.0,
+                             tone, tone, n0, tails, tails)
+        assert F.fir_afsk_exact.launches == n_before
+    m, ell = 4, MAX_WINDOW + 1
+    sym = torch.zeros((m, 64), dtype=torch.uint8, device=cuda)
+    st = (torch.zeros((m, ell - 1), dtype=torch.int32, device=cuda),
+          torch.zeros(m, dtype=torch.int32, device=cuda),
+          torch.zeros(m, device=cuda), torch.full((m,), 1.0 / ell,
+                                                   device=cuda),
+          torch.zeros(m, dtype=torch.int32, device=cuda))
+    n_before = pll.launches, pll_bank.launches
+    with pytest.raises(ValueError, match="gate"):
+        pll(sym, *st, omega_min=0.001, omega_max=0.002, gain=5e-4,
+            transition=False)
+    with pytest.raises(ValueError, match="windows"):
+        pll_bank(sym, *st, omega_min=np.full(m, 0.001, np.float32),
+                 omega_max=np.full(m, 0.002, np.float32),
+                 gain=np.full(m, 5e-4, np.float32),
+                 transition=np.zeros(m, np.int32),
+                 ell=np.full(m, ell, np.int32))
+    assert (pll.launches, pll_bank.launches) == n_before

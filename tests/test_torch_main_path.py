@@ -80,7 +80,7 @@ def _run_jax(p, blocks, carry=None):
 
 
 def _run_port(p, blocks, carry=None):
-    carry = p.init_carry() if carry is None else carry
+    carry = p.init_carry("cpu") if carry is None else carry
     outs = []
     for k in blocks:
         carry, y = p.apply(carry, cplx.as_block(BANK[:, k * B:(k + 1) * B]))
@@ -127,7 +127,7 @@ def test_fusion_installs_fused_op_with_jax_constants(jax_fused, port_fused):
 
 def test_fused_carry_matches_jax_layout(jax_fused, port_fused):
     assert _signature(port_fused[1]) == _signature(jax_fused[1])
-    assert _signature(port_fused[0].init_carry()) == _signature(
+    assert _signature(port_fused[0].init_carry("cpu")) == _signature(
         jax_fused[0].init_carry())
 
 
@@ -202,7 +202,7 @@ def test_tone_drive_through_run_pipeline():
     rx.bind(P.StreamSpec(np.complex64, fs, block_size=blk))
     assert isinstance(rx.stages[0], FMBasebandFused)
     n0 = fir_fm_exact.launches
-    _, out = run_pipeline(rx, stream_blocks(iq, blk))
+    _, out = run_pipeline(rx, stream_blocks(iq, blk), device="cpu")
     assert fir_fm_exact.launches == n0
     assert out.shape == (5 * blk // 4,) and np.isfinite(out).all()
     seg = out[24_000:]
@@ -232,7 +232,7 @@ def test_bf16_planes_carry_and_output(port_fused):
     p = P.Pipeline(_stages((IQBaseBand, FMDemod, FMDeemph)))
     p.bind(P.StreamSpec(np.complex64, FS, B, channels=(C,),
                         plane_dtype=torch.bfloat16))
-    carry = p.init_carry()
+    carry = p.init_carry("cpu")
     assert carry[0][0].re.dtype == torch.bfloat16
     outs = []
     for k in range(N_BLOCKS):

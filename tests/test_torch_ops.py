@@ -30,7 +30,7 @@ def _cx(rng, shape):
 
 def _stream(jp, pp, blocks):
     """Run the same numpy blocks through a JAX and a port processor."""
-    jc, pc = jp.init_carry(), pp.init_carry()
+    jc, pc = jp.init_carry(), pp.init_carry("cpu")
     jo, po = [], []
     for blk in blocks:
         jc, jy = jp.apply(jc, jcplx.as_block(blk))
@@ -159,7 +159,8 @@ def test_pipeline_binds_unfused_when_fused_op_refuses(monkeypatch, rng):
     rx.bind(P.StreamSpec(np.complex64, 96_000.0, 2048, channels=(2,)))
     assert [type(s) for s in rx.stages] == [IQBaseBand, FMDemod, FMDeemph]
     assert rx.stages[1]._pending_rot_freqs == []
-    carry, y = rx.apply(rx.init_carry(), cplx.as_block(_cx(rng, (2, 2048))))
+    carry, y = rx.apply(rx.init_carry("cpu"),
+                        cplx.as_block(_cx(rng, (2, 2048))))
     assert tuple(y.shape) == (2, 512)
 
 

@@ -21,7 +21,14 @@ def test_import_leaves_jax_out():
             "libsdr_tpu_torch.ops, libsdr_tpu_torch.interop, "
             "libsdr_tpu_torch._build\n"
             "from libsdr_tpu_torch.ops import fm_fused, fir_fm, agc, utils\n"
+            "from libsdr_tpu_torch.ops import fsk, pll, bitsync, afsk_fused\n"
+            "from libsdr_tpu_torch.core import ragged\n"
+            "from libsdr_tpu_torch import decode\n"
+            "from libsdr_tpu_torch.decode import aprs\n"
             "from libsdr_tpu_torch.apps import chains, rx, fm_rx, wavplay\n"
+            "from libsdr_tpu_torch.apps import pocsag_rx, ax25_rx, rtty_rx, tx\n"
+            "from libsdr_tpu_torch.tools import fir_paths, digital_profile, "
+            "digital_signals\n"
             "from libsdr_tpu_torch import io\n"
             "from libsdr_tpu_torch.utils import options, logging\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
