@@ -17,7 +17,10 @@ its own line; the first failure exits non-zero:
    tap counts, channel counts and AGC on/off, three carry-chained blocks,
    with the AGC's chunk count K > 1; K1e (AFSK) across strides 2-100 and
    windows 2-128; K2/K3 (the bit-clock PLL) bit-exact across windows
-   2-512, 1-1000 lanes, both bit mappings and widened bounds;
+   2-512, 1-1000 lanes, both bit mappings and widened bounds; K4 (the
+   polyphase channelizer, ``csrc/pfb.cu``) against ``pfb_plain`` over M
+   8-4096 (the FFT and, at M = 1000, the direct DFT), P 1/8/32, F 1-4096,
+   C 1/3, both variants and plane dtypes, and three chained blocks;
 4. drive the paths through the user's entry points, bind, compile and the
    step, on 64 channels x ~2^24 complex samples in float32 and bfloat16
    planes, with each path's kernel launches counted from 0 and checked: the
@@ -32,7 +35,16 @@ its own line; the first failure exits non-zero:
    the path's own inputs: P1, the AX.25 bank (64 ch x 2^21 at 192 kHz,
    K1e + K2, both plane dtypes); P2, the POCSAG bank (256 ch x 117,760 at
    240 kHz, 4 blocks, K1a + K2); P3, the multi-mode bank's PLL (3 x 64 ch
-   x 2^18 at 24 kHz, one K3 launch a step);
+   x 2^18 at 24 kHz, one K3 launch a step); then the wideband paths on
+   traffic from ``libsdr_tpu_torch/tools/wideband_signals.py``: W1, the
+   whole-band pager scanner (``apps/scanner.scan_blocks``) at 1024
+   channels x 2^26-sample blocks, 24.576 MHz, two chained blocks in f32 and
+   bf16 planes, a page on 67 channels (some across the block edge) each
+   decoded on its own channel, K4 (demod) + K2, with K4's two variants and
+   K2 timed at its shapes; ``WidebandFM`` alone at the same width; W2, the
+   multimode bank (``apps/multimode.scan_multimode``) at 256 channels x
+   12,288 frames, 6.144 MHz, every active channel of every mode decoded,
+   K4 (channel) + K3 + K1b a block, and BPSK31's host loop's share;
 5. demodulate a 1 kHz FM tone through ``run_pipeline`` on the card and check
    the FFT peak and its height over the median bin;
 6. run the apps on the card on synthesized WAV captures with the tone checks
@@ -40,7 +52,9 @@ its own line; the first failure exits non-zero:
    and 200), in WFM, and in NFM switched live to AM; ``fm_rx``; ``wavplay``;
    and hold each WAV against the same app run with ``--device cpu``; then
    ``pocsag_rx``, ``ax25_rx`` (IQ and ``--audio``) and ``rtty_rx`` on
-   captures from ``tx``, their messages against ``--device cpu``'s.
+   captures from ``tx``, their messages against ``--device cpu``'s; then
+   ``scanner``, ``multimode --map``, ``spectrum`` and ``psk31_rx`` against
+   ``--device cpu`` (the same decodes, the same peaks).
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -765,6 +779,32 @@ def phase_pll_parity(torch):
           "normal lanes, 2 chained blocks: bit-exact")
 
 
+class Capture:
+    """Within ``with``, every call of ``module.name`` (a path's own calls of
+    a kernel entry) goes to the real entry, its arguments kept in
+    ``calls``; the real entry is back in place while it runs, so the launch
+    count it keeps is its own."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self._call)
+        return self
+
+    def _call(self, *args, **kw):
+        self.calls.append((args, kw))
+        setattr(self.module, self.name, self.real)
+        try:
+            return self.real(*args, **kw)
+        finally:
+            setattr(self.module, self.name, self._call)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
 def counts_now(entries):
     return {e.__name__: e.launches for e in entries}
 
@@ -1017,17 +1057,10 @@ def phase_p3(torch, L, gen, smi):
     carries = {m: p.init_carry("cuda") for m, p in sub.items()}
     entries = all_entries()
     # The first step, with the arguments of its one pll_bank call kept.
-    calls = []
-
-    def keep(*a, **kw):
-        calls.append((a, kw))
-        return pll_bank(*a, **kw)
-    bitsync.pll_bank = keep
-    try:
+    with Capture(bitsync, "pll_bank") as k3:
         outs, carries = bitsync.apply_mode_chains(sub, carries, y, groups,
                                                  windows)
-    finally:
-        bitsync.pll_bank = pll_bank
+    calls = k3.calls
     torch.cuda.synchronize()
     check(len(calls) == 1, f"P3: {len(calls)} pll_bank calls in a step")
     t0 = time.perf_counter()
@@ -1117,12 +1150,478 @@ def phase_digital_apps(tmp: Path):
         ["pll"], lambda text: text.strip())
 
 
+# K4 against its plain version: Y within 2e-5 of the largest |Y| (float32
+# MAC and DFT in two orders: the kernel's FFT or direct sum against
+# torch.fft; the JAX package's bound for its kernel against its XLA
+# channelizer); the demod's error median < 5e-5 and 99th percentile < 1e-3
+# rad (the angle of a near-zero z is amplified), the exports within 2e-5 of
+# the largest |Y|.  A fault shows as errors of order 1.
+PFB_REL, PFB_MEDIAN, PFB_P99 = 2e-5, 5e-5, 1e-3
+W1_M, W1_BLOCK = 1024, 1 << 26
+W1_FS = W1_M * 24_000.0
+W2_M, W2_FRAMES = 256, 12_288
+W2_FS = W2_M * 24_000.0
+
+
+def pfb_inputs(torch, gen, c, f, m, p, dtype):
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops.channelizer import (fold_commutator,
+                                                  prototype_lowpass)
+
+    def cn(*shape):
+        return Complex(torch.randn(shape, generator=gen, device="cuda"),
+                       torch.randn(shape, generator=gen, device="cuda"))
+    taps = torch.from_numpy(fold_commutator(prototype_lowpass(m, p), m,
+                                            p)).cuda()
+    return cn(c, f, m).to(dtype), cn(c, p, m).to(dtype), cn(c, 1, m), taps
+
+
+def pfb_errs(torch, got, ref, demod, gain):
+    """K4 against plain: (Y or the exports' error of max |Y|, the demod's
+    median, 99th percentile and max error in rad)."""
+    if not demod:
+        check(bool(torch.isfinite(got.re).all()), "pfb_mxu not finite")
+        scale = float(torch.maximum(ref.re.abs().max(), ref.im.abs().max()))
+        return (max(float((got.re - ref.re).abs().max()),
+                    float((got.im - ref.im).abs().max())) / scale,
+                0.0, 0.0, 0.0)
+    (a, yl, y0), (ra, ryl, ry0) = got, ref
+    check(bool(torch.isfinite(a).all()), "pfb_mxu audio not finite")
+    scale = max(float(v.abs().max()) for v in (ryl.re, ryl.im, ry0.re,
+                                               ry0.im))
+    ex = max(float((u - v).abs().max()) for u, v in (
+        (yl.re, ryl.re), (yl.im, ryl.im), (y0.re, ry0.re), (y0.im, ry0.im)))
+    half = np.pi * gain
+    d = (torch.remainder(a - ra + half, 2 * half) - half).abs().flatten()
+    sample = d[torch.randperm(d.numel(), device=d.device)[:1 << 24]] \
+        if d.numel() > (1 << 24) else d
+    return (ex / scale, float(d.median()),
+            float(torch.quantile(sample.double(), 0.99)), float(d.max()))
+
+
+def phase_k4_parity(torch, gen):
+    """K4 against pfb_plain on the card: M 8-4096 (the FFT and the direct
+    DFT at M = 1000), P 1/8/32, F 1, P-1, P, 33 and 4096, C 1 and 3, both
+    variants and plane dtypes; then three carry-chained blocks against one
+    block.  Returns the worst errors."""
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu, pfb_plain
+
+    worst = dict(y=0.0, med=0.0, p99=0.0, max=0.0)
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in (8, 16, 64, 128, 384, 1000, 1024, 4096):
+            line = dict(y=0.0, med=0.0, p99=0.0, max=0.0)
+            for p in (1, 8, 32):
+                for f in sorted({1, max(1, p - 1), p, 33, 4096}):
+                    for c in (1, 3):
+                        x, hist, prev, taps = pfb_inputs(torch, gen, c, f, m,
+                                                         p, dtype)
+                        for demod in (False, True):
+                            args = (x, hist, taps, m, 1.7, prev, demod)
+                            got, ref = pfb_mxu(*args), pfb_plain(*args)
+                            torch.cuda.synchronize()
+                            e = pfb_errs(torch, got, ref, demod, 1.7)
+                            name = (f"{str(dtype)[6:]} M={m} P={p} F={f} "
+                                    f"C={c} demod={int(demod)}")
+                            check(e[0] < PFB_REL and e[1] < PFB_MEDIAN
+                                  and e[2] < PFB_P99,
+                                  f"pfb_mxu vs plain {name}: {e}")
+                            for k, v in zip(("y", "med", "p99", "max"), e):
+                                line[k] = max(line[k], v)
+                            cases += 1
+            print(f"parity K4 {str(dtype)[6:]} M={m} P=1,8,32 F=1..4096 "
+                  f"C=1,3: Y/exports {line['y']:.3e} of max |Y|, demod "
+                  f"median {line['med']:.2e} p99 {line['p99']:.2e} max "
+                  f"{line['max']:.2e} rad")
+            for k in worst:
+                worst[k] = max(worst[k], line[k])
+    # three chained blocks (hist = the last P frames, prev = y_last) give
+    # what one block of all their frames gives
+    for m in (16, 384, 1024):
+        x, hist, prev, taps = pfb_inputs(torch, gen, 2, 3 * 48, m, 8,
+                                         torch.float32)
+        one = pfb_mxu(x, hist, taps, m, prev=prev, demod=True)[0]
+        outs, h, pv = [], hist, prev
+        for i in range(3):
+            blk = x[:, 48 * i:48 * (i + 1), :]
+            a, pv, _ = pfb_mxu(blk, h, taps, m, prev=pv, demod=True)
+            outs.append(a)
+            h = blk[:, 40:, :]
+        err = float((torch.cat(outs, 1) - one).abs().max())
+        check(err < 1e-6, f"pfb_mxu chained vs one block M={m}: {err}")
+    print(f"parity K4: {cases} cases, worst Y/exports {worst['y']:.3e} of "
+          f"max |Y| (bound {PFB_REL:g}), demod median {worst['med']:.2e} "
+          f"(bound {PFB_MEDIAN:g}) p99 {worst['p99']:.2e} (bound "
+          f"{PFB_P99:g}) max {worst['max']:.2e} rad; 3 chained blocks == "
+          "one block at M = 16, 384, 1024")
+    return worst, cases
+
+
+def k4_bound(b, m, p, isz, demod):
+    """K4's bound for one (B,) block: the planes read once and the outputs
+    written once (demod: the float32 audio; channel: two float32 planes);
+    operations a sample: the MAC's 4 (P+1), an FFT's 5 log2 M and the
+    discriminator's ~50."""
+    ops = b * (4 * (p + 1) + 5 * np.log2(m) + (50 if demod else 0))
+    return bound(b * (2 * isz + (4 if demod else 8)), ops)
+
+
+def k4_at(torch, args, kw, label, smi):
+    """K4 on one call's arguments (``pfb_mxu(*args, **kw)``) against its
+    plain version, then K4, the plain version and the library path (the
+    MAC plus torch.fft on cuFFT: several calls) timed with CUDA events;
+    returns (err tuple, ms, plain_ms, library_ms, (bound_ms, bound_by))."""
+    from libsdr_tpu_torch.ops.pfb import (pfb_frames_plain, pfb_mxu,
+                                          pfb_plain)
+
+    demod, gain = kw.get("demod", False), kw.get("gain", 1.0)
+    got, ref = pfb_mxu(*args, **kw), pfb_plain(*args, **kw)
+    torch.cuda.synchronize()
+    e = pfb_errs(torch, got, ref, demod, gain)
+    check(e[0] < PFB_REL and e[1] < PFB_MEDIAN and e[2] < PFB_P99,
+          f"{label}: pfb_mxu vs plain {e}")
+    del got, ref
+    x, hist, taps, m = args[:4]
+    ms = cuda_ms(torch, lambda: pfb_mxu(*args, **kw), 5)
+    plain_ms = cuda_ms(torch, lambda: pfb_plain(*args, **kw), 2)
+    lib_ms = cuda_ms(torch, lambda: pfb_frames_plain(x, hist, taps), 2)
+    b_ms, b_by = k4_bound(x.re.numel(), m, hist.re.shape[-2],
+                          x.re.element_size(), demod)
+    print(f"{label}: max_err {e[0]:.3e} of max |Y|"
+          + (f", demod median {e[1]:.2e} p99 {e[2]:.2e} rad" if demod
+             else "")
+          + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+          f"(MAC + torch.fft, several calls) {lib_ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms ({b_by}) | {smi}")
+    torch.cuda.empty_cache()
+    return e, ms, plain_ms, lib_ms, (b_ms, b_by)
+
+
+def phase_w1(torch, gen, smi):
+    """W1, the whole-band pager scanner at 1024 channels x 2^26-sample
+    blocks (24.576 MHz), float32 and bfloat16 planes, two chained blocks
+    through apps/scanner.scan_blocks (build_scanner_step: WidebandFM's K4
+    demod variant, ASKDetector, BitStream's K2, windowed compaction, POCSAG
+    decoding of every channel).  Pages on 67 channels
+    (tools/wideband_signals.pager_band: band-limited channels, each page
+    with its channel's address), some across the block edge; every page
+    must decode on its own channel and its address on no other.  Then K4
+    and K2 are held against their plain versions on the arguments of the
+    path's own calls for the second block (K2 bit-exact over the whole
+    block) and timed; K4's channel variant is timed on the same frames (the
+    bound's reference case; W2 runs it)."""
+    from libsdr_tpu_torch.apps.scanner import scan_blocks
+    from libsdr_tpu_torch.core.ragged import min_valid_gap, pick_window
+    from libsdr_tpu_torch.ops import bitsync, wideband_rx
+    from libsdr_tpu_torch.ops.pll import pll, pll_plain
+    from libsdr_tpu_torch.parallel.wideband import build_scanner_step
+    from libsdr_tpu_torch.tools import wideband_signals as W
+
+    m, b = W1_M, W1_BLOCK
+    entries = all_entries()
+    plan = W.pager_plan(m, 2 * b // m)
+    edge = W.crosses_edge(plan, b // m)
+    res = {}
+    for plane, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        blocks, pages = W.pager_band(m, 2, b, "cuda", gen=gen)
+        if dtype is not None:
+            blocks = [x.to(dtype) for x in blocks]
+        torch.cuda.synchronize()
+        set_counts_zero(entries)
+        t0 = time.perf_counter()
+        with Capture(wideband_rx, "pfb_mxu") as k4, \
+                Capture(bitsync, "pll") as k2:
+            found = scan_blocks(blocks, W1_FS, m, b, plane_dtype=dtype,
+                                device="cuda")
+        scan_s = time.perf_counter() - t0
+        counts = counts_now(entries)
+        check(counts["pfb_mxu"] == 2 and counts["pll"] == 2 and all(
+            v == 0 for k, v in counts.items() if k not in ("pfb_mxu", "pll")),
+            f"W1 {plane} launches {counts}")
+        where = {ch: sorted(c for c, msgs in found.items()
+                            if any(x.address == addr for x in msgs))
+                 for ch, (addr, _) in pages.items()}
+        ok = [ch for ch, (addr, text) in pages.items()
+              if where[ch] == [ch] and any(
+                  x.address == addr and x.as_text().startswith(text)
+                  for x in found[ch])]
+        astray = {ch: w for ch, w in where.items() if w != [ch]}
+        addrs = {addr for addr, _ in pages.values()}
+        other = sum(1 for msgs in found.values() for x in msgs
+                    if x.address not in addrs)
+        # the device steps alone: best of 3 runs of the 2 chained blocks
+        gap = min_valid_gap((1200.0 / 24_000.0) * 1.005)
+        step, init, place = build_scanner_step(
+            m, b, W1_FS, compact_window=pick_window(gap, b // m),
+            plane_dtype=dtype, packed=True, device="cuda")
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = init()
+            for x in blocks:
+                c, y = step(c, place(x))
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        ms_block = best / 2 * 1e3
+        # K4 and K2 on the path's own calls for the second block
+        check(len(k4.calls) == 2 and len(k2.calls) == 2,
+              f"W1 {plane}: {len(k4.calls)} pfb_mxu, {len(k2.calls)} pll "
+              "calls")
+        (a4, kw4), (a2, kw2) = k4.calls[1], k2.calls[1]
+        frames = f"{m} x {b // m:,} frames"
+        k4d = k4_at(torch, a4, kw4, f"phase W1 {plane} K4 demod ({frames})",
+                    smi)
+        k4c = k4_at(torch, a4[:4], {},
+                    f"phase W1 {plane} K4 channel ({frames}, the path's "
+                    "frames)", smi)
+        k2_ms = cuda_ms(torch, lambda: pll(*a2, **kw2), 3)
+        t0 = time.perf_counter()
+        ref = pll_plain(*(v.cpu() for v in a2), **kw2)
+        k2_plain = (time.perf_counter() - t0) * 1e3
+        got = pll(*a2, **kw2)
+        k2_exact = all(torch.equal(u.cpu(), r) for u, r in zip(got, ref))
+        n_steps = a2[0].numel()
+        k2_bound = bound(2 * n_steps, 30 * n_steps)
+        print(f"phase W1 {plane} planes ({m} ch x {b:,} @ "
+              f"{W1_FS / 1e6:g} MHz, 2 blocks): {ms_block:.2f} ms/block "
+              f"({b / ms_block / 1e3:.1f} "
+              f"Msamples/s), scan_blocks with host decode {scan_s:.1f} s; "
+              f"pages decoded {len(ok)}/{len(pages)} on their own channel "
+              f"and nowhere else ({len(edge)} across the block edge; "
+              f"{other} decodes of other addresses); launches {counts} "
+              f"| {smi}")
+        print(f"phase W1 {plane} K2 on the path's {tuple(a2[0].shape)} "
+              f"ASKDetector symbols: kernel {k2_ms:.3f} ms, plain "
+              f"{k2_plain:.1f} ms, "
+              f"{'bit-exact' if k2_exact else 'DIFFERS'}; bound "
+              f"{k2_bound[0]:.4f} ms ({k2_bound[1]}) | {smi}")
+        check(k2_exact, f"W1 {plane} K2 vs plain: not bit-exact")
+        check(len(ok) == len(pages),
+              f"W1 {plane}: pages lost on "
+              f"{sorted(set(pages) - set(ok) - set(astray))}, decoded off "
+              f"their channel {astray}")
+        res[plane] = dict(ms_block=ms_block, counts=counts, k4=k4d, k4c=k4c,
+                          k2_ms=k2_ms, decoded=len(ok), sent=len(pages))
+        del blocks, c, y, k4, k2, a4, a2, got, ref
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_wfm(torch, gen, smi):
+    """WidebandFM alone at 1024 x 2^26, lane layout, float32 and bfloat16
+    planes: best of 3 runs of 5 carry-chained steps, one K4 launch each."""
+    import libsdr_tpu_torch as L
+    from libsdr_tpu_torch.ops import WidebandFM
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu
+
+    m, b = W1_M, W1_BLOCK
+    x32 = noise(torch, gen, 1, b)
+    x32 = x32.reshape(b)
+    res = {}
+    for plane, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        op = WidebandFM(m, 8, layout="lane")
+        op.bind(L.StreamSpec(np.complex64, W1_FS, b, plane_dtype=dtype))
+        x = x32 if dtype is None else x32.to(dtype)
+        carry = op.init_carry("cuda")
+        pfb_mxu.launches = 0
+        carry, y = op.apply(carry, x)
+        torch.cuda.synchronize()
+        check(tuple(y.shape) == (b // m, m) and bool(torch.isfinite(y).all()),
+              f"WidebandFM {plane} output")
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            c = carry
+            for _ in range(5):
+                c, y = op.apply(c, x)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        check(pfb_mxu.launches == 16, f"WidebandFM launches "
+                                      f"{pfb_mxu.launches}")
+        res[plane] = best / 5 * 1e3
+        print(f"phase WidebandFM {plane} planes ({m} x {b:,}, lane layout): "
+              f"{res[plane]:.3f} ms/step ({b / res[plane] / 1e3:.1f} "
+              f"Msamples/s), 16 K4 launches | {smi}")
+        del x, carry, c, y
+    del x32
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_w2(torch, gen, smi):
+    """W2, the multimode bank at 256 channels x 12,288 frames (6.144 MHz),
+    channel ch in mode ("pocsag", "ax25", "rtty", "psk31")[ch % 4], through
+    apps/multimode.scan_multimode (Channelizer: K4's channel variant, then
+    apply_mode_chains: K3 for the three BitStreams, the PSK31 group's
+    IQBaseBand: K1b, BPSK31's loop).  Traffic on every fifth channel, 51
+    channels of all four modes (tools/wideband_signals.mixed_band:
+    band-limited channels, each message with its channel's number); every
+    active channel must decode its own message, and no channel another's.
+    Then K4, K1b and K3 are held against their plain versions on the
+    arguments of the path's own calls for the second block (K3 bit-exact),
+    K4 timed there."""
+    from libsdr_tpu_torch.apps import multimode
+    from libsdr_tpu_torch.ops import bitsync
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops.pll import pll_bank, pll_bank_plain
+    from libsdr_tpu_torch.ops.psk31 import BPSK31
+    from libsdr_tpu_torch.parallel import wideband as pwb
+    from libsdr_tpu_torch.tools import wideband_signals as W
+
+    m, b = W2_M, W2_M * W2_FRAMES
+    modes = multimode.MODES
+    mode_map = {ch: modes[ch % 4] for ch in range(m)}
+    active = {ch: mode_map[ch] for ch in range(0, m - 5, 5)}
+    x = W.mixed_band(active, m, "cuda", gen=gen, sigma=0.02)
+    n_blocks = -(-x.shape[-1] // b)
+    pad = n_blocks * b - x.shape[-1]
+    x = x.map(lambda a: torch.nn.functional.pad(a, (0, pad)))
+    blocks = [x[i * b:(i + 1) * b] for i in range(n_blocks)]
+    entries = all_entries()
+    spent = [0.0]
+    apply = BPSK31.apply
+
+    def timed(self, carry, xin):
+        t0 = time.perf_counter()
+        out = apply(self, carry, xin)
+        spent[0] += time.perf_counter() - t0
+        return out
+    BPSK31.apply = timed
+    try:
+        set_counts_zero(entries)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with Capture(pwb, "pfb_mxu") as k4, Capture(F, "fir_exact") as k1b, \
+                Capture(bitsync, "pll_bank") as k3:
+            found = multimode.scan_multimode(
+                None, W2_FS, m, mode_map, block=b,
+                blocks=lambda blk: iter(blocks), device="cuda")
+        total = time.perf_counter() - t0
+        counts = counts_now(entries)
+    finally:
+        BPSK31.apply = apply
+    check(all(counts[k] == n_blocks for k in ("pfb_mxu", "pll_bank",
+                                               "fir_exact"))
+          and all(v == 0 for k, v in counts.items()
+                  if k not in ("pfb_mxu", "pll_bank", "fir_exact")),
+          f"W2 launches {counts}")
+    marks = {ch: W.mixed_marks(mo, dec) for ch, (mo, dec) in found.items()}
+    ok = {mo: sum(1 for ch, v in active.items() if v == mo
+                  and found.get(ch, (None,))[0] == mo and marks[ch] == {ch})
+          for mo in modes}
+    astray = {ch: sorted(v) for ch, v in marks.items()
+              if v - {ch} or (v and ch not in active)}
+    want = {mo: sum(1 for v in active.values() if v == mo) for mo in modes}
+    # the device steps alone, per block
+    step, init, _ = multimode.build_bank(W2_FS, b, m, mode_map)
+    c = init("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for blk in blocks:
+        c, _ = step(c, blk)
+    torch.cuda.synchronize()
+    ms_block = (time.perf_counter() - t0) / n_blocks * 1e3
+    print(f"phase W2 multimode bank ({m} ch x {W2_FRAMES:,} frames @ "
+          f"{W2_FS / 1e6:g} MHz, {n_blocks} blocks): {ms_block:.1f} "
+          f"ms/block with the BPSK31 "
+          f"loop {spent[0] / total:.1%} of scan_multimode's "
+          f"{total:.1f} s; channels decoded (their own message) {ok} of "
+          f"{want}, messages off their channel {astray}; launches "
+          f"{counts} | {smi}")
+    check(ok == want and not astray,
+          f"W2: decoded {ok} of {want}, off their channel {astray}")
+    # K4, K1b and K3 on the path's own calls for the second block
+    (a4, kw4), (a1, _), (a3, kw3) = k4.calls[1], k1b.calls[1], k3.calls[1]
+    k4c = k4_at(torch, a4, kw4, f"phase W2 K4 channel ({m} x "
+                f"{W2_FRAMES:,} frames)", smi)
+    k1b_err = mode_errs(torch, F.fir_exact, F.fir_exact_plain, a1,
+                        False)[0]["rel"]
+    got = pll_bank(*a3, **kw3)
+    ref = pll_bank_plain(*(v.cpu() for v in a3), **kw3)
+    k3_exact = all(torch.equal(u.cpu(), r) for u, r in zip(got, ref))
+    print(f"phase W2 kernels on block 2: K1b on the PSK31 group's "
+          f"{tuple(a1[0].shape)} planes max_err {k1b_err:.3e} of max |y| "
+          f"(bound {REL_BOUND:g}); K3 on {tuple(a3[0].shape)} symbols: "
+          f"{'bit-exact' if k3_exact else 'DIFFERS'}")
+    check(k1b_err < REL_BOUND, f"W2 K1b vs plain: {k1b_err}")
+    check(k3_exact, "W2 K3 vs plain: not bit-exact")
+    del x, blocks, c, k4, k1b, k3, a4, a1, a3, got, ref
+    torch.cuda.empty_cache()
+    return dict(ms_block=ms_block, counts=counts, decoded=ok, k4c=k4c,
+                bpsk31_share=spent[0] / total)
+
+
+def phase_wide_apps(tmp: Path):
+    """scanner, multimode --map, spectrum and psk31_rx with --device cuda
+    against --device cpu: the same decodes, the same peaks."""
+    from libsdr_tpu_torch.apps import multimode, psk31_rx, scanner, spectrum
+    from libsdr_tpu_torch.core import cplx
+    from libsdr_tpu_torch.decode import varicode_encode_bits
+    from libsdr_tpu_torch.io import write_wav_iq
+    from libsdr_tpu_torch.ops import siggen
+    from libsdr_tpu_torch.tools import wideband_signals as W
+
+    entries = all_entries()
+
+    def run(label, main, args, expect, summary):
+        set_counts_zero(entries)
+        got = main(args + ["--device", "cuda"])
+        counts = counts_now(entries)
+        for name in expect:
+            check(counts[name] > 0, f"{label}: {name} did not launch: "
+                                    f"{counts}")
+        ref = main(args + ["--device", "cpu"])
+        check(summary(got) == summary(ref) and summary(got),
+              f"{label}: card {summary(got)} != CPU {summary(ref)}")
+        print(f"phase 6 {label}: card == CPU: {str(summary(got))[:160]}, "
+              f"launches {counts}")
+
+    m = 16
+    plan = [(ch, W.page_iq(25_000.0, 500 + ch, f"APP CH {ch}"), 100 * ch)
+            for ch in (2, 7, 13)]
+    band = cplx.to_numpy(W.upmix(plan, m, m * 30_000, "cpu"))
+    write_wav_iq(str(tmp / "band.wav"), band, m * 25_000)
+    run("scanner", scanner.main, ["--file", str(tmp / "band.wav"),
+                                  "--channels", "16"], ["pfb_mxu", "pll"],
+        lambda f: sorted((ch, x.address, x.as_text())
+                         for ch, msgs in f.items() for x in msgs))
+    active = {2: "pocsag", 3: "ax25", 5: "rtty", 6: "psk31"}
+    write_wav_iq(str(tmp / "mixed.wav"),
+                 cplx.to_numpy(W.mixed_band(active, 8, "cpu")), 8 * 24_000)
+    run("multimode --map", multimode.main,
+        ["--file", str(tmp / "mixed.wav"), "--channels", "8", "--map",
+         "2:pocsag,3:ax25,5:rtty,6:psk31"],
+        ["pfb_mxu", "pll_bank", "fir_exact"],
+        lambda f: sorted((ch, mo, str(d)) for ch, (mo, d) in f.items()))
+    fs, n = 96_000, 96_000
+    iq = (0.8 * siggen.iq_carrier(fs, n, 12_000)
+          + 0.2 * siggen.iq_carrier(fs, n, -25_000)
+          + 0.01 * (np.random.default_rng(0).normal(size=n)
+                    + 1j * np.random.default_rng(1).normal(size=n))
+          ).astype(np.complex64)
+    write_wav_iq(str(tmp / "tones.wav"), iq, fs)
+    run("spectrum", spectrum.main, ["--file", str(tmp / "tones.wav"),
+                                    "--nfft", "4096"], [],
+        lambda o: [p["freq_hz"] for p in o["peaks"]])
+    bits = np.concatenate([np.ones(16, np.uint8),
+                           varicode_encode_bits("cq de tpu"),
+                           np.ones(16, np.uint8)])
+    sig = np.exp(1j * np.repeat(np.cumsum(np.where(bits == 0, np.pi, 0.0)),
+                                640)).astype(np.complex64)
+    write_wav_iq(str(tmp / "psk.wav"), 0.8 * sig, 20_000)
+    run("psk31_rx", psk31_rx.main, ["--file", str(tmp / "psk.wav"),
+                                    "--block-size", "20000"], ["fir_exact"],
+        lambda text: text if "cq de tpu" in text else "")
+
+
 def all_entries():
     from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu
     from libsdr_tpu_torch.ops.pll import pll, pll_bank
 
     return (F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact,
-            F.fir_afsk_exact, pll, pll_bank)
+            F.fir_afsk_exact, pll, pll_bank, pfb_mxu)
 
 
 def main() -> int:
@@ -1167,6 +1666,7 @@ def main() -> int:
     print(f"phase 3 parity K1e: max disc error {afsk_worst:.3e} of max "
           f"|disc| (bound {AFSK_BOUND:g})")
     phase_pll_parity(torch)
+    k4_worst, k4_cases = phase_k4_parity(torch, gen)
 
     # Kernel vs plain at the main path's shapes, timed with CUDA events.
     rx = fused_op(L, 4, 64, CHANNELS, BLOCK)
@@ -1211,6 +1711,10 @@ def main() -> int:
     p1 = phase_p1(torch, L, gen, smi)
     p2 = phase_p2(torch, L, gen, smi)
     p3 = phase_p3(torch, L, gen, smi)
+    # The wideband paths of slice 4, likewise.
+    w1 = phase_w1(torch, gen, smi)
+    wfm = phase_wfm(torch, gen, smi)
+    w2 = phase_w2(torch, gen, smi)
 
     # Phase 5: a real signal through run_pipeline on the card.
     audio = siggen.sine(FS, int(FS), 1000.0, amps=0.8)
@@ -1233,6 +1737,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_apps(Path(tmp))
         phase_digital_apps(Path(tmp))
+        phase_wide_apps(Path(tmp))
 
     # The kernels' record, float32 planes.  Bounds from this run's shapes:
     # bytes (planes read once, outputs written once) and float32 operations
@@ -1288,6 +1793,25 @@ def main() -> int:
         replaces="libsdr_tpu/ops/pallas_bitsync.py:504",
         launches=p3["counts"]["pll_bank"], max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # K4, each variant on the path that runs it: the demod variant at W1
+    # (1024 x 65,536 frames, float32 planes), the channel variant at W2
+    # (256 x 12,288 frames), each with that run's launches; library: the
+    # MAC plus torch.fft (cuFFT), several calls
+    for name, res, launches in (
+            ("pfb_mxu", w1["f32"]["k4"], w1["f32"]["counts"]["pfb_mxu"]),
+            ("pfb_mxu:channel", w2["k4c"], w2["counts"]["pfb_mxu"])):
+        e, ms, plain_ms, lib_ms, (b_ms, b_by) = res
+        record.append(dict(
+            name=name, route="cuda", source="libsdr_tpu_torch/csrc/pfb.cu",
+            replaces="libsdr_tpu/ops/pallas_pfb.py:135", launches=launches,
+            max_abs_err=e[0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms))
+    print(f"wideband: K4 parity {k4_cases} cases (worst {k4_worst['y']:.2e}"
+          f" of max |Y|); W1 {w1['f32']['ms_block']:.2f} / "
+          f"{w1['bf16']['ms_block']:.2f} ms/block (f32 / bf16 planes), "
+          f"{w1['f32']['decoded']}/{w1['f32']['sent']} pages; WidebandFM "
+          f"{wfm['f32']:.3f} / {wfm['bf16']:.3f} ms/step; W2 "
+          f"{w2['ms_block']:.1f} ms/block, decoded {w2['decoded']}")
     print(f"paths: P1 {p1['f32']['ms_step']:.2f} / "
           f"{p1['bf16']['ms_step']:.2f} ms/step (f32 / bf16 planes), P2 "
           f"{p2['ms_step']:.2f} ms/step with {p2['decoded']}/256 pages, P3 "

@@ -122,6 +122,15 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         p, p, p, p,          # ss_out, ph_out, om_out, lb_out
         i64, i64, i32, p]    # M, T, R, stream
     lib.sdr_pll.restype = i32
+    lib.sdr_pfb.argtypes = [
+        p, p, p, p,          # xr, xi, hist_r, hist_i
+        p, p, p,             # taps3, twiddle table re, im
+        p, p,                # prev_r, prev_i (demod)
+        p, p,                # out_r, out_i
+        p, p, p, p,          # y_last r, i, y_first r, i (demod)
+        i64, i64, i32, i32,  # C, F, M, P
+        f32, i32, i32, p]    # gain, demod, bf16 planes, stream
+    lib.sdr_pfb.restype = i32
     lib.sdr_fir_chunks.argtypes = [i32, i64, i64, i32, i32, i32, i32]
     lib.sdr_fir_chunks.restype = i32
     lib.sdr_agc_chunks.argtypes = [i64, i64]

@@ -1,0 +1,305 @@
+"""Multi-mode digital decoder bank sharing one wideband front end
+(counterpart of ``libsdr_tpu.apps.multimode``).
+
+One polyphase channelizer pass over the wideband capture (the K4 kernel on
+a card, channel variant) produces all M complex channel streams at once; a
+per-channel mode map routes channel groups into batched per-mode chains,
+each one pipeline with a leading channel axis:
+
+  pocsag  FMDemod -> ASK -> BitStream(NORMAL) -> POCSAG
+  ax25    FMDemod -> FSKDetector(1200/2200) -> BitStream(TRANSITION)
+          -> HDLC/APRS
+  rtty    USBDemod -> FSKDetector(930/1100 @ 2x45.45) -> BitStream(NORMAL)
+          -> Baudot
+  psk31   IQBaseBand(200 Hz select, ~2 kHz) -> BPSK31 -> Varicode
+
+The final BitStreams of the groups run as one banked PLL launch (K3,
+``ops/bitsync.apply_mode_chains``); the PSK31 group's IQBaseBand runs the
+FIR kernel (K1b).  Only the bit streams reach the host decoders.
+
+Usage:
+  python -m libsdr_tpu_torch.apps.multimode --file wide.wav --channels 16 \
+      --map "2:pocsag,5:ax25,9:rtty,12:psk31"
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from libsdr_tpu_torch.core import cplx
+from libsdr_tpu_torch.core.graph import Pipeline, resolve_device
+from libsdr_tpu_torch.core.ragged import (Ragged, compact, min_valid_gap,
+                                          pick_window)
+from libsdr_tpu_torch.core.runtime import stream_blocks
+from libsdr_tpu_torch.core.stream import StreamSpec
+from libsdr_tpu_torch.decode import (AX25Decoder, BaudotDecoder,
+                                     VaricodeDecoder, parse_aprs,
+                                     pocsag_decode_bits)
+from libsdr_tpu_torch.ops import (ASKDetector, BitStream, FMDemod,
+                                  FSKDetector, IQBaseBand, USBDemod)
+from libsdr_tpu_torch.ops.bitsync import apply_mode_chains
+from libsdr_tpu_torch.ops.channelizer import Channelizer
+from libsdr_tpu_torch.ops.psk31 import BPSK31
+from libsdr_tpu_torch.utils import logging as sdrlog
+from libsdr_tpu_torch.utils.options import (add_source_args, common_parser,
+                                            device_of, load_source)
+
+MODES = ("pocsag", "ax25", "rtty", "psk31")
+
+
+def _mode_stages(mode: str):
+    if mode == "pocsag":
+        return [FMDemod(), ASKDetector(invert=True),
+                BitStream(1200.0, mode="normal")]
+    if mode == "ax25":
+        return [FMDemod(), FSKDetector(1200.0, 1200.0, 2200.0),
+                BitStream(1200.0, mode="transition")]
+    if mode == "rtty":
+        return [USBDemod(), FSKDetector(2 * 45.45, 930.0, 1100.0),
+                BitStream(2 * 45.45, mode="normal")]
+    if mode == "psk31":
+        # select the 200 Hz PSK31 slot and decimate near 2 kHz
+        return [IQBaseBand(fc=0.0, width=200.0, order=64,
+                           out_rate=2000.0, design="textbook"),
+                BPSK31()]
+    raise SystemExit(f"unknown mode {mode!r} (use {'/'.join(MODES)})")
+
+
+def _build_parts(fs: float, block: int, n_channels: int,
+                 mode_map: Dict[int, str]):
+    """The bank's pieces: (chan, sub, groups, windows)."""
+    m = n_channels
+    if block % m:
+        raise SystemExit("block must divide by the channel count")
+    ch_rate = fs / m
+    t_full = block // m
+
+    chan = Channelizer(m, taps_per_branch=8)
+    chan.bind(StreamSpec(np.complex64, fs, block))
+
+    groups: Dict[str, list] = {}
+    for ch, mode in sorted(mode_map.items()):
+        if not 0 <= ch < m:
+            raise SystemExit(f"channel {ch} outside 0..{m - 1}")
+        groups.setdefault(mode, []).append(ch)
+    groups = {mode: np.asarray(idxs, np.int32)
+              for mode, idxs in groups.items()}
+
+    sub, windows = {}, {}
+    for mode, idxs in groups.items():
+        p = Pipeline(_mode_stages(mode), name=f"bank_{mode}")
+        p.bind(StreamSpec(np.complex64, ch_rate, t_full,
+                          channels=(len(idxs),)))
+        sub[mode] = p
+        # Lossless windowed bit compaction: the PLL's guaranteed bit gap
+        # bounds a window that decimates the ragged stream on the device.
+        # BPSK31's emission is symbol-clocked, not this PLL: unwindowed.
+        bs = p.stages[-1]
+        windows[mode] = (pick_window(min_valid_gap(bs), t_full, cap=256)
+                         if isinstance(bs, BitStream) else 0)
+    return chan, sub, groups, windows
+
+
+def pack_bank_outputs(outs) -> torch.Tensor:
+    """Every mode's Ragged planes as ONE flat uint8 tensor, so a consumer
+    pays one device->host copy per block.  Order: sorted(mode) x (data,
+    valid); invert with :func:`unpack_bank_outputs` and
+    :func:`bank_output_layout`."""
+    parts = []
+    for mo in sorted(outs):
+        r = outs[mo]
+        parts.append(r.data.to(torch.uint8).reshape(-1))
+        parts.append(r.valid.to(torch.uint8).reshape(-1))
+    return torch.cat(parts)
+
+
+def bank_output_layout(outs):
+    """The (mode, shape) layout of :func:`pack_bank_outputs`."""
+    return [(mo, tuple(int(s) for s in outs[mo].data.shape))
+            for mo in sorted(outs)]
+
+
+def unpack_bank_outputs(flat: np.ndarray, layout):
+    """Host-side inverse of :func:`pack_bank_outputs`: {mode: (data uint8,
+    valid bool)} numpy views."""
+    out = {}
+    off = 0
+    for mo, shape in layout:
+        n = int(np.prod(shape))
+        data = flat[off:off + n].reshape(shape)
+        off += n
+        valid = flat[off:off + n].reshape(shape).astype(bool)
+        off += n
+        out[mo] = (data, valid)
+    return out
+
+
+def build_bank(fs: float, block: int, n_channels: int,
+               mode_map: Dict[int, str]):
+    """Build the shared-front-end bank.
+
+    Returns (step, init_carry, groups): ``step(carry, x)`` consumes one
+    (block,) complex wideband block and returns ``{mode: Ragged bits}``
+    with rows ordered like ``groups[mode]`` (that mode's channel indices);
+    ``init_carry(device)`` makes the carry on ``device`` (default: the
+    card).  One Channelizer feeds every group; each group is one batched
+    pipeline."""
+    chan, sub, groups, windows = _build_parts(fs, block, n_channels,
+                                              mode_map)
+
+    def step(carry, x):
+        cc, carries = carry
+        cc, y = chan.apply(cc, x)                      # (M, T) complex bank
+        outs, new = apply_mode_chains(sub, carries, y, groups, windows)
+        return (cc, new), outs
+
+    def init_carry(device=None):
+        device = resolve_device(device)
+        return (chan.init_carry(device),
+                {mode: p.init_carry(device) for mode, p in sub.items()})
+
+    return step, init_carry, groups
+
+
+def decode_mode_bits(mode: str, bits: np.ndarray):
+    """Host decode of one channel's compacted bit stream, per mode: POCSAG
+    message list / AX.25 (+APRS) list / RTTY text / PSK31 text."""
+    if mode == "pocsag":
+        return pocsag_decode_bits(bits)
+    if mode == "ax25":
+        dec = AX25Decoder()
+        dec.process(bits)
+        return [(f, parse_aprs(f)) for f in dec.messages]
+    if mode == "rtty":
+        return BaudotDecoder(stop_bits="1.5").process(bits)
+    if mode == "psk31":
+        return VaricodeDecoder().process(bits)
+    raise SystemExit(f"unknown mode {mode!r} (use {'/'.join(MODES)})")
+
+
+def _run_bank(blocks, step, carry, place, groups
+              ) -> Dict[int, Tuple[str, object]]:
+    """Stream ``blocks`` through a bank ``step``, draining each block's bits
+    as one packed uint8 copy (:func:`pack_bank_outputs`) collected 3 blocks
+    later, so the device's work and the host's drain overlap; then compact
+    and decode each channel's bit row."""
+    acc = {mode: [] for mode in groups}
+    pending = []
+    layout = None
+
+    def drain(flat):
+        for mode, dv in unpack_bank_outputs(flat.cpu().numpy(),
+                                            layout).items():
+            acc[mode].append(dv)
+
+    for blk in blocks:
+        carry, outs = step(carry, place(blk))
+        if layout is None:
+            layout = bank_output_layout(outs)
+        pending.append(pack_bank_outputs(outs))
+        if len(pending) > 3:
+            drain(pending.pop(0))
+    for flat in pending:
+        drain(flat)
+
+    found: Dict[int, Tuple[str, object]] = {}
+    for mode, idxs in groups.items():
+        if not acc[mode]:    # an empty or short capture: nothing to decode
+            continue
+        data = np.concatenate([d for d, _ in acc[mode]], axis=-1)
+        valid = np.concatenate([v for _, v in acc[mode]], axis=-1)
+        for row, ch in enumerate(idxs):
+            bits = compact(Ragged(data[row], valid[row]))
+            out = decode_mode_bits(mode, bits)
+            if (out if not isinstance(out, str) else out.strip()):
+                found[int(ch)] = (mode, out)
+    return found
+
+
+def _t_quantum(fs: float, n_channels: int, modes) -> int:
+    """Per-block time-step quantum of the mode set: the PSK31 branch
+    decimates by D = floor(ch_rate/2000), so the per-channel step count
+    must be a D-multiple; every other mode chain keeps the rate."""
+    if "psk31" not in set(modes):
+        return 1
+    return max(1, int((fs / n_channels) / 2000.0))
+
+
+def scan_multimode(iq: np.ndarray, fs: float, n_channels: int,
+                   mode_map: Dict[int, str], block: int = None,
+                   blocks=None, device=None
+                   ) -> Dict[int, Tuple[str, object]]:
+    """Run the bank over a capture on ``device`` (default: the card);
+    returns {channel: (mode, decoded)}.  ``blocks``: optional callable
+    ``block_size -> iterator`` of blocks replacing the ``iq`` capture."""
+    from libsdr_tpu_torch.apps.scanner import pick_block
+
+    device = resolve_device(device)
+    m = n_channels
+    # scanner sizing (t_full a 16-multiple), and a multiple of the PSK31
+    # decimator when that mode is mapped
+    block = pick_block(fs, m, block,
+                       quantum=math.lcm(16, _t_quantum(fs, m,
+                                                       mode_map.values())))
+    step, init_carry, groups = build_bank(fs, block, m, mode_map)
+    src = blocks(block) if blocks is not None else stream_blocks(iq, block)
+    return _run_bank(src, step, init_carry(device),
+                     lambda b: cplx.as_block(b, torch.float32, device)
+                     .to(device), groups)
+
+
+def _parse_map(s: str) -> Dict[int, str]:
+    out = {}
+    for item in s.split(","):
+        if not item.strip():
+            continue
+        ch, _, mode = item.partition(":")
+        out[int(ch)] = mode.strip().lower()
+    if not out:
+        raise SystemExit("empty --map (want e.g. '2:pocsag,5:ax25')")
+    return out
+
+
+def main(argv=None):
+    ap = common_parser(
+        "Multi-mode decoder bank: one channelizer front end, per-channel "
+        "POCSAG/AX.25/RTTY/PSK31 decode")
+    add_source_args(ap)
+    ap.add_argument("--channels", type=int, default=16)
+    ap.add_argument("--map", required=True,
+                    help="per-channel modes, e.g. '2:pocsag,5:ax25,9:rtty'")
+    args = ap.parse_args(argv)
+    sdrlog.set_level(args.log_level)
+    dev = device_of(args)
+
+    iq, fs = load_source(args)
+    if not np.iscomplexobj(iq):
+        raise SystemExit("multimode expects an IQ capture")
+    found = scan_multimode(iq, fs, args.channels, _parse_map(args.map),
+                           device=dev)
+    m = args.channels
+    for ch in sorted(found):
+        mode, out = found[ch]
+        f_center = ch * fs / m if ch <= m // 2 else ch * fs / m - fs
+        hdr = f"ch {ch:4d} ({f_center / 1e3:+9.1f} kHz) [{mode}]"
+        if mode == "pocsag":
+            for msg in out:
+                print(f"{hdr}: POCSAG @{msg.address} '{msg.best_decode()}'")
+        elif mode == "ax25":
+            for frame, aprs in out:
+                print(f"{hdr}: {frame}")
+                if aprs is not None:
+                    print(f"{hdr}:   {aprs}")
+        else:
+            print(f"{hdr}: {out.strip()}")
+    if not found:
+        print("no traffic decoded")
+    return found
+
+
+if __name__ == "__main__":
+    main()

@@ -20,9 +20,14 @@ Rules, each exact in exact arithmetic, on adjacent stages of one Pipeline:
    (FIR + exact NCO phasor + SSB demod + AGC in one kernel call).
 6. ``IQBaseBand -> AMDemod [-> AGC]``: one :class:`AMBasebandFused` op
    (FIR + envelope + AGC in one kernel call).
+7. ``Channelizer -> FMDemod(quadrature)``: one :class:`WidebandFM` op in
+   the 'channel' layout (the pair's (..., M, t) output) runs the channelizer
+   and the discriminator bank in one launch of the PFB kernel.  It needs
+   blocks of at least P frames; on a smaller block its bind fails and
+   ``Pipeline._bind`` restores the unfused stages.
 
 An AGC is absorbed only when it is enabled.  The JAX package gates rules
-3-6 on a TPU backend; the fused ops here are exact on every device, so the
+3-7 on a TPU backend; the fused ops here are exact on every device, so the
 rules apply wherever they match.
 """
 
@@ -48,11 +53,13 @@ def fuse_stages(stages: List) -> List:
     from libsdr_tpu_torch.ops.demod import (AMDemod, FMDeemph, FMDemod,
                                             USBDemod)
     from libsdr_tpu_torch.ops.afsk_fused import AFSKFrontendFused
+    from libsdr_tpu_torch.ops.channelizer import Channelizer
     from libsdr_tpu_torch.ops.fm_fused import (AMBasebandFused,
                                                FMBasebandFused,
                                                USBBasebandFused)
     from libsdr_tpu_torch.ops.fsk import FSKDetector
     from libsdr_tpu_torch.ops.nco import FreqShift
+    from libsdr_tpu_torch.ops.wideband_rx import WidebandFM
 
     # Re-binding, or reusing a stage in another pipeline, must not inherit
     # a rotation folded by an earlier rewrite.
@@ -78,6 +85,12 @@ def fuse_stages(stages: List) -> List:
             continue
         if exact_shift and isinstance(nxt, AMDemod):
             i += 1
+            continue
+        if (type(st) is Channelizer and demod_takes_rot(nxt)
+                and not nxt._pending_rot_freqs):
+            out.append(WidebandFM(st.m, st.p, gain=float(nxt.gain),
+                                  prototype=st._proto, layout="channel"))
+            i += 2
             continue
         if type(st) is not IQBaseBand:
             out.append(st)

@@ -1,4 +1,4 @@
-"""DSP ops of the analog and digital receive chains.  Every op is a
+"""DSP ops of the analog, digital and wideband receive chains.  Every op is a
 :class:`~libsdr_tpu_torch.core.block.Processor` over blocks with time on the
 trailing axis."""
 
@@ -15,6 +15,11 @@ from libsdr_tpu_torch.ops.fir_fm import (fir_afsk_exact, fir_am_exact,
 from libsdr_tpu_torch.ops.fsk import ASKDetector, FSKDetector, sliding_sum
 from libsdr_tpu_torch.ops.pll import pll, pll_bank
 from libsdr_tpu_torch.ops.bitsync import BitStream
+from libsdr_tpu_torch.ops.psk31 import BPSK31
+from libsdr_tpu_torch.ops.fft import fft
+from libsdr_tpu_torch.ops.fftfilter import FFTFilterBank
+from libsdr_tpu_torch.ops.channelizer import Channelizer
+from libsdr_tpu_torch.ops.wideband_rx import WidebandFM
 from libsdr_tpu_torch.ops.utils import (
     Scale, Cast, AutoCast, ToComplex, RealPart, ImagPart, IQBalance,
     UnsignedToSigned, SignedToUnsigned, Interleave, Deinterleave,
@@ -26,7 +31,8 @@ __all__ = [
     "FMDemod", "FMDeemph", "AGC", "iir_first_order", "fir_fm_exact",
     "fir_exact", "fir_am_exact", "fir_usb_exact", "fir_afsk_exact",
     "ASKDetector", "FSKDetector", "sliding_sum", "pll", "pll_bank",
-    "BitStream", "Scale", "Cast",
+    "BitStream", "BPSK31", "fft", "FFTFilterBank", "Channelizer",
+    "WidebandFM", "Scale", "Cast",
     "AutoCast", "ToComplex", "RealPart", "ImagPart", "IQBalance",
     "UnsignedToSigned", "SignedToUnsigned", "Interleave", "Deinterleave",
 ]

@@ -142,7 +142,10 @@ def _fir_exact_block(taps, x: Complex, tail: Complex, stride: int, t: int):
     kr, ki = _taps_planes(taps, torch.float32, x.re.device)
     g = Complex(kr, torch.zeros_like(kr) if ki is None else ki)
     c = int(np.prod(lead, dtype=np.int64))
-    y = fir_exact(x.reshape(c, b), g, stride, tail.reshape(c, t - 1))
+    # a channel group sliced from a bank is a strided view: the kernel
+    # reads contiguous planes
+    y = fir_exact(x.reshape(c, b).map(torch.Tensor.contiguous), g, stride,
+                  tail.reshape(c, t - 1))
     return y.reshape(lead + (b // stride,)), new_tail(x, tail, t)
 
 

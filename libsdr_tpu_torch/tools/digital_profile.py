@@ -1,4 +1,5 @@
-"""Where the time of the digital receive paths goes on the card.
+"""Where the time of the digital and wideband receive paths goes on the
+card.
 
     python -m libsdr_tpu_torch.tools.digital_profile [--out profile.json]
 
@@ -15,7 +16,16 @@ step time):
 * P2, the POCSAG bank: 256 channels x 117,760 samples at 240 kHz through
   apps/chains.pocsag_front_end (K1a, ASKDetector, K2);
 * P3, the mode bank: apply_mode_chains over 3 x 64 channels x 2^18 steps
-  at 24 kHz (the plain demodulators and FSK detectors, one K3 launch).
+  at 24 kHz (the plain demodulators and FSK detectors, one K3 launch);
+* W1, the whole-band pager scanner: 1024 channels x 2^26-sample blocks at
+  24.576 MHz through parallel/wideband.build_scanner_step (K4's demod
+  variant, the plain ASK detector, K2's two kernels, the windowed
+  compaction), on the pages of ``tools/wideband_signals.pager_band``;
+* W2, the multimode bank: 256 channels x 12,288 frames at 6.144 MHz
+  through apps/multimode.build_bank (K4's channel variant, the plain FM/USB
+  demodulators and FSK detectors, K3, the PSK31 group's K1b and BPSK31's
+  host loop, whose share of the step is printed apart), on the traffic of
+  ``tools/wideband_signals.mixed_band``.
 
 Then it profiles the PLL kernel alone at 2^16 steps for 64 to 65,536
 lanes (a recurrence per lane: the time per step stays flat while it is
@@ -67,7 +77,7 @@ def _profile(label, step_fn, steps):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])
     print(f"{label}: {wall_ms:.3f} ms/step (host clock), device "
           f"{busy:.3f} ms/step, busy share {busy / wall_ms:.3f}")
-    for name, ms in top[:8]:
+    for name, ms in top[:12]:
         print(f"    {ms:9.3f} ms  {name[:100]}")
     return dict(step_ms=wall_ms, device_ms=busy, busy=busy / wall_ms,
                 kernels=dict(top))
@@ -118,6 +128,64 @@ def p3(gen):
         _, state["c"] = apply_mode_chains(sub, state["c"], y, groups,
                                           windows)
     return _profile("P3 mode bank 3 x 64 x 2^18 @ 24 kHz", step, 3)
+
+
+def w1(gen):
+    from libsdr_tpu_torch.core.ragged import min_valid_gap, pick_window
+    from libsdr_tpu_torch.parallel.wideband import build_scanner_step
+    from libsdr_tpu_torch.tools.wideband_signals import pager_band
+
+    m, b, fs = 1024, 1 << 26, 1024 * 24_000.0
+    blocks, _ = pager_band(m, 2, b, "cuda", gen=gen)
+    w = pick_window(min_valid_gap(0.05 * 1.005), b // m)
+    step, init, place = build_scanner_step(m, b, fs, compact_window=w,
+                                           packed=True, device="cuda")
+    state = {"c": init(), "k": 0}
+
+    def one():
+        state["c"], _ = step(state["c"], place(blocks[state["k"] % 2]))
+        state["k"] += 1
+    return _profile("W1 scanner 1024 x 2^26 @ 24.576 MHz", one, 4)
+
+
+def w2(gen):
+    from libsdr_tpu_torch.apps.multimode import MODES, build_bank
+    from libsdr_tpu_torch.ops.psk31 import BPSK31
+    from libsdr_tpu_torch.tools.wideband_signals import mixed_band
+
+    m, frames = 256, 12_288
+    b, fs = m * frames, m * 24_000.0
+    mode_map = {ch: MODES[ch % 4] for ch in range(m)}
+    x = mixed_band({ch: mode_map[ch] for ch in range(0, m - 5, 5)}, m,
+                   "cuda", gen=gen, sigma=0.02)
+    blocks = [x[i * b:(i + 1) * b] for i in range(x.shape[-1] // b)]
+    step, init, _ = build_bank(fs, b, m, mode_map)
+    state = {"c": init("cuda"), "k": 0}
+    spent = [0.0]
+    apply = BPSK31.apply
+
+    def timed(self, carry, xin):
+        t0 = time.perf_counter()
+        out = apply(self, carry, xin)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    def one():
+        state["c"], _ = step(state["c"], blocks[state["k"] % len(blocks)])
+        state["k"] += 1
+    BPSK31.apply = timed
+    try:
+        steps = 4
+        res = _profile("W2 multimode bank 256 x 12,288 @ 6.144 MHz", one,
+                       steps)
+    finally:
+        BPSK31.apply = apply
+    # the loop ran in 2 * steps + 1 steps (_profile's warm-up, timed and
+    # profiled runs)
+    res["bpsk31_ms"] = spent[0] / (2 * steps + 1) * 1e3
+    print(f"    BPSK31's host loop {res['bpsk31_ms']:.1f} ms a step "
+          f"({res['bpsk31_ms'] / res['step_ms']:.1%} of the step)")
+    return res
 
 
 def pll_scaling(gen):
@@ -174,6 +242,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     res = {"device": smi, "P1": p1(gen), "P2": p2(gen), "P3": p3(gen)}
+    torch.cuda.empty_cache()
+    res["W1"] = w1(gen)
+    torch.cuda.empty_cache()
+    res["W2"] = w2(gen)
     torch.cuda.empty_cache()
     res["pll_scaling"] = pll_scaling(gen)
     sass(Path(args.sass))

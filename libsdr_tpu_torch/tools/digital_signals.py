@@ -86,13 +86,14 @@ def ax25_bank(c: int, b: int, gen, fs: float = 192_000.0,
                   sigma=0.05)
 
 
-def pocsag_iq(fs: float, n: int, gap_s: float = 0.0) -> np.ndarray:
-    """``n`` samples at ``fs`` of the POCSAG page (address
+def pocsag_iq(fs: float, n: int, gap_s: float = 0.0,
+              address: int = POCSAG_ADDRESS,
+              text: str = POCSAG_TEXT) -> np.ndarray:
+    """``n`` samples at ``fs`` of a POCSAG page (by default address
     ``POCSAG_ADDRESS``, ``POCSAG_TEXT``) at 1200 baud, FSK +-4.5 kHz, sent
     once (``gap_s`` = 0, silence after it) or repeated with ``gap_s`` of
     silence between pages."""
-    bits = pocsag_encode_batch(address=POCSAG_ADDRESS, function=1,
-                               text=POCSAG_TEXT)
+    bits = pocsag_encode_batch(address=address, function=1, text=text)
     spb = fs / 1200.0
     nsig = int(len(bits) * spb)
     idx = np.minimum((np.arange(nsig) / spb).astype(np.int64), len(bits) - 1)

@@ -549,3 +549,186 @@ def test_digital_kernels_refuse_what_they_do_not_take(cuda):
                  transition=np.zeros(m, np.int32),
                  ell=np.full(m, ell, np.int32))
     assert (pll.launches, pll_bank.launches) == n_before
+
+
+# -- K4, the polyphase channelizer (ops/pfb.py, csrc/pfb.cu) -----------------
+#
+# Bounds, as the JAX package's own tests hold its kernel: Y within 2e-5 of
+# the largest |Y| (float32 MAC and DFT in two orders: the kernel's FFT or
+# direct sum against torch.fft); the demod's error median < 5e-5 and 99th
+# percentile < 1e-3 rad (the angle of z = Y[t] conj(Y[t-1]) is amplified
+# where |z| is near 0 on random data), the exports within 2e-5 of max |Y|.
+
+PFB_MS = (8, 16, 64, 128, 384, 1000, 1024, 4096)
+
+
+def _pfb_inputs(gen, c, f, m, p, dtype, dev):
+    from libsdr_tpu_torch.ops.channelizer import (fold_commutator,
+                                                  prototype_lowpass)
+
+    def cn(*shape):
+        return Complex(torch.randn(shape, generator=gen, device=dev),
+                       torch.randn(shape, generator=gen, device=dev))
+    x = cn(c, f, m).to(dtype)
+    hist = cn(c, p, m).to(dtype)
+    prev = cn(c, 1, m)
+    taps = torch.from_numpy(fold_commutator(prototype_lowpass(m, p), m,
+                                            p)).to(dev)
+    return x, hist, prev, taps
+
+
+def _pfb_errs(got, ref, demod, gain):
+    """(Y or exports error of max |Y|, demod median, 99th pct, max)."""
+    if not demod:
+        scale = float(torch.maximum(ref.re.abs().max(), ref.im.abs().max()))
+        return (max(float((got.re - ref.re).abs().max()),
+                    float((got.im - ref.im).abs().max())) / scale,
+                0.0, 0.0, 0.0)
+    (a, yl, y0), (ra, ryl, ry0) = got, ref
+    scale = max(float(ryl.re.abs().max()), float(ryl.im.abs().max()),
+                float(ry0.re.abs().max()), float(ry0.im.abs().max()))
+    ex = max(float((u - v).abs().max()) for u, v in (
+        (yl.re, ryl.re), (yl.im, ryl.im), (y0.re, ry0.re), (y0.im, ry0.im)))
+    half = np.pi * gain
+    d = torch.remainder(a - ra + half, 2 * half) - half
+    d = d.abs().flatten().double().cpu()
+    return (ex / scale, float(d.median()), float(torch.quantile(
+        d[:min(len(d), 1 << 24)], 0.99)), float(d.max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [1, 8, 32])
+@pytest.mark.parametrize("m", PFB_MS)
+def test_pfb_kernel_matches_plain(cuda, m, p, dtype):
+    """Both variants over F in {1, P-1, P, 33, 4096} and C in {1, 3}."""
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu, pfb_plain
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m * 100 + p)
+    for f in sorted({1, max(1, p - 1), p, 33, 4096}):
+        for c in (1, 3):
+            x, hist, prev, taps = _pfb_inputs(gen, c, f, m, p, dtype, cuda)
+            for demod in (False, True):
+                n0 = pfb_mxu.launches
+                got = pfb_mxu(x, hist, taps, m, gain=1.7, prev=prev,
+                              demod=demod)
+                assert pfb_mxu.launches == n0 + 1
+                ref = pfb_plain(x, hist, taps, m, gain=1.7, prev=prev,
+                                demod=demod)
+                torch.cuda.synchronize()
+                e, med, p99, _ = _pfb_errs(got, ref, demod, 1.7)
+                assert e < 2e-5, (m, p, f, c, demod, e)
+                assert med < 5e-5 and p99 < 1e-3, (m, p, f, c, med, p99)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [16, 384, 1024])
+def test_pfb_kernel_chained_blocks_equal_one_block(cuda, m, dtype):
+    """Three carry-chained blocks (hist = the last P frames, prev = the
+    y_last export) give what one block of all their frames gives."""
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    p, f = 8, 48
+    x, hist, prev, taps = _pfb_inputs(gen, 2, 3 * f, m, p, dtype, cuda)
+    one, _, _ = pfb_mxu(x, hist, taps, m, prev=prev, demod=True)
+    y_one = pfb_mxu(x, hist, taps, m)
+    outs, ys, h, pv = [], [], hist, prev
+    for i in range(3):
+        blk = x[:, i * f:(i + 1) * f, :]
+        a, pv2, _ = pfb_mxu(blk, h, taps, m, prev=pv, demod=True)
+        ys.append(pfb_mxu(blk, h, taps, m))
+        outs.append(a)
+        h, pv = blk[:, f - p:, :], pv2
+    assert float((torch.cat(outs, 1) - one).abs().max()) < 1e-6
+    assert float((torch.cat([y.re for y in ys], 1) - y_one.re).abs().max()
+                 + (torch.cat([y.im for y in ys], 1)
+                    - y_one.im).abs().max()) < 1e-6
+
+
+def test_pfb_kernel_refuses_what_it_does_not_take(cuda):
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu
+
+    for m, p in ((8193, 8), (64, 33)):
+        x = Complex(torch.zeros(4, m, device=cuda),
+                    torch.zeros(4, m, device=cuda))
+        hist = Complex(torch.zeros(p, m, device=cuda),
+                       torch.zeros(p, m, device=cuda))
+        n0 = pfb_mxu.launches
+        with pytest.raises(ValueError, match="gate"):
+            pfb_mxu(x, hist, np.zeros((p + 1, m), np.float32), m)
+        assert pfb_mxu.launches == n0
+
+
+@pytest.mark.parametrize("layout", ["lane", "channel"])
+def test_wideband_ops_on_card_match_cpu(cuda, layout):
+    """WidebandFM (one K4 launch a block) and the Channelizer over three
+    blocks on the card against the same ops on the CPU."""
+    from libsdr_tpu_torch.ops import Channelizer, WidebandFM
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu
+
+    m, blk = 256, 256 * 40
+    rng = np.random.default_rng(5)
+    for op in (WidebandFM(m, 8, gain=0.7, layout=layout), Channelizer(m)):
+        op.bind(P.StreamSpec(np.complex64, 1e6, blk))
+        cg, cc = op.init_carry(cuda), op.init_carry("cpu")
+        for _ in range(3):
+            x = (rng.normal(size=blk) + 1j * rng.normal(size=blk)).astype(
+                np.complex64)
+            n0 = pfb_mxu.launches
+            cg, yg = op.apply(cg, Complex(torch.tensor(x.real, device=cuda),
+                                          torch.tensor(x.imag, device=cuda)))
+            assert pfb_mxu.launches == n0 + 1
+            cc, yc = op.apply(cc, Complex(torch.tensor(x.real),
+                                          torch.tensor(x.imag)))
+            if isinstance(yc, Complex):
+                scale = float(yc.re.abs().max())
+                err = max(float((yg.re.cpu() - yc.re).abs().max()),
+                          float((yg.im.cpu() - yc.im).abs().max())) / scale
+                assert err < 2e-5
+            else:
+                half = np.pi * 0.7
+                d = (torch.remainder(yg.cpu() - yc + half, 2 * half)
+                     - half).abs()
+                assert float(d.median()) < 5e-5
+                assert float(torch.quantile(d.flatten(), 0.99)) < 1e-3
+
+
+def test_wideband_apps_on_card_match_cpu(cuda):
+    """The scanner and the multimode bank on the card decode what they
+    decode on the CPU, launching K4 (and K2, or K3 and, through the PSK31
+    group's IQBaseBand on its strided channel rows, K1b) once a block."""
+    from libsdr_tpu_torch.apps import multimode, scanner
+    from libsdr_tpu_torch.core import cplx
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu
+    from libsdr_tpu_torch.ops.pll import pll, pll_bank
+    from libsdr_tpu_torch.tools import wideband_signals as W
+
+    m = 16
+    plan = [(ch, W.page_iq(25_000.0, 300 + ch, f"CARD {ch}"), 50 * ch)
+            for ch in (1, 6, 11)]
+    band = cplx.to_numpy(W.upmix(plan, m, m * 30_000, "cpu"))
+    n0 = pfb_mxu.launches, pll.launches
+    got = scanner.scan(band, m * 25_000.0, m, device=cuda)
+    assert pfb_mxu.launches - n0[0] == pll.launches - n0[1] > 0
+    want = scanner.scan(band, m * 25_000.0, m, device="cpu")
+    summary = [{ch: [(x.address, x.as_text()) for x in v]
+                for ch, v in f.items()} for f in (got, want)]
+    assert summary[0] == summary[1]
+    for ch, _, _ in plan:
+        assert summary[0][ch][0][0] == 300 + ch
+    active = {2: "pocsag", 3: "ax25", 5: "rtty", 6: "psk31"}
+    wide = cplx.to_numpy(W.mixed_band(active, 8, "cpu"))
+    n0 = pfb_mxu.launches, pll_bank.launches, F.fir_exact.launches
+    got = multimode.scan_multimode(wide, 8 * 24_000.0, 8, active,
+                                   device=cuda)
+    k = pfb_mxu.launches - n0[0]
+    assert k > 0 and pll_bank.launches - n0[1] == k
+    assert F.fir_exact.launches - n0[2] == k
+    want = multimode.scan_multimode(wide, 8 * 24_000.0, 8, active,
+                                    device="cpu")
+    assert {ch: (mo, str(d)) for ch, (mo, d) in got.items()} == \
+        {ch: (mo, str(d)) for ch, (mo, d) in want.items()}
+    assert set(got) == set(active)

@@ -22,13 +22,19 @@ def test_import_leaves_jax_out():
             "libsdr_tpu_torch._build\n"
             "from libsdr_tpu_torch.ops import fm_fused, fir_fm, agc, utils\n"
             "from libsdr_tpu_torch.ops import fsk, pll, bitsync, afsk_fused\n"
+            "from libsdr_tpu_torch.ops import channelizer, pfb, wideband_rx\n"
+            "from libsdr_tpu_torch.ops import fftfilter, interpolate, psk31\n"
+            "import libsdr_tpu_torch.ops.fft\n"
+            "from libsdr_tpu_torch.parallel import wideband\n"
             "from libsdr_tpu_torch.core import ragged\n"
             "from libsdr_tpu_torch import decode\n"
             "from libsdr_tpu_torch.decode import aprs\n"
             "from libsdr_tpu_torch.apps import chains, rx, fm_rx, wavplay\n"
             "from libsdr_tpu_torch.apps import pocsag_rx, ax25_rx, rtty_rx, tx\n"
+            "from libsdr_tpu_torch.apps import scanner, multimode, psk31_rx\n"
+            "from libsdr_tpu_torch.apps import spectrum\n"
             "from libsdr_tpu_torch.tools import fir_paths, digital_profile, "
-            "digital_signals\n"
+            "digital_signals, wideband_signals\n"
             "from libsdr_tpu_torch import io\n"
             "from libsdr_tpu_torch.utils import options, logging\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
