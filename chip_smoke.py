@@ -20,7 +20,12 @@ its own line; the first failure exits non-zero:
    2-512, 1-1000 lanes, both bit mappings and widened bounds; K4 (the
    polyphase channelizer, ``csrc/pfb.cu``) against ``pfb_plain`` over M
    8-4096 (the FFT and, at M = 1000, the direct DFT), P 1/8/32, F 1-4096,
-   C 1/3, both variants and plane dtypes, and three chained blocks;
+   C 1/3, both variants and plane dtypes, and three chained blocks; K5 and
+   K6 (the v1 FIR with any window start, ``ops/fir_mxu.py``, and its fm /
+   am epilogues) against their plain versions over strides 2-200, taps
+   17-263, window starts 0, 1, D-2, D-1, D and 2D+1, C 1/3/64, both plane
+   dtypes, every output and the AGC's state, and K5 at K1b's window start
+   against K1b bit for bit;
 4. drive the paths through the user's entry points, bind, compile and the
    step, on 64 channels x ~2^24 complex samples in float32 and bfloat16
    planes, with each path's kernel launches counted from 0 and checked: the
@@ -45,6 +50,12 @@ its own line; the first failure exits non-zero:
    multimode bank (``apps/multimode.scan_multimode``) at 256 channels x
    12,288 frames, 6.144 MHz, every active channel of every mode decoded,
    K4 (channel) + K3 + K1b a block, and BPSK31's host loop's share;
+   then F1, the arbitrary-offset FIR bank: ``fir_overlap_save`` at
+   offsets 0 and 1 over 64 ch x 2^24 with the DDC bank's T = 67, D = 4,
+   one K5 launch a block, K5 held against its plain version on the path's
+   own call and timed beside the strided ``conv1d`` the port used before;
+   and K6 at the same width (D = 4, window start 1) in fm with
+   de-emphasis and am with the AGC;
 5. demodulate a 1 kHz FM tone through ``run_pipeline`` on the card and check
    the FFT peak and its height over the median bin;
 6. run the apps on the card on synthesized WAV captures with the tone checks
@@ -235,11 +246,13 @@ def phase_parity(torch, L, gen):
 
 
 def mode_errs(torch, entry, plain, args, agc):
-    """Kernel vs plain for one block of K1b/K1c/K1d: (errors by bound,
-    the kernel's result, the plain result)."""
+    """Kernel vs plain for one block of K1b/K1c/K1d (or K5's y): (errors
+    by bound, the kernel's result, the plain result)."""
+    from libsdr_tpu_torch.core.cplx import Complex
+
     got, ref = entry(*args), plain(*args)
     torch.cuda.synchronize()
-    if entry.__name__ == "fir_exact":
+    if isinstance(got, Complex):
         scale = float(torch.maximum(ref.re.abs().max(), ref.im.abs().max()))
         err = max(float((got.re - ref.re).abs().max()),
                   float((got.im - ref.im).abs().max())) / scale
@@ -1552,6 +1565,313 @@ def phase_w2(torch, gen, smi):
                 bpsk31_share=spent[0] / total)
 
 
+# -- slice 5: the v1 FIR (K5) and its FM/AM epilogues (K6) -----------------
+
+# (D, T) of the K5/K6 sweep: strides 2-200, taps 17-263, the staged kernel
+# (modes fir/am up to D = 16, fm up to 40) and the warp kernel above
+MXU_SHAPES = [(2, 17), (2, 37), (4, 67), (5, 68), (16, 67), (40, 71),
+              (80, 143), (100, 131), (200, 263)]
+F1_T, F1_D = 67, 4
+
+
+def mxu_fm_bank(torch, gen, c, b, d, t, dtype):
+    """(c, b) FM tones near FS/8 on the card (fm_signal), a T-tap band-pass
+    around them and the rotation that takes their carrier out of the
+    discriminator: the K6 fm cases' inputs."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import firdesign
+
+    xr, xi = fm_signal(torch, gen, c, b, d, "cuda")
+    g = firdesign.complex_bandpass(t, FS / 8, min(FS / 4.8, 0.8 * FS / d),
+                                   FS)
+    taps = Complex(torch.tensor(g.real, dtype=torch.float32, device="cuda"),
+                   torch.tensor(g.imag, dtype=torch.float32, device="cuda"))
+    return Complex(xr, xi).to(dtype), taps, np.exp(-2j * np.pi * d / 8)
+
+
+def k6_errs(torch, got, ref, mode, agc):
+    """K6 against its plain version under the mode's bound: fm absolute in
+    rad (ERR_BOUND), am without the AGC relative to the largest output
+    (REL_BOUND), am with the AGC absolute and the exported state relative
+    (AGC_BOUND)."""
+    out, rout = got[0], ref[0]
+    check(bool(torch.isfinite(out).all()), f"fir_fm_mxu {mode} not finite")
+    if mode == "fm":
+        return float((out - rout).abs().max()), ERR_BOUND
+    if not agc:
+        return (float((out - rout).abs().max()) / float(rout.abs().max()),
+                REL_BOUND)
+    return max(float((out - rout).abs().max()),
+               float(((got[1] - ref[1]) / ref[1]).abs().max())), AGC_BOUND
+
+
+def phase_mxu_parity(torch, gen):
+    """K5 and K6 against their plain versions on the card: strides 2-200,
+    taps 17-263, window starts 0, 1, D-2, D-1, D and 2D+1, channels 1, 3
+    and 64 in turn, float32 and bfloat16 planes, 80 frames of 128 outputs
+    (chunks K > 1); every output, the clamped last frame included; K6 in fm
+    with and without de-emphasis and am with and without the AGC ((lam,
+    1 - lam) and a b of its own), from nonzero y[-1] and IIR states, the
+    AGC's exported state too.  Then K5 in its overlap-save form at K1b's
+    window start (offset D-1) against K1b: bit for bit.  Returns the worst
+    errors."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops import fir_mxu as M
+
+    worst = {"fir_mxu": 0.0, "fm": 0.0, "am": 0.0, "agc": 0.0}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (d, t) in enumerate(MXU_SHAPES):
+            line = dict.fromkeys(worst, 0.0)
+            for j, s0 in enumerate(sorted({0, 1, max(0, d - 2), d - 1, d,
+                                           2 * d + 1})):
+                c = (1, 3, 64)[(i + j) % 3]
+                b = 80 * 128 * d
+                check(M.mxu_fir_supported(t, d, s0, c, b, dtype),
+                      f"K5 gate refuses D={d} T={t} s0={s0}")
+                taps = Complex(
+                    torch.randn(t, generator=gen, device="cuda") / t ** 0.5,
+                    torch.randn(t, generator=gen, device="cuda") / t ** 0.5)
+                x = noise(torch, gen, c, b, dtype)
+                name = f"{str(dtype)[6:]} D={d} T={t} s0={s0} C={c}"
+                errs, _, _ = mode_errs(
+                    torch, lambda *a: M.fir_mxu(*a)[0],
+                    lambda *a: M.fir_mxu_plain(*a)[0], (x, taps, d, s0),
+                    False)
+                check(errs["rel"] < REL_BOUND,
+                      f"fir_mxu vs plain {name}: {errs['rel']}")
+                line["fir_mxu"] = max(line["fir_mxu"], errs["rel"])
+                fm, fm_taps, rot = mxu_fm_bank(torch, gen, c, b, d, t, dtype)
+                lead = Complex(torch.full((c, 1), 0.6, device="cuda"),
+                               torch.full((c, 1), -0.8, device="cuda"))
+                state = torch.full((c, 1), 0.4, device="cuda")
+                lam = float(np.exp(-1.0 / (0.1 * FS / d)))
+                for mode, xin, g, ab, gain in (
+                        ("fm", fm, fm_taps, None, 1.3),
+                        ("fm", fm, fm_taps, (0.95, 0.05), 1.3),
+                        ("am", x, taps, None, 1.0),
+                        ("am", x, taps, (lam, 1 - lam), 0.125),
+                        ("am", x, taps, (0.9, 0.2), 0.125)):
+                    args = (xin, g, d, s0, lead, rot, gain, ab,
+                            None if ab is None else state, mode)
+                    got = M.fir_fm_mxu(*args)
+                    ref = M.fir_fm_mxu_plain(*args)
+                    torch.cuda.synchronize()
+                    check(len(got) == len(ref) and got[0].shape == (c, b // d),
+                          f"fir_fm_mxu {mode} {name}: results' shapes")
+                    e, bnd = k6_errs(torch, got, ref, mode, ab is not None)
+                    check(e < bnd, f"fir_fm_mxu {mode} ab={ab} vs plain "
+                                   f"{name}: {e} >= {bnd}")
+                    key = "agc" if mode == "am" and ab else mode
+                    line[key] = max(line[key], e)
+                cases += 1
+                del x, fm
+            print(f"parity K5/K6 {str(dtype)[6:]} D={d} T={t} s0=0..{2 * d + 1}"
+                  f" C=1,3,64: K5 {line['fir_mxu']:.2e} (of max |y|), K6 fm "
+                  f"{line['fm']:.2e} rad, am {line['am']:.2e} (of max), AGC "
+                  f"{line['agc']:.2e}")
+            for k in worst:
+                worst[k] = max(worst[k], line[k])
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, t in ((2, 37), (4, 67), (40, 71), (200, 263)):
+            taps = Complex(torch.randn(t, generator=gen, device="cuda"),
+                           torch.randn(t, generator=gen, device="cuda"))
+            x = noise(torch, gen, 3, d * 9000, dtype)
+            tail = noise(torch, gen, 3, t - 1, dtype)
+            a = M.fir_offset(x, taps, d, d - 1, tail)
+            k1b = F.fir_exact(x, taps, d, tail)
+            check(torch.equal(a.re, k1b.re) and torch.equal(a.im, k1b.im),
+                  f"K5 at offset D-1 != K1b ({dtype}, D={d}, T={t})")
+    print(f"parity K5/K6: {cases} cases, worst K5 {worst['fir_mxu']:.3e} of "
+          f"max |y| (bound {REL_BOUND:g}), K6 fm {worst['fm']:.3e} rad "
+          f"(bound {ERR_BOUND:g}), am {worst['am']:.3e} (bound "
+          f"{REL_BOUND:g}), AGC {worst['agc']:.3e} (bound {AGC_BOUND:g}); "
+          "K5 at offset D-1 == K1b bit for bit (D 2, 4, 40, 200)")
+    return worst, cases
+
+
+def f1_taps(torch, L):
+    """The DDC bank's T = 67 taps (IQBaseBand(order=64, decim=4)) as float32
+    planes on the card."""
+    from libsdr_tpu_torch.core import cplx
+    from libsdr_tpu_torch.ops import IQBaseBand
+
+    rx = L.Pipeline([IQBaseBand(fc=FS / 8, width=FS / 4.8, order=64,
+                                decim=F1_D, design="textbook")])
+    rx.bind(L.StreamSpec(np.complex64, FS, BLOCK, channels=(CHANNELS,)))
+    taps = rx.stages[0]._inner.stages[0].taps
+    check(taps.shape == (F1_T,), f"F1 taps {taps.shape}")
+    return cplx.constant(taps, torch.float32, "cuda")
+
+
+def k5_bound(c, b, n, isz, t):
+    """K5's bound for one block: the planes read once, y's two float32
+    planes written once; the FIR's 8T operations an output."""
+    return bound(c * (2 * isz * b + 8 * n), c * n * 8 * t)
+
+
+def phase_f1(torch, L, gen, smi):
+    """F1, the arbitrary-offset FIR bank: fir_overlap_save(taps, x, tail,
+    stride=4, offset=0 and 1) over 64 channels x 2^24-sample blocks with the
+    DDC bank's T = 67 taps, float32 and bfloat16 planes, best of 3 runs of
+    10 carry-chained steps, K5's launches counted from 0 (one a block).
+    Then K5 against its plain version on the arguments of the path's own
+    call, and the kernel, the plain version and the library call (one
+    strided conv1d over the stacked concat(tail, x), full float32: the
+    route the port took before) timed with CUDA events."""
+    import torch.nn.functional as tf
+
+    from libsdr_tpu_torch.core import cplx
+    from libsdr_tpu_torch.ops import fir_mxu as M
+    from libsdr_tpu_torch.ops.fir import fir_overlap_save, full_f32
+
+    taps = f1_taps(torch, L)
+    x32 = noise(torch, gen, CHANNELS, BLOCK)
+    entries = all_entries()
+    res, launches = {}, 0
+    for offset in (0, 1):
+        for plane, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            x = x32.to(dtype)
+            tail0 = cplx.zeros((CHANNELS, F1_T - 1), dtype, "cuda")
+            set_counts_zero(entries)
+            with Capture(M, "fir_offset") as k5:
+                y, tail = fir_overlap_save(taps, x, tail0, stride=F1_D,
+                                           offset=offset)
+            torch.cuda.synchronize()
+            n = (BLOCK - offset - 1) // F1_D + 1
+            check(tuple(y.re.shape) == (CHANNELS, n) and bool(
+                torch.isfinite(y.re).all() and torch.isfinite(y.im).all()),
+                f"F1 {plane} offset {offset}: output {tuple(y.re.shape)}")
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                tl = tail
+                for _ in range(10):
+                    y, tl = fir_overlap_save(taps, x, tl, stride=F1_D,
+                                             offset=offset)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            ms_step = best / 10 * 1e3
+            counts = counts_now(entries)
+            check(counts["fir_mxu"] == 1 + 3 * 10 and all(
+                v == 0 for k, v in counts.items() if k != "fir_mxu"),
+                f"F1 {plane} offset {offset} launches {counts}")
+            launches += counts["fir_mxu"]
+            del y, tl
+            (args, kw), = k5.calls
+            errs, _, _ = mode_errs(torch, M.fir_offset, M.fir_offset_plain,
+                                   args, False)
+            check(errs["rel"] < REL_BOUND,
+                  f"F1 {plane} offset {offset} K5 vs plain: {errs}")
+            ms = cuda_ms(torch, lambda: M.fir_offset(*args), 5)
+            plain_ms = cuda_ms(torch, lambda: M.fir_offset_plain(*args), 2)
+            # the library call: one strided conv1d over concat(tail, x)
+            xb = torch.stack([torch.cat([tail0.re, x.re], -1),
+                              torch.cat([tail0.im, x.im], -1)],
+                             dim=1)[..., offset:].float()
+            w = torch.stack([torch.stack([taps.re, -taps.im]),
+                             torch.stack([taps.im, taps.re])])
+            with full_f32():
+                lib_ms = cuda_ms(torch, lambda: tf.conv1d(xb, w,
+                                                          stride=F1_D), 2)
+            del xb
+            b_ms, b_by = k5_bound(CHANNELS, BLOCK, n, x.re.element_size(),
+                                  F1_T)
+            res[(offset, plane)] = dict(ms_step=ms_step, err=errs["rel"],
+                                        ms=ms, plain_ms=plain_ms,
+                                        lib_ms=lib_ms, bound=(b_ms, b_by))
+            print(f"phase F1 offset={offset} {plane} planes ({CHANNELS}x"
+                  f"{BLOCK}, T={F1_T}, D={F1_D}): {ms_step:.3f} ms/step "
+                  f"({CHANNELS * BLOCK / ms_step / 1e3:.1f} Msamples/s), "
+                  f"launches {counts}; K5 on the path's call: max_err "
+                  f"{errs['rel']:.3e} of max |y|, kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms, library conv1d {lib_ms:.3f} ms, bound "
+                  f"{b_ms:.3f} ms ({b_by}) | {smi}")
+            del x, args, k5
+            torch.cuda.empty_cache()
+    del x32
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def phase_k6(torch, L, gen, smi):
+    """K6 at full width: fir_fm_mxu over 64 channels x 2^24 samples with the
+    DDC bank's T = 67 taps, D = 4, window start 1, in fm with de-emphasis
+    (FM tones near FS/8) and am with the AGC (noise), float32 and bfloat16
+    planes: best of 3 runs of 10 steps with the launches counted from 0,
+    then the kernel against its plain version and both timed with CUDA
+    events beside the bound."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import fir_mxu as M
+
+    taps = f1_taps(torch, L)
+    d, s0, c, b = F1_D, 1, CHANNELS, BLOCK
+    n = b // d
+    xr, xi = fm_signal(torch, gen, c, b, d, "cuda")
+    fm32 = Complex(xr, xi)
+    del xr, xi
+    am32 = noise(torch, gen, c, b)
+    lead = Complex(torch.full((c, 1), 0.6, device="cuda"),
+                   torch.full((c, 1), -0.8, device="cuda"))
+    rot = complex(np.exp(-2j * np.pi * (FS / 8) * d / FS))
+    lam = float(np.exp(-1.0 / (0.1 * FS / d)))
+    entries = all_entries()
+    res, launches = {}, 0
+    for mode, x32, ab, state, gain in (
+            ("fm", fm32, (0.95, 0.05), torch.zeros((c, 1), device="cuda"),
+             1.0),
+            ("am", am32, (lam, 1 - lam), torch.full((c, 1), 0.5,
+                                                    device="cuda"), 0.125)):
+        for plane, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            x = x32.to(dtype)
+            args = (x, taps, d, s0, lead, rot, gain, ab, state, mode)
+            set_counts_zero(entries)
+            out = M.fir_fm_mxu(*args)
+            torch.cuda.synchronize()
+            check(tuple(out[0].shape) == (c, n) and bool(
+                torch.isfinite(out[0]).all()), f"K6 {mode} {plane} output")
+            best = float("inf")
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    out = M.fir_fm_mxu(*args)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            ms_step = best / 10 * 1e3
+            counts = counts_now(entries)
+            check(counts["fir_fm_mxu"] == 1 + 3 * 10 and all(
+                v == 0 for k, v in counts.items() if k != "fir_fm_mxu"),
+                f"K6 {mode} {plane} launches {counts}")
+            launches += counts["fir_fm_mxu"]
+            ref = M.fir_fm_mxu_plain(*args)
+            torch.cuda.synchronize()
+            e, bnd = k6_errs(torch, out, ref, mode, True)
+            check(e < bnd, f"K6 {mode} {plane} vs plain: {e} >= {bnd}")
+            del out, ref
+            ms = cuda_ms(torch, lambda: M.fir_fm_mxu(*args), 5)
+            plain_ms = cuda_ms(torch, lambda: M.fir_fm_mxu_plain(*args), 2)
+            # bytes: the planes read once, the float32 audio written once;
+            # operations an output: the FIR's 8T and the epilogue's ~50
+            b_ms, b_by = bound(c * (2 * x.re.element_size() * b + 4 * n),
+                               c * n * (8 * F1_T + 50))
+            res[(mode, plane)] = dict(ms_step=ms_step, err=e, ms=ms,
+                                      plain_ms=plain_ms, bound=(b_ms, b_by))
+            print(f"phase K6 {mode} {plane} planes ({c}x{b}, T={F1_T}, "
+                  f"D={d}, s0={s0}, {'de-emphasis' if mode == 'fm' else 'AGC'}"
+                  f"): {ms_step:.3f} ms/step, launches {counts}; max_err "
+                  f"{e:.3e} (bound "
+                  f"{bnd:g}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {b_ms:.3f} ms ({b_by}) | {smi}")
+            del x, args
+            torch.cuda.empty_cache()
+    del fm32, am32
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 def phase_wide_apps(tmp: Path):
     """scanner, multimode --map, spectrum and psk31_rx with --device cuda
     against --device cpu: the same decodes, the same peaks."""
@@ -1617,11 +1937,13 @@ def phase_wide_apps(tmp: Path):
 
 def all_entries():
     from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops import fir_mxu as M
     from libsdr_tpu_torch.ops.pfb import pfb_mxu
     from libsdr_tpu_torch.ops.pll import pll, pll_bank
 
     return (F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact,
-            F.fir_afsk_exact, pll, pll_bank, pfb_mxu)
+            F.fir_afsk_exact, pll, pll_bank, pfb_mxu, M.fir_mxu,
+            M.fir_fm_mxu)
 
 
 def main() -> int:
@@ -1667,6 +1989,7 @@ def main() -> int:
           f"|disc| (bound {AFSK_BOUND:g})")
     phase_pll_parity(torch)
     k4_worst, k4_cases = phase_k4_parity(torch, gen)
+    mxu_worst, mxu_cases = phase_mxu_parity(torch, gen)
 
     # Kernel vs plain at the main path's shapes, timed with CUDA events.
     rx = fused_op(L, 4, 64, CHANNELS, BLOCK)
@@ -1715,6 +2038,9 @@ def main() -> int:
     w1 = phase_w1(torch, gen, smi)
     wfm = phase_wfm(torch, gen, smi)
     w2 = phase_w2(torch, gen, smi)
+    # Slice 5: F1, the arbitrary-offset FIR bank (K5), and K6 at full width.
+    f1, f1_launches = phase_f1(torch, L, gen, smi)
+    k6, k6_launches = phase_k6(torch, L, gen, smi)
 
     # Phase 5: a real signal through run_pipeline on the card.
     audio = siggen.sine(FS, int(FS), 1000.0, amps=0.8)
@@ -1806,6 +2132,26 @@ def main() -> int:
             replaces="libsdr_tpu/ops/pallas_pfb.py:135", launches=launches,
             max_abs_err=e[0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms))
+    # K5 at F1 (offset 0, float32 planes; library: the strided conv1d over
+    # concat(tail, x)); K6 at full width in fm with de-emphasis
+    for name, line, res, launches, lib_ms in (
+            ("fir_mxu", 204, f1[(0, "f32")], f1_launches,
+             f1[(0, "f32")]["lib_ms"]),
+            ("fir_fm_mxu", 410, k6[("fm", "f32")], k6_launches, None)):
+        record.append(dict(
+            name=name, route="cuda",
+            source="libsdr_tpu_torch/csrc/fir_fm_exact.cu",
+            replaces=f"libsdr_tpu/ops/pallas_fir_mxu.py:{line}",
+            launches=launches, max_abs_err=res["err"], ms=res["ms"],
+            plain_ms=res["plain_ms"], bound_ms=res["bound"][0],
+            bound_by=res["bound"][1], library_ms=lib_ms))
+    print(f"slice 5: K5/K6 parity {mxu_cases} cases (worst K5 "
+          f"{mxu_worst['fir_mxu']:.2e}, K6 fm {mxu_worst['fm']:.2e} rad); F1 "
+          + ", ".join(f"offset {o} {p} {r['ms_step']:.3f}"
+                      for (o, p), r in f1.items())
+          + " ms/step; K6 " + ", ".join(f"{m} {p} {r['ms']:.3f}"
+                                        for (m, p), r in k6.items())
+          + " ms a call")
     print(f"wideband: K4 parity {k4_cases} cases (worst {k4_worst['y']:.2e}"
           f" of max |Y|); W1 {w1['f32']['ms_block']:.2f} / "
           f"{w1['bf16']['ms_block']:.2f} ms/block (f32 / bf16 planes), "

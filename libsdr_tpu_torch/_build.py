@@ -113,6 +113,24 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         p, i32,              # afsk: 13 operand pointers, window L
         i32, p]              # bf16 planes, stream
     lib.sdr_fir_exact.restype = i32
+    lib.sdr_fir_mxu.argtypes = [
+        p, p, p, p,          # xr, xi, tail_r, tail_i
+        p, p, p, p,          # taps_r, taps_i, out, out_i
+        i64, i64, i32, i32,  # C, B, T, D
+        i64, i64, i64,       # window start s0, n_out, wrap
+        i32, i32, p]         # K, bf16 planes, stream
+    lib.sdr_fir_mxu.restype = i32
+    lib.sdr_fir_fm_mxu.argtypes = [
+        i32, p, p,           # mode, xr, xi
+        p, p, p, p,          # taps_r, taps_i, prev_r, prev_i (fm)
+        p, p, p,             # out, ylast_r, ylast_i (fm)
+        p, p, p,             # s_in, s_out, ends
+        i64, i64, i32, i32,  # C, B, T, D
+        i64, i32, i32,       # window start s0, K, K_agc
+        f32, f32, f32,       # rot_r, rot_i, gain
+        f64, f64, i32,       # a, b, iir (de-emphasis or AGC)
+        i32, p]              # bf16 planes, stream
+    lib.sdr_fir_fm_mxu.restype = i32
     lib.sdr_pll.argtypes = [
         p, p, p, p, p, p,    # sym, signs, ss_in, ph_in, om_in, lb_in
         p, p, p, p, p,       # per-lane omin, omax, gain, transition, ell
@@ -131,6 +149,7 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         i64, i64, i32, i32,  # C, F, M, P
         f32, i32, i32, p]    # gain, demod, bf16 planes, stream
     lib.sdr_pfb.restype = i32
+    # mode, C, n_out, T, D, L, bf16 planes
     lib.sdr_fir_chunks.argtypes = [i32, i64, i64, i32, i32, i32, i32]
     lib.sdr_fir_chunks.restype = i32
     lib.sdr_agc_chunks.argtypes = [i64, i64]

@@ -5,7 +5,9 @@ A processor has three responsibilities:
 1. :meth:`Processor.bind` validates the input :class:`StreamSpec`, derives
    its constants (numpy, on the host) and returns the output spec;
 2. :meth:`Processor.init_carry` returns the explicit state (tensors, Complex
-   planes or tuples of them) on the device it is asked for;
+   planes or tuples of them) on the device it is asked for, the card when
+   it is not asked (``core/graph.py::resolve_device``); a stage builds it
+   in :meth:`Processor._init_carry`;
 3. :meth:`Processor.apply` maps ``(carry, x) -> (carry, y)``, on the device
    of the input block ``x``.
 
@@ -57,7 +59,13 @@ class Processor:
         return self._out_spec
 
     def init_carry(self, device=None) -> Carry:
-        """Initial state on ``device`` (default: the CPU).  Default:
+        """Initial state on ``device`` (default: the card; without one
+        :class:`RuntimeSDRError`, and ``device="cpu"`` asks for the CPU)."""
+        from libsdr_tpu_torch.core.graph import resolve_device
+        return self._init_carry(resolve_device(device))
+
+    def _init_carry(self, device) -> Carry:
+        """Initial state on the torch device ``device``.  Default:
         stateless."""
         return ()
 

@@ -25,6 +25,11 @@ Rules, each exact in exact arithmetic, on adjacent stages of one Pipeline:
    and the discriminator bank in one launch of the PFB kernel.  It needs
    blocks of at least P frames; on a smaller block its bind fails and
    ``Pipeline._bind`` restores the unfused stages.
+8. ``IQBaseBand (fc != 0) -> FMDemod(quadrature) | AMDemod`` where no rule
+   above took the pair (the real-input ``BaseBand``, whose type is not
+   exactly ``IQBaseBand``): the baseband leaves its output-rate NCO out
+   (``fold_nco``) and the FMDemod folds the rotation ``e^(-i w)`` in, or
+   the AMDemod takes |x| of the unrotated output.
 
 An AGC is absorbed only when it is enabled.  The JAX package gates rules
 3-7 on a TPU backend; the fused ops here are exact on every device, so the
@@ -38,12 +43,16 @@ from typing import List
 
 def reset_fusion_state(stages: List) -> None:
     """Clear the fusion state that :func:`fuse_stages` writes onto stage
-    instances (rotations folded into an FMDemod)."""
+    instances (rotations folded into an FMDemod, a baseband's left-out
+    NCO)."""
+    from libsdr_tpu_torch.ops.baseband import IQBaseBand
     from libsdr_tpu_torch.ops.demod import FMDemod
 
     for st in stages:
         if isinstance(st, FMDemod):
             st._pending_rot_freqs = []
+        if isinstance(st, IQBaseBand):
+            st.fold_nco = False
 
 
 def fuse_stages(stages: List) -> List:
@@ -91,6 +100,15 @@ def fuse_stages(stages: List) -> List:
             out.append(WidebandFM(st.m, st.p, gain=float(nxt.gain),
                                   prototype=st._proto, layout="channel"))
             i += 2
+            continue
+        if (isinstance(st, IQBaseBand) and type(st) is not IQBaseBand
+                and st.fc != 0.0
+                and (demod_takes_rot(nxt) or isinstance(nxt, AMDemod))):
+            st.fold_nco = True
+            if demod_takes_rot(nxt):
+                nxt._pending_rot_freqs.append(st.fc)
+            out.append(st)
+            i += 1
             continue
         if type(st) is not IQBaseBand:
             out.append(st)

@@ -73,10 +73,8 @@ class Pipeline(Processor):
             spec = stage.bind(spec)
         return spec
 
-    def init_carry(self, device=None) -> Carry:
-        """Every stage's initial state on ``device`` (default: the card,
-        see :func:`resolve_device`)."""
-        device = resolve_device(device)
+    def _init_carry(self, device) -> Carry:
+        """Every stage's initial state on ``device``."""
         return tuple(stage.init_carry(device) for stage in self.stages)
 
     def apply(self, carry: Carry, x) -> Tuple[Carry, Any]:

@@ -4,8 +4,12 @@
 // impulse-response matmul with the state carried from grid step to grid
 // step):
 //
-//   sd[j]  = lam*sd[j-1] + (1-lam)*|sig[j]|      (sd[-1] = sd_in)
+//   sd[j]  = lam*sd[j-1] + b*|sig[j]|      (sd[-1] = sd_in)
 //   out[j] = gain * sig[j] / sd[j]
+//
+// with b = 1 - lam for K1's modes am and usb.  It also runs the AGC of the
+// v1 kernel's mode 'am' (pallas_fir_mxu.py::_kernel_fm, K6), whose (lam, b)
+// are any pair.
 //
 // The state cannot cross chunks by a fix-up, as the de-emphasis does: the
 // output is not linear in it, and lam = exp(-1/(0.1 s * 24 kHz)) decays over
@@ -21,8 +25,9 @@
 //
 // lam is close to 1 (1 - lam = 2.1e-5 at 480 kHz), so float32 cannot hold
 // it: rounding would move 1 - lam by up to 1.4e-3 of itself.  The passes
-// take b = 1 - lam and la = log(lam), both from double: each step is
-// sd += b*(|sig| - sd), and every power of lam is exp(n*la).
+// take b, la = log(lam) and e = lam - 1 + b, all from double: each step is
+// sd += b*(|sig| - sd) + e*sd, and every power of lam is exp(n*la).  With
+// b = 1 - lam, e is exactly 0 and the step is K1's own.
 
 #include "fir_common.cuh"
 
@@ -35,7 +40,7 @@ constexpr long long kMinAgcChunk = 2048;
 template <bool APPLY>
 __global__ void __launch_bounds__(kThreads)
 agc_pass(float* out, float* ends, long long n_out, long long chunk, int K,
-         float b, float la, float gain) {
+         float b, float e, float la, float gain) {
   __shared__ float s_wtot[kWarps], s_wpre[kWarps], s_state;
   constexpr int N = kThreads * kR;
   const long long c = blockIdx.x / K;
@@ -57,7 +62,7 @@ agc_pass(float* out, float* ends, long long n_out, long long chunk, int K,
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
       v[r] = jt + r < j_end ? row[jt + r] : 0.f;
-      l = fmaf(b, fabsf(v[r]) - l, l);
+      l = fmaf(e, l, fmaf(b, fabsf(v[r]) - l, l));
       loc[r] = l;
     }
     // Inclusive scan of S_t = sum_{u<=t} A^(t-u) l_u over the warp.
@@ -126,13 +131,14 @@ int agc_chunks(long long C, long long n_out, int sms) {
 }
 
 int agc_launch(float* out, const float* sd_in, float* sd_out, float* ends,
-               long long C, long long n_out, int K, double lam, float gain,
-               cudaStream_t stream) {
+               long long C, long long n_out, int K, double lam, double b,
+               float gain, cudaStream_t stream) {
   const long long chunk = (n_out + K - 1) / K;
-  const float b = (float)(1.0 - lam), la = (float)log(lam);
+  const float bf = (float)b, la = (float)log(lam);
+  const float ef = (float)((lam - 1.0) + b);
   const unsigned blocks = (unsigned)(C * K);
   agc_pass<false><<<blocks, kThreads, 0, stream>>>(out, ends, n_out, chunk,
-                                                   K, b, la, gain);
+                                                   K, bf, ef, la, gain);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   agc_chunk_scan<<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(
@@ -140,7 +146,7 @@ int agc_launch(float* out, const float* sd_in, float* sd_out, float* ends,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   agc_pass<true><<<blocks, kThreads, 0, stream>>>(out, ends, n_out, chunk,
-                                                  K, b, la, gain);
+                                                  K, bf, ef, la, gain);
   return (int)cudaGetLastError();
 }
 

@@ -2,14 +2,24 @@
 // parameters, the demodulator modes, the complex sample types and the host
 // launchers that fir_fm_exact.cu's entry points call.
 //
-// Every mode computes, per channel c and output j of a block x (C, B) with
-// the (C, T-1) carry tail in front of it (xc = concat(tail, x)):
+// Every mode computes, per channel c and output j < n_out of a block x
+// (C, B) with the (C, T-1) carry tail in front of it:
 //
-//   y[j] = sum_i g[i] * xc[j*D + D-1 + i]          (window ends at x[(j+1)D-1])
+//   y[j] = sum_i g[i] * v[s0 + j*D + i]
+//   v[n] = tail[n + T-1] (n < 0),  x[n] (0 <= n < B),  x[n - wrap] (n >= B)
+//
+// The exact-tiling entry (sdr_fir_exact, K1) has s0 = D - T, so window j
+// ends at x[(j+1)D-1], and n_out = B/D.  The v1 contract (sdr_fir_fm_mxu,
+// K6, and sdr_fir_mxu, K5, at s0 >= 0) takes B a whole number of
+// 128-output frames, n_out = B/D and wrap = 128*D: the last frame's windows
+// reach past the block into the frame before it, as the TPU kernel's halo
+// clamps to the block's last frame.  fir_overlap_save (ops/fir.py) runs
+// sdr_fir_mxu with s0 = offset - (T-1), in the tail, and windows that end
+// inside the block.
 //
 // and then, by mode:
 //   kFm   audio = gain * atan2poly(y[j] conj(y[j-1]) rot), optional
-//         de-emphasis out = a*out[-1] + b*audio; exports y[B/D - 1];
+//         de-emphasis out = a*out[-1] + b*audio; exports y[n_out - 1];
 //   kFir  the two planes of y;
 //   kAm   sig = |y|;
 //   kUsb  sig = (re + im)/2 of y[j] * (a0 * ramp[j]), a0 a unit phasor;
@@ -18,14 +28,17 @@
 //         same with space (complex (L,) templates), s_m[j] = the sum of
 //         the L products u_m ending at j (the first reach back into the
 //         carried last L-1 products), and out = |s_m|^2 - |s_s|^2; exports
-//         y[B/D - 1] and the last L-1 products of each tone;
+//         y[n_out - 1] and the last L-1 products of each tone;
 // and for kAm / kUsb out = gain*sig, or with the AGC
-//   sd[j] = lam*sd[j-1] + (1-lam)*|sig[j]|,  out = gain*sig/sd  (agc.cu).
+//   sd[j] = lam*sd[j-1] + b*|sig[j]|,  out = gain*sig/sd  (agc.cu;
+//   b = 1 - lam in K1, any b in K6).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace sdr {
 
@@ -66,11 +79,11 @@ struct Params {
   const float* prev_r;  // kFm: y[-1]
   const float* prev_i;
   const float* dstate;  // kFm: de-emphasis state
-  const float* ramp_r;  // kUsb: (B/D,) exp(-i theta j)
+  const float* ramp_r;  // kUsb: (n_out,) exp(-i theta j)
   const float* ramp_i;
   const float* ph_r;    // kUsb: the carried unit phasor a0 (one value)
   const float* ph_i;
-  float* out;    // (C, B/D) audio, sig or the real plane of y (kFir)
+  float* out;    // (C, n_out) audio, sig or the real plane of y (kFir)
   float* out_i;  // kFir: the imaginary plane of y
   float* ylast_r;
   float* ylast_i;
@@ -84,6 +97,9 @@ struct Params {
   float* u_out[4];
   int L;
   long long B;
+  long long s0;     // window start of output 0 (negative: in the tail)
+  long long n_out;  // outputs per channel
+  long long wrap;   // an index n >= B reads x[n - wrap]
   long long chunk;  // outputs per chunk (the last chunk may be shorter)
   int T;
   int D;
@@ -113,6 +129,36 @@ template <> struct Cplx<__nv_bfloat16> {
     return __bfloat1622float2(v);
   }
 };
+
+// Sample v[n] of one channel's plane (see the top of this file).
+template <typename Tin>
+__device__ __forceinline__ Tin sample_at(const Tin* x, const Tin* tail,
+                                         long long n, const Params& p) {
+  if (n < 0) return tail[n + p.T - 1];
+  return x[n < p.B ? n : n - p.wrap];
+}
+
+// The same for a run of loads [lo, lo + len) that the caller has sorted:
+// a run inside the block (Inside, the common case) reads x[n] with no
+// compare; only a run that reaches into the tail or past the block (Edge)
+// pays sample_at's.  Each load loop branches once on inner_run().
+using Inside = std::true_type;
+using Edge = std::false_type;
+
+__device__ __forceinline__ bool inner_run(long long lo, long long len,
+                                          const Params& p) {
+  return lo >= 0 && lo + len <= p.B;
+}
+
+template <typename Inner, typename Tin>
+__device__ __forceinline__ Tin sample(const Tin* x, const Tin* tail,
+                                      long long n, const Params& p) {
+  if constexpr (Inner::value) {
+    return x[n];
+  } else {
+    return sample_at(x, tail, n, p);
+  }
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -157,7 +203,7 @@ inline int fit_chunks(long long n_out, long long k) {
 // The warp kernel for strides above staged_max_d (fir_warp.cu).  Chunks per
 // channel for C channels (or -1 when its taps and staging buffers do not
 // fit in shared memory, else -2 - cudaError_t), and the launch itself.
-int warp_chunks(int mode, long long C, long long B, int T, int D, int L,
+int warp_chunks(int mode, long long C, long long n_out, int T, int D, int L,
                 int bf16, int smem_max, int sms);
 int warp_launch(int mode, const Params& p, long long C, int bf16,
                 cudaStream_t stream, int smem_max);
@@ -167,7 +213,7 @@ int warp_launch(int mode, const Params& p, long long C, int bf16,
 // gets the state after the last output.  ends is (C, K) scratch.
 int agc_chunks(long long C, long long n_out, int sms);
 int agc_launch(float* out, const float* sd_in, float* sd_out, float* ends,
-               long long C, long long n_out, int K, double lam, float gain,
-               cudaStream_t stream);
+               long long C, long long n_out, int K, double lam, double b,
+               float gain, cudaStream_t stream);
 
 }  // namespace sdr

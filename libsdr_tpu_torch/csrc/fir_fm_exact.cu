@@ -11,10 +11,16 @@
 // its modes 'fm' (entry fir_fm_exact), 'fir' (entry fir_exact), 'am',
 // 'usb' and 'afsk' (entry fir_afsk_exact), which ran the FIR as
 // block-Toeplitz frame matmuls on the TPU's matrix unit and the
-// correlator's window sums as banded matmuls.  These kernels compute the same functions directly:
+// correlator's window sums as banded matmuls.  With a window start of the
+// caller's (fir_common.cuh) the same kernels replace the v1 TPU kernels
+// pallas_fir_mxu.py::_kernel (K5: mode 'fir', entry sdr_fir_mxu, whose
+// output planes ops/fir_mxu.py::fir_mxu and fir_overlap_save read) and
+// ::_kernel_fm (K6: modes 'fm' and 'am', entry sdr_fir_fm_mxu).  These
+// kernels compute the same functions directly:
 //
 //   xc      = concat(tail, x)                         (tail: last T-1 samples)
-//   y[j]    = sum_i g[i] * xc[j*D + D-1 + i]          (correlation form, no conj)
+//   y[j]    = sum_i g[i] * xc[j*D + D-1 + i]          (correlation form, no conj;
+//                                                      K5/K6: window start s0)
 //   z[j]    = y[j] * conj(y[j-1]) * rot               (y[-1] = prev)
 //   audio   = gain * atan2poly(Im z, Re z)
 //   out[j]  = a*out[j-1] + b*audio[j]                 (out[-1] = dstate; optional)
@@ -77,6 +83,11 @@
 //   needs another's products and no y is recomputed by another path.
 //   Per output that adds 4L additions to the FIR's 4T FMAs (L = 40, T = 51
 //   on the AX.25 bank), and 16*(L-1 + 256R) bytes of shared memory.
+// * The window start is a parameter (fir_common.cuh): K1 starts window j
+//   at x[j*D + D - T], K5/K6 wherever the caller says.  A segment's loads
+//   that lie inside the block read x directly; only the segments at the
+//   block's edges (the tail, the v1 contract's clamped last frame) take the
+//   index compares, so the parameter costs K1 nothing per load.
 // * bf16 planes are read as bf16 and widened in registers; all arithmetic is
 //   f32.  Offsets into the (C, B) planes are 64-bit.
 // * The kernels allocate nothing and do not synchronise; the entry points
@@ -142,14 +153,16 @@ fir_fm_exact_kernel(const Params p) {
   const long long c = blockIdx.x / p.K;
   const int k = blockIdx.x % p.K;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long B = p.B;
-  const long long n_out = B / D;
+  const long long n_out = p.n_out;
   const long long j_begin = k * p.chunk;
   const long long j_end = min(n_out, j_begin + p.chunk);
-  const Tin* xr = static_cast<const Tin*>(p.xr) + c * B;
-  const Tin* xi = static_cast<const Tin*>(p.xi) + c * B;
-  const Tin* tr = static_cast<const Tin*>(p.tail_r) + c * (T - 1);
-  const Tin* ti = static_cast<const Tin*>(p.tail_i) + c * (T - 1);
+  const Tin* xr = static_cast<const Tin*>(p.xr) + c * p.B;
+  const Tin* xi = static_cast<const Tin*>(p.xi) + c * p.B;
+  // no tail where no window starts before the block (K5/K6)
+  const Tin* tr = p.s0 < 0 ? static_cast<const Tin*>(p.tail_r) + c * (T - 1)
+                           : nullptr;
+  const Tin* ti = p.s0 < 0 ? static_cast<const Tin*>(p.tail_i) + c * (T - 1)
+                           : nullptr;
   float* orow = p.out + c * n_out;
   float ph_r = 0.f, ph_i = 0.f;  // kUsb: the block's unit phasor a0
   if constexpr (MODE == kUsb) {
@@ -172,12 +185,12 @@ fir_fm_exact_kernel(const Params p) {
     } else if (warp == 0) {
       // A later chunk starts from y[j_begin - 1], recomputed here, and from
       // de-emphasis state 0 (deemph_chunk_fixup adds the true state later).
-      const long long s0 = (j_begin - 1) * D + D - 1 - (T - 1);
+      const long long w0 = (j_begin - 1) * D + p.s0;
       float ar = 0.f, ai = 0.f;
       for (int i = lane; i < T; i += 32) {
-        const long long n = s0 + i;
-        const float vr = to_f32(n >= 0 ? xr[n] : tr[n + T - 1]);
-        const float vi = to_f32(n >= 0 ? xi[n] : ti[n + T - 1]);
+        const long long n = w0 + i;
+        const float vr = to_f32(sample_at(xr, tr, n, p));
+        const float vi = to_f32(sample_at(xi, ti, n, p));
         const float gr = p.taps_r[i], gi = p.taps_i[i];
         ar += gr * vr - gi * vi;
         ai += gr * vi + gi * vr;
@@ -230,14 +243,22 @@ fir_fm_exact_kernel(const Params p) {
   auto prefetch = [&](long long js) {
     const int nvs = (int)min((long long)N, j_end - js);
     const int Ls = (nvs - 1) * D + T;
-    const long long bs = js * D + D - 1 - (T - 1);
+    const long long bs = js * D + p.s0;
+    auto run = [&](auto inner) {
+      using In = decltype(inner);
 #pragma unroll
-    for (int u = 0; u < kPre; ++u) {
-      const long long n = bs + u * kThreads + tid;
-      if (u * kThreads + tid < Ls) {
-        fx[u] = Cplx<Tin>::make(n >= 0 ? xr[n] : tr[n + T - 1],
-                                n >= 0 ? xi[n] : ti[n + T - 1]);
+      for (int u = 0; u < kPre; ++u) {
+        const long long n = bs + u * kThreads + tid;
+        if (u * kThreads + tid < Ls) {
+          fx[u] = Cplx<Tin>::make(sample<In>(xr, tr, n, p),
+                                  sample<In>(xi, ti, n, p));
+        }
       }
+    };
+    if (inner_run(bs, Ls, p)) {
+      run(Inside{});
+    } else {
+      run(Edge{});
     }
   };
   prefetch(j_start);
@@ -248,8 +269,9 @@ fir_fm_exact_kernel(const Params p) {
     const int L = (nv - 1) * D + T;
     // Stage samples [base, base + L) as [m % D][skew(m / D)]: the prefetched
     // ones, then any rest with kLoads global loads in flight per plane and
-    // thread.  Negative x indices are the tail.
-    const long long base = j0 * D + D - 1 - (T - 1);
+    // thread.  Negative x indices are the tail (sample_at).
+    const long long base = j0 * D + p.s0;
+    const bool inner = inner_run(base, L, p);
     int pp = p0, qq = q0;
     auto advance = [&]() {
       pp += dp;
@@ -268,14 +290,21 @@ fir_fm_exact_kernel(const Params p) {
     }
     for (int m0 = kPre * kThreads; m0 < L; m0 += kThreads * kLoads) {
       Tin vr[kLoads], vi[kLoads];
+      auto run = [&](auto in) {
+        using In = decltype(in);
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int m = m0 + u * kThreads + tid;
-        if (m < L) {
-          const long long n = base + m;
-          vr[u] = n >= 0 ? xr[n] : tr[n + T - 1];
-          vi[u] = n >= 0 ? xi[n] : ti[n + T - 1];
+        for (int u = 0; u < kLoads; ++u) {
+          const int m = m0 + u * kThreads + tid;
+          if (m < L) {
+            vr[u] = sample<In>(xr, tr, base + m, p);
+            vi[u] = sample<In>(xi, ti, base + m, p);
+          }
         }
+      };
+      if (inner) {
+        run(Inside{});
+      } else {
+        run(Edge{});
       }
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
@@ -506,7 +535,7 @@ fir_fm_exact_kernel(const Params p) {
 __global__ void deemph_chunk_scan(const Params p, long long C) {
   const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
   if (c >= C) return;
-  const long long n_out = p.B / p.D;
+  const long long n_out = p.n_out;
   float* e = p.ends + c * p.K;
   float S = e[0];
   for (int k = 1; k < p.K; ++k) {
@@ -523,7 +552,7 @@ __global__ void deemph_chunk_scan(const Params p, long long C) {
 __global__ void deemph_chunk_fixup(const Params p) {
   const long long c = blockIdx.x / (p.K - 1);
   const int k = 1 + blockIdx.x % (p.K - 1);
-  const long long n_out = p.B / p.D;
+  const long long n_out = p.n_out;
   const long long j0 = k * p.chunk;
   const long long len = min(n_out, j0 + p.chunk) - j0;
   const float S = p.ends[c * p.K + k];
@@ -600,14 +629,35 @@ int device_limits(int* smem_max, int* sms) {
 
 constexpr long long kMinChunk = 4096;  // staged: outputs per chunk, at least
 
-bool bad_shape(long long C, long long B, int T, int D) {
-  return C <= 0 || T < 1 || D < 1 || B < D || B % D;
+bool bad_shape(long long C, long long n_out, int T, int D) {
+  return C <= 0 || T < 1 || D < 1 || n_out < 1;
 }
 
 // Whether K chunks of ceil(n_out/K) outputs leave none empty.
 bool bad_chunks(long long n_out, long long C, int K) {
   return K < 1 || K > n_out || C * K > 0x7fffffffLL ||
          (K - 1) * ((n_out + K - 1) / K) >= n_out;
+}
+
+// Whether a window form reads outside what it has: before the tail, or past
+// the block further than `wrap` (0 <= wrap <= B) maps back into it.
+bool bad_window(long long B, long long s0, long long n_out, int T, int D,
+                long long wrap) {
+  const long long last = s0 + (n_out - 1) * D + T - 1;  // last sample read
+  return B < 1 || s0 < 1 - T || wrap < 0 || wrap > B || last >= B + wrap;
+}
+
+// Whether the IIR arguments are missing what mode kFm's de-emphasis (ends
+// when K > 1) or the AGC of modes kAm and kUsb needs.
+bool bad_iir(int mode, int iir, long long n_out, long long C, int K,
+             int K_agc, const float* s_in, const float* s_out,
+             const float* ends) {
+  if (!iir) return false;
+  if (mode == kFm) return !s_in || (K > 1 && !ends);
+  if (mode == kAm || mode == kUsb) {
+    return !s_in || !s_out || !ends || bad_chunks(n_out, C, K_agc);
+  }
+  return true;
 }
 
 // Launches the FIR kernel of the shape's path for one mode.
@@ -619,6 +669,40 @@ int launch(int mode, const Params& p, long long C, int bf16,
   return staged_mode(mode, p, C, bf16, stream, smem_max, nullptr);
 }
 
+// One mode on one block: the FIR kernel with its epilogue, then mode kFm's
+// de-emphasis across chunks, or the AGC of modes kAm and kUsb (lam = a, b)
+// from s_in into s_out.  p holds the operands and the window form.
+int run(int mode, Params p, long long C, int K, int K_agc, float gain,
+        const float* s_in, float* s_out, float* ends, double a, double b,
+        int iir, int bf16, void* stream) {
+  int smem_max = 0, sms = 0;
+  int e = device_limits(&smem_max, &sms);
+  if (e != 0) return e;
+  const bool agc = iir && (mode == kAm || mode == kUsb);
+  const long long n_out = p.n_out;
+  p.dstate = s_in;
+  p.ends = mode == kFm ? ends : nullptr;
+  p.chunk = (n_out + K - 1) / K;
+  p.K = K;
+  p.gain = agc ? 1.f : gain;  // with the AGC the kernel writes sig
+  p.a = (float)a;
+  p.b = (float)b;
+  p.deemph = mode == kFm && iir;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  e = launch(mode, p, C, bf16, s, smem_max);
+  if (e != 0 || !iir) return e;
+  if (agc) {
+    return agc_launch(p.out, s_in, s_out, ends, C, n_out, K_agc, a, b, gain,
+                      s);
+  }
+  if (K == 1) return 0;
+  deemph_chunk_scan<<<(unsigned)((C + 255) / 256), 256, 0, s>>>(p, C);
+  e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  deemph_chunk_fixup<<<(unsigned)(C * (K - 1)), 256, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace sdr
 
@@ -626,13 +710,13 @@ using namespace sdr;
 
 extern "C" {
 
-// Chunks per channel for a launch of `mode`: as many as fill the resident
-// block slots of the card in one wave, with a least chunk length per path.
-// Returns K >= 1, -1 if the shape is outside the kernel's gate, or
-// -2 - cudaError_t.
-int sdr_fir_chunks(int mode, long long C, long long B, int T, int D, int L,
-                   int bf16) {
-  if (bad_shape(C, B, T, D) || mode < kFm || mode > kAfsk ||
+// Chunks per channel for a launch of `mode` with n_out outputs a channel:
+// as many as fill the resident block slots of the card in one wave, with a
+// least chunk length per path.  Returns K >= 1, -1 if the shape is outside
+// the kernel's gate, or -2 - cudaError_t.
+int sdr_fir_chunks(int mode, long long C, long long n_out, int T, int D,
+                   int L, int bf16) {
+  if (bad_shape(C, n_out, T, D) || mode < kFm || mode > kAfsk ||
       (mode == kAfsk && (L < 2 || L > kAfskMaxL))) {
     return -1;
   }
@@ -640,7 +724,7 @@ int sdr_fir_chunks(int mode, long long C, long long B, int T, int D, int L,
   int e = device_limits(&smem_max, &sms);
   if (e != 0) return -2 - e;
   if (D > staged_max_d(mode)) {
-    return warp_chunks(mode, C, B, T, D, L, bf16, smem_max, sms);
+    return warp_chunks(mode, C, n_out, T, D, L, bf16, smem_max, sms);
   }
   Params p{};
   p.T = T;
@@ -649,8 +733,8 @@ int sdr_fir_chunks(int mode, long long C, long long B, int T, int D, int L,
   e = staged_mode(mode, p, C, bf16, nullptr, smem_max, &per_sm);
   if (e != 0) return e == -1 ? -1 : -2 - e;
   const long long k = (long long)sms * per_sm / C;
-  const long long most = (B / D) / kMinChunk;
-  return fit_chunks(B / D, k < most ? k : most);
+  const long long most = n_out / kMinChunk;
+  return fit_chunks(n_out, k < most ? k : most);
 }
 
 // Chunks per channel of the AGC passes over (C, n_out) outputs.
@@ -661,18 +745,19 @@ int sdr_agc_chunks(long long C, long long n_out) {
   return agc_chunks(C, n_out, sms);
 }
 
-// Runs one mode on one block.  Returns 0 on success, -1 if the shape or the
-// arguments are outside the kernel's gate, else a cudaError_t.  All
-// pointers are device pointers; planes are row-major (C, B) and (C, T-1) of
-// float (bf16 == 0) or __nv_bfloat16 (bf16 == 1); out is (C, B/D) float,
-// out_i (kFir) too.  By mode:
+// K1: runs one mode on one block with windows that end at x[(j+1)D-1].
+// Returns 0 on success, -1 if the shape or the arguments are outside the
+// kernel's gate, else a cudaError_t.  All pointers are device pointers;
+// planes are row-major (C, B) and (C, T-1) of float (bf16 == 0) or
+// __nv_bfloat16 (bf16 == 1); out is (C, B/D) float, out_i (kFir) too.  By
+// mode:
 //   kFm   prev_r/prev_i (C,) is y[-1] and ylast_r/ylast_i (C,) get y[B/D-1];
 //         with iir != 0 the de-emphasis out = a*out[-1] + b*audio runs from
 //         s_in (C,), with ends (C, K) scratch when K > 1;
 //   kUsb  ramp_r/ramp_i are (B/D,) and ph_r/ph_i point at one float each;
-//   kAm, kUsb with iir != 0: the AGC with lam = a from s_in (C,) into
-//         s_out (C,), ends (C, K_agc) scratch; out then holds gain*sig/sd,
-//         else gain*sig;
+//   kAm, kUsb with iir != 0: the AGC with lam = a (and 1 - lam; b is not
+//         read) from s_in (C,) into s_out (C,), ends (C, K_agc) scratch; out
+//         then holds gain*sig/sd, else gain*sig;
 //   kAfsk as kFm without de-emphasis, with afsk pointing at 13 device
 //         pointers: the (L,) templates mark re/im and space re/im, the
 //         template phase n0 (one int32), the carried (C, L-1) products
@@ -688,23 +773,19 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
                   long long B, int T, int D, int K, int K_agc, float rot_r,
                   float rot_i, float gain, double a, double b, int iir,
                   const void* const* afsk, int L, int bf16, void* stream) {
-  const long long n_out = B / D;
-  const bool agc = iir && (mode == kAm || mode == kUsb);
+  const long long n_out = D > 0 ? B / D : 0;
   const bool disc = mode == kFm || mode == kAfsk;
   bool afsk_ok = mode == kAfsk && afsk && !iir && L >= 2 && L <= kAfskMaxL;
   for (int i = 0; afsk_ok && i < 13; ++i) afsk_ok = afsk[i] != nullptr;
-  if (bad_shape(C, B, T, D) || bad_chunks(n_out, C, K) || !out ||
-      mode < kFm || mode > kAfsk || (mode == kFir && (!out_i || iir)) ||
+  if (bad_shape(C, n_out, T, D) || B % D || bad_chunks(n_out, C, K) ||
+      !out || mode < kFm || mode > kAfsk ||
+      (mode == kFir && (!out_i || iir)) ||
       (disc && !(prev_r && prev_i && ylast_r && ylast_i)) ||
       (mode == kAfsk && (!afsk_ok || (K > 1 && (n_out + K - 1) / K < L))) ||
-      (mode == kFm && iir && (!s_in || (K > 1 && !ends))) ||
       (mode == kUsb && !(ramp_r && ramp_i && ph_r && ph_i)) ||
-      (agc && (!s_in || !s_out || !ends || bad_chunks(n_out, C, K_agc)))) {
+      bad_iir(mode, iir, n_out, C, K, K_agc, s_in, s_out, ends)) {
     return -1;
   }
-  int smem_max = 0, sms = 0;
-  int e = device_limits(&smem_max, &sms);
-  if (e != 0) return e;
   Params p{};
   p.xr = xr;
   p.xi = xi;
@@ -714,7 +795,6 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
   p.taps_i = taps_i;
   p.prev_r = prev_r;
   p.prev_i = prev_i;
-  p.dstate = s_in;
   p.ramp_r = ramp_r;
   p.ramp_i = ramp_i;
   p.ph_r = ph_r;
@@ -723,18 +803,13 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
   p.out_i = out_i;
   p.ylast_r = ylast_r;
   p.ylast_i = ylast_i;
-  p.ends = mode == kFm ? ends : nullptr;
   p.B = B;
-  p.chunk = (n_out + K - 1) / K;
+  p.s0 = D - T;
+  p.n_out = n_out;
   p.T = T;
   p.D = D;
-  p.K = K;
   p.rot_r = rot_r;
   p.rot_i = rot_i;
-  p.gain = agc ? 1.f : gain;  // with the AGC the kernel writes sig
-  p.a = (float)a;
-  p.b = (float)b;
-  p.deemph = mode == kFm && iir;
   if (mode == kAfsk) {
     for (int i = 0; i < 4; ++i) {
       p.tpl[i] = static_cast<const float*>(afsk[i]);
@@ -744,18 +819,91 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
     p.n0 = static_cast<const int*>(afsk[4]);
     p.L = L;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = launch(mode, p, C, bf16, s, smem_max);
-  if (e != 0 || !iir) return e;
-  if (agc) {
-    return agc_launch(out, s_in, s_out, ends, C, n_out, K_agc, a, gain, s);
+  // the AGC of K1 is lam's own: b = 1 - lam
+  const bool agc = mode == kAm || mode == kUsb;
+  return run(mode, p, C, K, K_agc, gain, s_in, s_out, ends, a,
+             agc ? 1.0 - a : b, iir, bf16, stream);
+}
+
+// K5: the complex FIR alone (out, out_i: the planes of y, (C, n_out)) with
+// windows from x[s0 + j*D] for j < n_out, where s0 >= 1 - T; indices
+// below 0 read the (C, T-1) tail (which may be null when s0 >= 0), and
+// indices n >= B read x[n - wrap], 0 <= wrap <= B (fir_common.cuh).
+// Returns 0, -1 outside the gate, else a cudaError_t.
+int sdr_fir_mxu(const void* xr, const void* xi, const void* tail_r,
+                const void* tail_i, const float* taps_r, const float* taps_i,
+                float* out, float* out_i, long long C, long long B, int T,
+                int D, long long s0, long long n_out, long long wrap, int K,
+                int bf16, void* stream) {
+  if (bad_shape(C, n_out, T, D) || bad_chunks(n_out, C, K) || !out ||
+      !out_i || bad_window(B, s0, n_out, T, D, wrap) ||
+      (s0 < 0 && !(tail_r && tail_i))) {
+    return -1;
   }
-  if (K == 1) return 0;
-  deemph_chunk_scan<<<(unsigned)((C + 255) / 256), 256, 0, s>>>(p, C);
-  e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  deemph_chunk_fixup<<<(unsigned)(C * (K - 1)), 256, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  Params p{};
+  p.xr = xr;
+  p.xi = xi;
+  p.tail_r = tail_r;
+  p.tail_i = tail_i;
+  p.taps_r = taps_r;
+  p.taps_i = taps_i;
+  p.out = out;
+  p.out_i = out_i;
+  p.B = B;
+  p.s0 = s0;
+  p.n_out = n_out;
+  p.wrap = wrap;
+  p.T = T;
+  p.D = D;
+  return run(kFir, p, C, K, 0, 1.f, nullptr, nullptr, nullptr, 0.0, 0.0, 0,
+             bf16, stream);
+}
+
+// K6: the v1 FIR with windows from x[s0 + j*D], s0 >= 0, over a block of
+// whole 128-output frames (B a multiple of 128*D, n_out = B/D), the last
+// frame reading past the block into the frame before it (wrap = 128*D), and
+// then mode kFm (y[-1] = prev (C,), y[n_out-1] into ylast (C,); with
+// iir != 0 the de-emphasis (a, b) from s_in (C,), ends (C, K) scratch when
+// K > 1) or kAm (with iir != 0 the AGC sd = a*sd + b*|y| from s_in (C,), its
+// last state into s_out (C,), ends (C, K_agc) scratch).  out is (C, n_out).
+// Returns 0, -1 outside the gate, else a cudaError_t.
+int sdr_fir_fm_mxu(int mode, const void* xr, const void* xi,
+                   const float* taps_r, const float* taps_i,
+                   const float* prev_r, const float* prev_i, float* out,
+                   float* ylast_r, float* ylast_i, const float* s_in,
+                   float* s_out, float* ends, long long C, long long B,
+                   int T, int D, long long s0, int K, int K_agc, float rot_r,
+                   float rot_i, float gain, double a, double b, int iir,
+                   int bf16, void* stream) {
+  const long long sd = 128LL * D;
+  const long long n_out = D > 0 ? B / D : 0;
+  if (bad_shape(C, n_out, T, D) || (mode != kFm && mode != kAm) ||
+      B % sd || s0 < 0 || bad_window(B, s0, n_out, T, D, sd) ||
+      bad_chunks(n_out, C, K) || !out ||
+      (mode == kFm && !(prev_r && prev_i && ylast_r && ylast_i)) ||
+      bad_iir(mode, iir, n_out, C, K, K_agc, s_in, s_out, ends)) {
+    return -1;
+  }
+  Params p{};
+  p.xr = xr;
+  p.xi = xi;
+  p.taps_r = taps_r;
+  p.taps_i = taps_i;
+  p.prev_r = prev_r;
+  p.prev_i = prev_i;
+  p.out = out;
+  p.ylast_r = ylast_r;
+  p.ylast_i = ylast_i;
+  p.B = B;
+  p.s0 = s0;
+  p.n_out = n_out;
+  p.wrap = sd;
+  p.T = T;
+  p.D = D;
+  p.rot_r = rot_r;
+  p.rot_i = rot_i;
+  return run(mode, p, C, K, K_agc, gain, s_in, s_out, ends, a, b, iir, bf16,
+             stream);
 }
 
 const char* sdr_cuda_error_string(int code) {

@@ -33,6 +33,9 @@
 //   order) and five xor-shuffles per plane give the sums.  A later chunk
 //   starts L outputs early to fill the ring (the first of them has no true
 //   y[j-1] and reaches no written output).
+// * The window start is the caller's (fir_common.cuh: K1, or K5/K6's any
+//   offset); a span inside the block loads x directly, one at its edges
+//   (the tail, the clamped last frame of K5/K6) through sample_at.
 // * Outputs are gathered one per lane and stored 32 at a time, so a warp
 //   writes whole 128-byte lines.
 // * K chunks per channel, K from the occupancy API so that all C*K warps
@@ -83,14 +86,16 @@ fir_warp_kernel(const Params p, long long C) {
   if (w >= C * p.K) return;
   const long long c = w / p.K;
   const int k = (int)(w % p.K);
-  const long long B = p.B;
-  const long long n_out = B / D;
+  const long long n_out = p.n_out;
   const long long j_begin = k * p.chunk;
   const long long j_end = min(n_out, j_begin + p.chunk);
-  const Tin* xr = static_cast<const Tin*>(p.xr) + c * B;
-  const Tin* xi = static_cast<const Tin*>(p.xi) + c * B;
-  const Tin* tr = static_cast<const Tin*>(p.tail_r) + c * (T - 1);
-  const Tin* ti = static_cast<const Tin*>(p.tail_i) + c * (T - 1);
+  const Tin* xr = static_cast<const Tin*>(p.xr) + c * p.B;
+  const Tin* xi = static_cast<const Tin*>(p.xi) + c * p.B;
+  // no tail where no window starts before the block (K5/K6)
+  const Tin* tr = p.s0 < 0 ? static_cast<const Tin*>(p.tail_r) + c * (T - 1)
+                           : nullptr;
+  const Tin* ti = p.s0 < 0 ? static_cast<const Tin*>(p.tail_i) + c * (T - 1)
+                           : nullptr;
   const int U = (W - T) / D + 1;  // outputs per staged span
 
   float pr = 0.f, pi = 0.f, st = 0.f;  // kFm: y[j-1], de-emphasis state
@@ -130,21 +135,29 @@ fir_warp_kernel(const Params p, long long C) {
   for (long long j0 = j_first; j0 < j_end; j0 += U) {
     const int nu = (int)min((long long)U, j_end - j0);
     const int span = (nu - 1) * D + T;
-    const long long s0 = j0 * D + D - 1 - (T - 1);
-    // Stage samples [s0, s0 + span) of this warp's next nu windows, with
+    const long long w0 = j0 * D + p.s0;
+    // Stage samples [w0, w0 + span) of this warp's next nu windows, with
     // kLoads loads in flight per plane and lane.  Negative indices are the
-    // tail.
+    // tail (sample_at).
     __syncwarp();  // the previous span's reads are done
+    const bool inner = inner_run(w0, span, p);
     for (int m0 = 0; m0 < span; m0 += 32 * kLoads) {
       Tin vr[kLoads], vi[kLoads];
+      auto run = [&](auto in) {
+        using In = decltype(in);
 #pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int m = m0 + u * 32 + lane;
-        if (m < span) {
-          const long long n = s0 + m;
-          vr[u] = n >= 0 ? xr[n] : tr[n + T - 1];
-          vi[u] = n >= 0 ? xi[n] : ti[n + T - 1];
+        for (int u = 0; u < kLoads; ++u) {
+          const int m = m0 + u * 32 + lane;
+          if (m < span) {
+            vr[u] = sample<In>(xr, tr, w0 + m, p);
+            vi[u] = sample<In>(xi, ti, w0 + m, p);
+          }
         }
+      };
+      if (inner) {
+        run(Inside{});
+      } else {
+        run(Edge{});
       }
 #pragma unroll
       for (int u = 0; u < kLoads; ++u) {
@@ -307,7 +320,7 @@ int warp_mode(int mode, const Params& p, long long C, int bf16,
 
 }  // namespace
 
-int warp_chunks(int mode, long long C, long long B, int T, int D, int L,
+int warp_chunks(int mode, long long C, long long n_out, int T, int D, int L,
                 int bf16, int smem_max, int sms) {
   if (warp_smem_bytes(mode, T, bf16 ? 4 : 8) > (size_t)smem_max) return -1;
   Params p{};
@@ -321,8 +334,8 @@ int warp_chunks(int mode, long long C, long long B, int T, int D, int L,
   // kAfsk: a later chunk starts L outputs early, so chunks hold L at least
   const long long min_chunk =
       mode == kAfsk && L > kMinWarpChunk ? L : kMinWarpChunk;
-  const long long most = (B / D) / min_chunk;
-  return fit_chunks(B / D, k < most ? k : most);
+  const long long most = n_out / min_chunk;
+  return fit_chunks(n_out, k < most ? k : most);
 }
 
 int warp_launch(int mode, const Params& p, long long C, int bf16,

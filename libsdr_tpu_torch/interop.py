@@ -3,7 +3,8 @@
 A carry is a nest of tuples and dicts (the BitStream's carry is a dict)
 whose leaves are arrays or planar complex values.  :func:`state_from_numpy` takes any such nest whose leaves are
 array-likes or objects with ``.re``/``.im`` (a JAX ``Complex`` among them,
-without importing JAX) and returns this package's carry on a device;
+without importing JAX) and returns this package's carry on a device (the
+card unless asked for another, as ``Pipeline.init_carry``);
 :func:`state_to_numpy` returns numpy leaves, with planar values as
 :class:`PlanarArray`.  numpy has no bfloat16, so bfloat16 planes come back
 widened (exactly) to float32.
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from libsdr_tpu_torch.core.cplx import Complex, _host
+from libsdr_tpu_torch.core.graph import resolve_device
 
 
 class PlanarArray:
@@ -36,7 +38,9 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def state_from_numpy(tree, device=None):
-    """A carry nest of host arrays (or JAX arrays) as tensors on ``device``."""
+    """A carry nest of host arrays (or JAX arrays) as tensors on ``device``
+    (default: the card, see ``core/graph.py::resolve_device``)."""
+    device = resolve_device(device)
     if hasattr(tree, "re") and hasattr(tree, "im"):
         return Complex(_tensor(tree.re, device), _tensor(tree.im, device))
     if isinstance(tree, dict):

@@ -5,7 +5,7 @@ trailing axis."""
 from libsdr_tpu_torch.ops import firdesign, siggen
 from libsdr_tpu_torch.ops.fir import FIRFilter, fir_overlap_save, set_mxu_precision
 from libsdr_tpu_torch.ops.nco import FreqShift
-from libsdr_tpu_torch.ops.baseband import IQBaseBand
+from libsdr_tpu_torch.ops.baseband import BaseBand, IQBaseBand
 from libsdr_tpu_torch.ops.demod import AMDemod, USBDemod, FMDemod, FMDeemph
 from libsdr_tpu_torch.ops.agc import AGC
 from libsdr_tpu_torch.ops.iir import iir_first_order
@@ -27,7 +27,8 @@ from libsdr_tpu_torch.ops.utils import (
 
 __all__ = [
     "firdesign", "siggen", "FIRFilter", "fir_overlap_save",
-    "set_mxu_precision", "FreqShift", "IQBaseBand", "AMDemod", "USBDemod",
+    "set_mxu_precision", "FreqShift", "IQBaseBand", "BaseBand", "AMDemod",
+    "USBDemod",
     "FMDemod", "FMDeemph", "AGC", "iir_first_order", "fir_fm_exact",
     "fir_exact", "fir_am_exact", "fir_usb_exact", "fir_afsk_exact",
     "ASKDetector", "FSKDetector", "sliding_sum", "pll", "pll_bank",

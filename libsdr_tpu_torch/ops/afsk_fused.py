@@ -46,8 +46,8 @@ class AFSKFrontendFused(FMBasebandFused):
                                   audio_fs, self.corr_len)
         return spec.with_(dtype=torch.uint8)
 
-    def init_carry(self, device=None):
-        tail, prev = super().init_carry(device)
+    def _init_carry(self, device):
+        tail, prev = super()._init_carry(device)
         u0 = self.in_spec.channels + (self.corr_len - 1,)
         return (tail, prev, torch.zeros((), dtype=torch.int32, device=device),
                 cplx.zeros(u0, torch.float32, device),

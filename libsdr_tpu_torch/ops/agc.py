@@ -43,7 +43,7 @@ class AGC(Processor):
         self._lambda = math.exp(-1.0 / (self.tau * in_spec.rate_hz))
         return in_spec
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         # sd starts at the target
         return torch.full(self.in_spec.channels, self.target,
                           dtype=real_dtype_of(self.in_spec.dtype),

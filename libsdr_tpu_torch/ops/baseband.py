@@ -14,7 +14,13 @@ the boxcar folds into it: ``g = full_conv(k[i] exp(-i w (N-1-i)), ones(D)/D)``
     out[j] = exp(-i w D j) * sum_i g2[i] * x[j*D + offset - (T-1) + i]
 
 with ``g2[i] = g[i] exp(-i w (i - (T-1) + offset))``: one strided
-convolution over the raw input and an NCO at the output rate.
+convolution over the raw input and an NCO at the output rate.  Where the
+next stage is rotation-invariant (AMDemod) or folds the rotation into its
+conjugate product (quadrature FMDemod), the fusion pass sets ``fold_nco``
+and the NCO is left out (``core/fuse.py``).
+
+:class:`BaseBand` is the real-input variant: the real stream is made
+complex first.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from libsdr_tpu_torch.core.stream import ConfigError, StreamSpec
 from libsdr_tpu_torch.ops import firdesign
 from libsdr_tpu_torch.ops.fir import FIRFilter
 from libsdr_tpu_torch.ops.nco import FreqShift
+from libsdr_tpu_torch.ops.utils import ToComplex
 
 
 def fused_baseband_taps(kernel: np.ndarray, fc: float, fs: float,
@@ -75,6 +82,9 @@ class IQBaseBand(Processor):
         self.decim = int(decim)
         self.out_rate = out_rate
         self.design = design
+        # Set by the fusion pass (core/fuse.py) when the next stage needs no
+        # output-rate NCO: the unrotated FIR output goes out as it is.
+        self.fold_nco = False
         self._inner: Pipeline | None = None
 
     def _bind(self, in_spec: StreamSpec) -> StreamSpec:
@@ -91,13 +101,28 @@ class IQBaseBand(Processor):
         offset = self.decim - 1  # FIRFilter's first-output offset
         g2 = g * np.exp(-1j * w * (np.arange(t) - (t - 1) + offset))
         # The output-rate NCO is FreqShift(fc) bound at fs/D.
-        self._inner = Pipeline(
-            [FIRFilter(order=t, kind="custom", taps=g2, decim=self.decim),
-             FreqShift(self.fc)], name="IQBaseBand")
+        stages = [FIRFilter(order=t, kind="custom", taps=g2,
+                            decim=self.decim)]
+        if not self.fold_nco:
+            stages.append(FreqShift(self.fc))
+        self._inner = Pipeline(stages, name="IQBaseBand")
         return self._inner.bind(in_spec)
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         return self._inner.init_carry(device)
 
     def apply(self, carry, x):
         return self._inner.apply(carry, x)
+
+
+class BaseBand(IQBaseBand):
+    """Real-input variant: band-pass filter a real stream, shift the band
+    at Fc down to DC and decimate; the output is complex baseband."""
+
+    def _bind(self, in_spec: StreamSpec) -> StreamSpec:
+        in_spec.require_real("BaseBand")
+        to_complex = ToComplex()
+        super()._bind(to_complex.bind(in_spec))
+        self._inner = Pipeline([to_complex] + self._inner.stages,
+                               name="BaseBand")
+        return self._inner.bind(in_spec)

@@ -61,7 +61,7 @@ class BitStream(Processor):
         return in_spec.with_(dtype=torch.uint8, sample_rate=self.baud,
                              ragged=True)
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         ch = self.in_spec.channels
         return dict(
             signs=torch.zeros(ch + (self.corr_len - 1,), dtype=torch.int32,

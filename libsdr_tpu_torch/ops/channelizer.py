@@ -103,7 +103,7 @@ class Channelizer(Processor):
                 pfb_twiddles(self.m, device))
         return self._taps_dev[key]
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         # P previous raw frames (the reverse commutator needs one frame of
         # look-back on top of the P-1 filter history).
         shape = self.in_spec.channels + (self.p, self.m)

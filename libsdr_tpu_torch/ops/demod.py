@@ -74,7 +74,7 @@ class FMDemod(Processor):
         return in_spec.with_(dtype=real_dtype_of(in_spec.dtype),
                              plane_dtype=None)
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         ch = self.in_spec.channels
         if self.mode == "quadrature":
             phasor = cplx.full_like_phasor(ch, self.in_spec.real_dtype,
@@ -124,7 +124,7 @@ class FMDeemph(Processor):
         self._a, self._b = deemph_coeffs(in_spec.rate_hz, self.tau)
         return in_spec
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         return torch.zeros(self.in_spec.channels, dtype=self.in_spec.dtype,
                            device=device)
 

@@ -80,7 +80,7 @@ class FFTFilterBank(Processor):
         if self.is_bound:
             self._make_kernels(self.in_spec)
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         b = self.in_spec.block_size
         shape = self.in_spec.channels + (len(self.bands), b)
         return cplx.zeros(shape, torch.float32, device)

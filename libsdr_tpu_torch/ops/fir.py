@@ -8,10 +8,13 @@ multiplies the newest sample.  The zero initial tail is a zero-initialized
 ring buffer.  Complex streams are planar; complex taps on a complex stream
 run as one 2-in, 2-out channel convolution.
 
-A complex block on a CUDA device, decimated with the standard offset
-``stride - 1``, goes through the hand-written FIR kernel instead
-(``ops/fir_fm.fir_exact``, one launch per block); every other shape, and
-every CPU block, runs the plain batched correlation here.
+A complex block on a CUDA device, decimated (stride > 1), goes through a
+hand-written FIR kernel instead, one launch per block that reads the tail
+itself: with the standard offset ``stride - 1`` the exact-tiling kernel
+(``ops/fir_fm.fir_exact``, K1b), with any other offset the v1 kernel in its
+overlap-save form (``ops/fir_mxu.fir_offset``, K5) where its gate holds.
+Every other shape, real streams, stride 1 and every CPU block run the plain
+batched correlation here.
 """
 
 from __future__ import annotations
@@ -116,8 +119,11 @@ def fir_overlap_save(taps, x, tail, stride: int = 1, offset: int = 0):
     if t <= 1:
         return _conv1d(x[..., offset:], taps, stride), tail
     if (isinstance(x, Complex) and x.re.device.type == "cuda"
-            and stride > 1 and offset == stride - 1):
-        return _fir_exact_block(taps, x, tail, stride, t)
+            and stride > 1):
+        from libsdr_tpu_torch.ops.fir_mxu import fir_offset_supported
+        if offset == stride - 1 or fir_offset_supported(
+                t, stride, offset, x.re.shape[-1], x.re.dtype):
+            return _fir_kernel_block(taps, x, tail, stride, offset, t)
     xc = cplx.concatenate([tail, x], axis=-1)
     y = _conv1d(xc[..., offset:], taps, stride)
     return y, xc[..., xc.shape[-1] - (t - 1):]
@@ -133,20 +139,26 @@ def new_tail(x, tail, t: int):
     return xc[..., xc.shape[-1] - (t - 1):]
 
 
-def _fir_exact_block(taps, x: Complex, tail: Complex, stride: int, t: int):
-    """fir_overlap_save through the FIR kernel: the leading channel axes
-    flattened to one, and complex taps."""
-    from libsdr_tpu_torch.ops.fir_fm import fir_exact
+def _fir_kernel_block(taps, x: Complex, tail: Complex, stride: int,
+                      offset: int, t: int):
+    """fir_overlap_save through a FIR kernel (K1b at offset stride - 1,
+    else K5): the leading channel axes flattened to one, and complex
+    taps."""
+    from libsdr_tpu_torch.ops import fir_fm, fir_mxu
 
     lead, b = x.re.shape[:-1], x.re.shape[-1]
     kr, ki = _taps_planes(taps, torch.float32, x.re.device)
     g = Complex(kr, torch.zeros_like(kr) if ki is None else ki)
     c = int(np.prod(lead, dtype=np.int64))
-    # a channel group sliced from a bank is a strided view: the kernel
-    # reads contiguous planes
-    y = fir_exact(x.reshape(c, b).map(torch.Tensor.contiguous), g, stride,
-                  tail.reshape(c, t - 1))
-    return y.reshape(lead + (b // stride,)), new_tail(x, tail, t)
+    # a channel group sliced from a bank is a strided view: the kernels
+    # read contiguous planes
+    xk = x.reshape(c, b).map(torch.Tensor.contiguous)
+    tk = tail.reshape(c, t - 1)
+    if offset == stride - 1:
+        y = fir_fm.fir_exact(xk, g, stride, tk)
+    else:
+        y = fir_mxu.fir_offset(xk, g, stride, offset, tk)
+    return y.reshape(lead + (y.re.shape[-1],)), new_tail(x, tail, t)
 
 
 def set_mxu_precision(mode: str) -> None:
@@ -207,6 +219,33 @@ class FIRFilter(Processor):
             raise ConfigError(f"Unknown FIR kind {self.kind!r}")
         return d[self.kind]()
 
+    def _redesign(self) -> None:
+        """New taps for the bound rate; the device copies are made anew."""
+        if self.is_bound:
+            self.taps = np.asarray(self._design_taps(self.in_spec.rate_hz))
+            self._taps_dev = {}
+
+    def set_freq(self, fl: float = None, fu: float = None) -> None:
+        """Retune the band edges.  The next :meth:`apply` filters with the
+        new taps; the carry keeps its shape."""
+        if self.kind == "custom":
+            raise ConfigError("set_freq: a custom-taps filter has no "
+                              "designer to retune")
+        if fl is not None:
+            self.fl = float(fl)
+        if fu is not None:
+            self.fu = float(fu)
+        self._redesign()
+
+    def set_order(self, order: int) -> None:
+        """Change the tap count.  The carry tail changes length with it, so
+        call :meth:`init_carry` again afterwards."""
+        if self.kind == "custom":
+            raise ConfigError("set_order: a custom-taps filter has no "
+                              "designer to re-run")
+        self.order = max(1, int(order))
+        self._redesign()
+
     def _bind(self, in_spec: StreamSpec) -> StreamSpec:
         if self.decim > 1:
             in_spec.require_block_multiple("FIRFilter", self.decim)
@@ -234,7 +273,7 @@ class FIRFilter(Processor):
                                                 dev)
         return self._taps_dev[dev]
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         t = self.taps.shape[0]
         shape = self.in_spec.channels + (t - 1,)
         if self.in_spec.is_complex:

@@ -120,12 +120,11 @@ def _agc_plain(sig, gain, agc_ab, sd):
     return float(gain) * sig / sdv, sd_last
 
 
-def fir_fm_exact_plain(x: Complex, taps: Complex, stride: int,
-                       tail: Complex, prev: Complex, rot: complex,
-                       gain: float, deemph_ab=None, dstate=None):
-    """Plain PyTorch version of :func:`fir_fm_exact` (same arguments and
-    results), in float32."""
-    y = _fir_y(x, taps, int(stride), tail)
+def _fm_plain(y: Complex, prev: Complex, rot: complex, gain: float,
+             deemph_ab=None, dstate=None) -> torch.Tensor:
+    """The FM epilogue of the plain versions, in float32: ``gain *
+    atan2_poly(y[j] * conj(y[j-1]) * rot)`` with y[-1] = prev (C,), then
+    optionally the de-emphasis from dstate (C,)."""
     yp = Complex(torch.cat([prev.re[..., None].float(), y.re[..., :-1]], -1),
                  torch.cat([prev.im[..., None].float(), y.im[..., :-1]], -1))
     zr = y.re * yp.re + y.im * yp.im
@@ -138,7 +137,16 @@ def fir_fm_exact_plain(x: Complex, taps: Complex, stride: int,
         with full_f32():
             out, _ = iir_first_order(out, deemph_ab[0], deemph_ab[1],
                                      dstate.float())
-    return out, y[..., -1]
+    return out
+
+
+def fir_fm_exact_plain(x: Complex, taps: Complex, stride: int,
+                       tail: Complex, prev: Complex, rot: complex,
+                       gain: float, deemph_ab=None, dstate=None):
+    """Plain PyTorch version of :func:`fir_fm_exact` (same arguments and
+    results), in float32."""
+    y = _fir_y(x, taps, int(stride), tail)
+    return _fm_plain(y, prev, rot, gain, deemph_ab, dstate), y[..., -1]
 
 
 def fir_fm_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
@@ -190,7 +198,7 @@ def fir_am_exact_plain(x: Complex, taps: Complex, stride: int,
                        tail: Complex, gain: float, agc_ab=None, sd=None):
     """Plain PyTorch version of :func:`fir_am_exact`, in float32."""
     return _agc_plain(_fir_y(x, taps, int(stride), tail).abs(), gain,
-                      agc_ab, sd)
+                     agc_ab, sd)
 
 
 def fir_am_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
@@ -315,8 +323,9 @@ def _plain(x, name: str) -> bool:
     return False
 
 
-def _operands(name, x, taps, d, tail):
-    """Checked planes of x, the tail in the plane dtype and the taps."""
+def _checked_planes(name, x):
+    """The planes of x, checked: (C, B), contiguous, float32 or
+    bfloat16."""
     xr, xi = x.re, x.im
     if xr.dtype not in _PLANE_DTYPES or xi.dtype != xr.dtype:
         raise ValueError(f"{name}: planes must be float32 or bfloat16, got "
@@ -326,6 +335,12 @@ def _operands(name, x, taps, d, tail):
                          f"{tuple(xr.shape)}")
     if not (xr.is_contiguous() and xi.is_contiguous()):
         raise ValueError(f"{name}: planes must be contiguous")
+    return xr, xi
+
+
+def _operands(name, x, taps, d, tail):
+    """Checked planes of x, the tail in the plane dtype and the taps."""
+    xr, xi = _checked_planes(name, x)
     c, b = xr.shape
     t = taps.re.shape[-1]
     if d < 1 or b % d or b < d:
@@ -339,6 +354,8 @@ def _operands(name, x, taps, d, tail):
 
 
 def _small(name, dev):
+    """A checker that moves a small operand to ``dev`` and ``dtype``,
+    contiguous, and raises unless it has ``shape``."""
     def small(v, dtype, shape):
         v = v.to(dev, dtype).contiguous()
         if tuple(v.shape) != shape:
@@ -348,15 +365,16 @@ def _small(name, dev):
     return small
 
 
-def _chunks(name, lib, mode, c, b, t, d, ell, xr):
-    """K for the launch, or ValueError outside the gate."""
+def _chunks(name, lib, mode, c, n_out, t, d, ell, xr):
+    """K for a launch of n_out outputs a channel, or ValueError outside
+    the gate."""
     with torch.cuda.device(xr.device):
-        k = lib.sdr_fir_chunks(mode, c, b, t, d, ell,
+        k = lib.sdr_fir_chunks(mode, c, n_out, t, d, ell,
                                int(xr.dtype == torch.bfloat16))
     if k == -1:
         raise ValueError(f"{name}: shape outside the kernel's gate (C={c}, "
-                         f"B={b}, T={t}, D={d}, L={ell}, {xr.dtype}); see "
-                         f"ops/fir_fm.py")
+                         f"{n_out} outputs, T={t}, D={d}, L={ell}, "
+                         f"{xr.dtype}); see ops/fir_fm.py")
     if k < -1:
         msg = lib.sdr_cuda_error_string(-2 - k).decode()
         raise RuntimeError(f"{name}: device query failed: {msg}")
@@ -373,6 +391,29 @@ def _check(name, lib, rc):
 
 def _ptr(v):
     return None if v is None else v.data_ptr()
+
+
+def _iir_operands(name, lib, mode, c, n, k, iir_ab, state, dev):
+    """(a, b, s_in, s_out, ends, K_agc) of the C entries for mode fm's
+    de-emphasis (ends: (C, K) scratch when K > 1) or the AGC of modes am
+    and usb (s_out: the state export; ends: (C, K_agc) scratch); zeros and
+    None without ``iir_ab``."""
+    if iir_ab is None:
+        return 0.0, 0.0, None, None, None, 0
+    a, bc = map(float, iir_ab)
+    s_in = _small(name, dev)(state, torch.float32, (c,))
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    if mode == _MODE_FM:
+        return a, bc, s_in, None, empty(c, k) if k > 1 else None, 0
+    with torch.cuda.device(dev):
+        k_agc = lib.sdr_agc_chunks(c, n)
+    if k_agc < 1:
+        msg = lib.sdr_cuda_error_string(-2 - k_agc).decode()
+        raise RuntimeError(f"{name}: device query failed: {msg}")
+    return a, bc, s_in, empty(c), empty(c, k_agc), k_agc
 
 
 def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
@@ -418,25 +459,11 @@ def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
         ops = (ctypes.c_void_p * 13)(*[v.data_ptr() for v in (
             tpl + [n0] + u_in + u_out)])
     lib = _build.library()
-    k = _chunks(name, lib, mode, c, b, t, d, ell, xr)
+    k = _chunks(name, lib, mode, c, n, t, d, ell, xr)
     out = empty(c, n)
     out_i = empty(c, n) if mode == _MODE_FIR else None
-    s_in = s_out = ends = None
-    k_agc = 0
-    a = bc = 0.0
-    if iir_ab is not None:
-        a, bc = map(float, iir_ab)
-        s_in = small(state, torch.float32, (c,))
-        if mode == _MODE_FM:
-            ends = empty(c, k) if k > 1 else None
-        else:
-            s_out = empty(c)
-            with torch.cuda.device(dev):
-                k_agc = lib.sdr_agc_chunks(c, n)
-            if k_agc < 1:
-                msg = lib.sdr_cuda_error_string(-2 - k_agc).decode()
-                raise RuntimeError(f"{name}: device query failed: {msg}")
-            ends = empty(c, k_agc)
+    a, bc, s_in, s_out, ends, k_agc = _iir_operands(
+        name, lib, mode, c, n, k, iir_ab, state, xr.device)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdr_fir_exact(

@@ -127,7 +127,7 @@ class AMBasebandFused(_FusedFrontEnd):
         self._bind_agc(self.agc, in_spec.rate_hz / self._decim)
         return out
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         tail = self._tail0(device)
         if self._ab is None:
             return (tail,)
@@ -172,7 +172,7 @@ class USBBasebandFused(_FusedFrontEnd):
         self._bind_agc(self.agc, in_spec.rate_hz / self._decim)
         return out
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         tail = self._tail0(device)
         phasor = cplx.full_like_phasor((), torch.float32, device)
         if self._ab is None:
@@ -226,7 +226,7 @@ class FMBasebandFused(_FusedFrontEnd):
                                    self.deemph.tau))
         return out
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         ch = self.in_spec.channels
         tail = self._tail0(device)
         # prev = rot cancels the folded rotation on the very first sample,

@@ -129,7 +129,7 @@ class FSKDetector(Processor):
                 torch.arange(self.in_spec.block_size, device=device))
         return self._dev[key]
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         ch = self.in_spec.channels
         L = self.corr_len
         return (torch.zeros((), dtype=torch.int32, device=device),

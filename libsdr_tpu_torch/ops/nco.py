@@ -69,7 +69,7 @@ class FreqShift(Processor):
                 self._table, self.in_spec.real_dtype, device)
         return self._dev_consts[key]
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         if self.mode == "exact":
             return cplx.full_like_phasor((), self.in_spec.real_dtype, device)
         return torch.zeros((), dtype=torch.int32, device=device)

@@ -65,7 +65,7 @@ class BPSK31(Processor):
         return in_spec.with_(dtype=torch.uint8, sample_rate=31.25,
                              ragged=True, plane_dtype=None)
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         ch = self.in_spec.channels
         f32 = torch.float32
 

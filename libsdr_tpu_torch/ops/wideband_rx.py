@@ -139,7 +139,7 @@ class WidebandFM(Processor):
                               pfb_twiddles(self.m, device))
         return self._dev[key]
 
-    def init_carry(self, device=None):
+    def _init_carry(self, device):
         m, p = self.m, self.p
         lead = self.in_spec.channels
         hist = cplx.zeros(lead + (p, m), self.in_spec.real_dtype, device)

@@ -81,7 +81,7 @@ def _one_device(device):
             raise ConfigError(
                 f"{len(device)} devices: the sharded wideband paths "
                 "(time-sharded channelizer, all_to_all reshard) are not "
-                "ported yet (ROADMAP.md, slice 5); give one device")
+                "ported yet (ROADMAP.md, slice 6); give one device")
         device = device[0]
     return resolve_device(device)
 

@@ -1,0 +1,98 @@
+"""Time the decimating-FIR kernels at the main path's shapes on the card.
+
+    python libsdr_tpu_torch/tools/fir_times.py [--planes f32 bf16] [--reps 10]
+
+64 channels x 2^24 samples, T = 67 random complex taps, D = 4: K1a
+(``fir_fm_exact`` with de-emphasis), K1b (``fir_exact``) and, where the
+package has them, K5 (``fir_offset`` at offset 0, F1's call) and K6
+(``fir_fm_mxu`` at window start 1 in fm with de-emphasis and am with the
+AGC).  Each kernel is timed with CUDA events over ``--reps`` launches after
+one warm-up; one JSON line per plane dtype, with the card's name and power
+limit.
+
+The script imports ``libsdr_tpu_torch`` from the path, so one call can time
+two trees in turns (say parent, change, change, parent) by running it with
+``PYTHONPATH`` set to each tree's root.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+import numpy as np
+import torch
+
+C, B, T, D = 64, 1 << 24, 67, 4
+
+
+def _ms(fn, reps: int) -> float:
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--planes", nargs="+", default=["f32", "bf16"],
+                    choices=["f32", "bf16"])
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import fir_fm as F
+    try:
+        from libsdr_tpu_torch.ops import fir_mxu as M
+    except ImportError:   # a tree from before K5/K6
+        M = None
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def cn(*shape):
+        return Complex(torch.randn(shape, generator=gen, device="cuda"),
+                       torch.randn(shape, generator=gen, device="cuda"))
+
+    taps = cn(T) * (1 / T ** 0.5)
+    x32 = cn(C, B)
+    prev = cn(C)
+    state = torch.full((C,), 0.5, device="cuda")
+    for plane in args.planes:
+        x = x32 if plane == "f32" else x32.to(torch.bfloat16)
+        tail = cn(C, T - 1).to(x.re.dtype)
+        calls = {
+            "K1a fir_fm_exact": lambda: F.fir_fm_exact(
+                x, taps, D, tail, prev, -1j, 1.0, (0.95, 0.05), state),
+            "K1b fir_exact": lambda: F.fir_exact(x, taps, D, tail),
+        }
+        if M is not None:
+            lead = Complex(prev.re[:, None], prev.im[:, None])
+            calls["K5 fir_offset"] = lambda: M.fir_offset(x, taps, D, 0, tail)
+            calls["K6 fir_fm_mxu fm"] = lambda: M.fir_fm_mxu(
+                x, taps, D, 1, lead, -1j, 1.0, (0.95, 0.05),
+                state[:, None])
+            lam = float(np.exp(-1.0 / (0.1 * 960e3 / D)))
+            calls["K6 fir_fm_mxu am"] = lambda: M.fir_fm_mxu(
+                x, taps, D, 1, lead, 1.0, 0.125, (lam, 1 - lam),
+                state[:, None], mode="am")
+        times = {name: _ms(fn, args.reps) for name, fn in calls.items()}
+        print(json.dumps({"planes": plane, "shape": [C, B, T, D],
+                          "ms": times, "card": smi}))
+        del x, tail
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

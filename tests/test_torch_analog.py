@@ -371,7 +371,7 @@ def test_carry_handoff_jax_port_jax(kind):
     _, ref = _run_jax(_jax_pipe(mk(jops, 64, 8), 4096, 3), blocks)
     jp = _jax_pipe(mk(jops, 64, 8), 4096, 3)
     jc, y0 = _run_jax(jp, blocks[:1])
-    pc = interop.state_from_numpy(jc)
+    pc = interop.state_from_numpy(jc, "cpu")
     assert _signature(pc) == _signature(jc)
     pc, y1 = _run_port(_port_pipe(mk(pops, 64, 8), 4096, 3), blocks[1:2], pc)
     jc = _to_jax(interop.state_to_numpy(pc))

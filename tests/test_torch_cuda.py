@@ -732,3 +732,180 @@ def test_wideband_apps_on_card_match_cpu(cuda):
     assert {ch: (mo, str(d)) for ch, (mo, d) in got.items()} == \
         {ch: (mo, str(d)) for ch, (mo, d) in want.items()}
     assert set(got) == set(active)
+
+
+# -- slice 5: the v1 FIR (K5) and its FM/AM epilogues (K6) -----------------
+
+def _fm_bank(gen, c, b, d, t, dtype, dev):
+    """(c, b) FM tones near FS/8 with noise, generated on the card, and a
+    T-tap band-pass around them with the rotation that takes their carrier
+    out of the discriminator: a constant envelope inside the pass band
+    keeps y away from 0 and the audio well inside (-pi, pi), where the two
+    versions' float32 round-off would turn into angle."""
+    from libsdr_tpu_torch.ops import firdesign
+
+    n = torch.arange(b, dtype=torch.float64, device=dev)
+    ch = torch.arange(c, dtype=torch.float64, device=dev)[:, None]
+    fc = FS / 8 + (ch % 7 - 3) * 0.01 * FS / d
+    fm = 1000.0 + 100.0 * (ch % 5)
+    ph = torch.remainder(2 * np.pi * fc / FS * n - 0.15 * FS / d / fm
+                         * torch.cos(2 * np.pi * fm / FS * n), 2 * np.pi)
+    x = Complex(torch.cos(ph).float(), torch.sin(ph).float())
+    x = x + _noise(gen, (c, b), torch.float32, dev) * 0.05
+    g = firdesign.complex_bandpass(t, FS / 8, min(FS / 4.8, 0.8 * FS / d), FS)
+    taps = Complex(torch.tensor(g.real, dtype=torch.float32, device=dev),
+                   torch.tensor(g.imag, dtype=torch.float32, device=dev))
+    return x.to(dtype), taps, np.exp(-2j * np.pi * d / 8)
+
+
+# (D, T): the staged kernel's strides in every mode, the warp kernel's in
+# modes fir/am (D > 16) and fm (D > 40), the rx app's 100 and 200
+MXU_SHAPES = [(2, 37), (4, 67), (16, 67), (40, 71), (100, 131), (200, 263)]
+
+
+def _mxu_cases():
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (d, t) in enumerate(MXU_SHAPES):
+            for j, s0 in enumerate(sorted({0, 1, max(0, d - 2), d - 1, d,
+                                           2 * d + 1})):
+                yield dtype, d, t, s0, (1, 3, 64)[(i + j) % 3]
+
+
+@pytest.mark.parametrize("dtype,d,t,s0,c", list(_mxu_cases()))
+def test_mxu_kernels_match_plain(cuda, dtype, d, t, s0, c):
+    """K5 and K6 (fm +- de-emphasis, am +- the AGC, with (lam, 1 - lam) and
+    with a b of its own) against their plain versions: every output, the
+    clamped last frame included, and the AGC's exported state; nonzero
+    y[-1] and IIR states; chunks K > 1 at every stride."""
+    from libsdr_tpu_torch.ops import fir_mxu as M
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(100 * d + s0)
+    b = 80 * 128 * d   # 10,240 outputs a channel
+    assert M.mxu_fir_supported(t, d, s0, c, b, dtype)
+    taps = Complex(torch.randn(t, generator=gen, device=cuda) / t ** 0.5,
+                   torch.randn(t, generator=gen, device=cuda) / t ** 0.5)
+    x = _noise(gen, (c, b), dtype, cuda)
+    n0 = M.fir_mxu.launches
+    (y, nsp), (ry, rnsp) = (M.fir_mxu(x, taps, d, s0),
+                            M.fir_mxu_plain(x, taps, d, s0))
+    assert M.fir_mxu.launches == n0 + 1 and nsp == rnsp == 128
+    err, bound = _mode_err(y, ry, False)
+    assert y.re.shape == (c, b // d) and err < bound, err
+    lead = Complex(torch.full((c, 1), 0.6, device=cuda),
+                   torch.full((c, 1), -0.8, device=cuda))
+    state = torch.full((c, 1), 0.4, device=cuda)
+    lam = float(np.exp(-1.0 / (0.1 * FS / d)))
+    fm, fm_taps, rot = _fm_bank(gen, c, b, d, t, dtype, cuda)
+    for mode, xin, g, ab, gain in (("fm", fm, fm_taps, None, 1.3),
+                                   ("fm", fm, fm_taps, (0.95, 0.05), 1.3),
+                                   ("am", x, taps, None, 1.0),
+                                   ("am", x, taps, (lam, 1 - lam), 0.125),
+                                   ("am", x, taps, (0.9, 0.2), 0.125)):
+        args = (xin, g, d, s0, lead, rot, gain, ab,
+                None if ab is None else state, mode)
+        n0 = M.fir_fm_mxu.launches
+        got, ref = M.fir_fm_mxu(*args), M.fir_fm_mxu_plain(*args)
+        torch.cuda.synchronize()
+        assert M.fir_fm_mxu.launches == n0 + 1 and len(got) == len(ref)
+        out, rout = got[0], ref[0]
+        assert out.shape == (c, b // d) and bool(torch.isfinite(out).all())
+        if mode == "fm":
+            assert float((out - rout).abs().max()) < ERR_BOUND, (mode, ab)
+        elif ab is None:
+            assert float((out - rout).abs().max()) / float(
+                rout.abs().max()) < 1e-5
+        else:
+            assert float((out - rout).abs().max()) < 1e-4, (mode, ab)
+            assert float(((got[1] - ref[1]) / ref[1]).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,t", [(2, 37), (4, 67), (40, 71), (200, 263)])
+def test_k5_at_k1b_window_start_is_k1b(cuda, dtype, d, t):
+    """K5 in its overlap-save form at offset stride - 1 starts K1b's windows
+    and gives K1b's output bit for bit."""
+    from libsdr_tpu_torch.ops import fir_mxu as M
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(d + t)
+    taps = Complex(torch.randn(t, generator=gen, device=cuda),
+                   torch.randn(t, generator=gen, device=cuda))
+    x = _noise(gen, (3, d * 9000), dtype, cuda)
+    tail = _noise(gen, (3, t - 1), dtype, cuda)
+    a, b = M.fir_offset(x, taps, d, d - 1, tail), F.fir_exact(x, taps, d,
+                                                               tail)
+    assert torch.equal(a.re, b.re) and torch.equal(a.im, b.im)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4, 9, 100])
+def test_fir_overlap_save_any_offset_launches_k5(cuda, offset, monkeypatch):
+    """On the card fir_overlap_save with offset != stride - 1 launches K5
+    once a block and no conv1d over the block, carry-chained over three
+    blocks; it matches the CPU's plain result."""
+    from libsdr_tpu_torch.ops import fir_mxu as M
+    from libsdr_tpu_torch.ops.fir import fir_overlap_save
+
+    convs = []
+    real_conv = torch.nn.functional.conv1d
+
+    def counted(*a, **kw):
+        convs.append(a[0].shape)
+        return real_conv(*a, **kw)
+
+    rng = np.random.default_rng(offset)
+    c, d, t, b = 64, 4, 67, 16384
+    g = rng.normal(size=t) + 1j * rng.normal(size=t)
+    tg = Complex(torch.zeros(c, t - 1, device=cuda),
+                 torch.zeros(c, t - 1, device=cuda))
+    tc = Complex(torch.zeros(c, t - 1), torch.zeros(c, t - 1))
+    for _ in range(3):
+        x = (rng.normal(size=(c, b)) + 1j * rng.normal(size=(c, b))
+             ).astype(np.complex64)
+        n0 = M.fir_mxu.launches
+        monkeypatch.setattr(torch.nn.functional, "conv1d", counted)
+        yg, tg = fir_overlap_save(g, Complex(torch.tensor(x.real, device=cuda),
+                                             torch.tensor(x.imag,
+                                                          device=cuda)),
+                                  tg, stride=d, offset=offset)
+        monkeypatch.setattr(torch.nn.functional, "conv1d", real_conv)
+        assert M.fir_mxu.launches == n0 + 1 and not convs
+        yc, tc = fir_overlap_save(g, Complex(torch.tensor(x.real),
+                                             torch.tensor(x.imag)),
+                                  tc, stride=d, offset=offset)
+        assert yg.re.shape == yc.re.shape == (c, (b - offset - 1) // d + 1)
+        scale = float(yc.abs().max())
+        assert float((yg.re.cpu() - yc.re).abs().max()) / scale < 1e-5
+        assert float((yg.im.cpu() - yc.im).abs().max()) / scale < 1e-5
+        assert torch.equal(tg.re.cpu(), tc.re)
+
+
+def test_mxu_entries_refuse_what_they_do_not_take(cuda):
+    """fir_mxu and fir_fm_mxu raise ValueError naming the gate outside it
+    and launch nothing: stride 1, a block that is not whole 128-output
+    frames, windows reaching past one frame, more taps than shared memory
+    holds, an unknown mode."""
+    from libsdr_tpu_torch.ops import fir_mxu as M
+
+    def planes(c, b):
+        return Complex(torch.zeros(c, b, device=cuda),
+                       torch.zeros(c, b, device=cuda))
+
+    def taps(t):
+        return Complex(torch.ones(t, device=cuda), torch.zeros(t, device=cuda))
+
+    lead = Complex(torch.ones(2, 1, device=cuda), torch.zeros(2, 1,
+                                                              device=cuda))
+    n0 = M.fir_mxu.launches, M.fir_fm_mxu.launches
+    for x, g, d, s0 in ((planes(2, 1024), taps(9), 1, 0),
+                        (planes(2, 1000), taps(9), 4, 0),
+                        (planes(2, 2048), taps(9), 4, 510),
+                        (planes(2, 128 * 64 * 2), taps(4000), 64, 0)):
+        with pytest.raises(ValueError, match="gate"):
+            M.fir_mxu(x, g, d, s0)
+        with pytest.raises(ValueError, match="gate"):
+            M.fir_fm_mxu(x, g, d, s0, lead, 1.0, 1.0)
+    with pytest.raises(ValueError, match="mode"):
+        M.fir_fm_mxu(planes(2, 1024), taps(9), 4, 0, lead, 1.0, 1.0,
+                     mode="usb")
+    assert (M.fir_mxu.launches, M.fir_fm_mxu.launches) == n0

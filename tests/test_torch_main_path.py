@@ -155,7 +155,7 @@ def test_handoff_jax_to_port(jax_fused):
     with kernel_mode("interpret"):
         jp = _jax_pipe(True)
         jcarry, _ = _run_jax(jp, [0])
-    carry = interop.state_from_numpy(jcarry)
+    carry = interop.state_from_numpy(jcarry, "cpu")
     assert _signature(carry) == _signature(jcarry)
     _, y = _run_port(_port_pipe(True), range(1, N_BLOCKS), carry)
     assert _snr_db(jax_fused[2][:, B // 4:], y) > SNR_MIN_DB
@@ -164,7 +164,7 @@ def test_handoff_jax_to_port(jax_fused):
 def test_handoff_port_to_jax(jax_fused):
     pcarry, _ = _run_port(_port_pipe(True), [0])
     host = interop.state_to_numpy(pcarry)
-    back = interop.state_from_numpy(host)
+    back = interop.state_from_numpy(host, "cpu")
     assert _signature(back) == _signature(pcarry)
 
     def to_jax(t):
