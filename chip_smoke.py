@@ -25,13 +25,24 @@ its own line; the first failure exits non-zero:
    am epilogues) against their plain versions over strides 2-200, taps
    17-263, window starts 0, 1, D-2, D-1, D and 2D+1, C 1/3/64, both plane
    dtypes, every output and the AGC's state, and K5 at K1b's window start
-   against K1b bit for bit;
+   against K1b bit for bit; the tensor-core route (``csrc/fir_tc.cu``, K1a
+   and K6 at strides 4-16, 4-40 with bf16 planes) against the split
+   emulation of its bf16 passes (``ops/fir_tc.py``) and, at 'high', the
+   float32 plain versions, over its strides, both plane dtypes, 'high'
+   and 'fast', de-emphasis
+   on/off, chunks K > 1 and three carry-chained blocks, K6 in fm and am
+   with and without the IIR; at the main path's shapes too (two channels
+   against the emulation), K1a timed in both precisions;
 4. drive the paths through the user's entry points, bind, compile and the
    step, on 64 channels x ~2^24 complex samples in float32 and bfloat16
-   planes, with each path's kernel launches counted from 0 and checked: the
+   planes, with each path's kernel launches counted from 0 and checked,
+   and each launch's route (tensor-core, staged or warp kernel): the
    main path ``Pipeline([IQBaseBand(order=64, decim=4), FMDemod(),
-   FMDeemph()])`` (K1a), the AM bank ``rx_stages("AM", 960e3)`` (K1c), the
-   USB bank ``rx_stages("USB", 960e3)`` (K1d) and the DDC bank
+   FMDeemph()])`` (K1a, on the tensor-core route; then 'fast' against
+   'high' through its chain, at least 70 dB SNR on the JAX gate's FM
+   tone), the AM
+   bank ``rx_stages("AM", 960e3)`` (K1c), the USB bank
+   ``rx_stages("USB", 960e3)`` (K1d) and the DDC bank
    ``[IQBaseBand(order=64, decim=4)]`` (K1b); each bank's kernel is also
    timed against its plain version at the bank's shapes; then the digital
    receive paths on message traffic (``libsdr_tpu_torch/tools/
@@ -86,6 +97,7 @@ FS = 960_000.0
 CHANNELS, BLOCK = 64, 1 << 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak
 FLOPS_F32 = 67e12          # float32 outside the tensor cores, the same
+FLOPS_BF16_TC = 989e12     # bf16 on the tensor cores, dense, the same
 # K1e against its plain version: disc relative to each channel's largest
 # |disc| (both compute y and the discriminator in float32 in two orders,
 # ~1e-6 relative, and sum each window oldest first); the carried products,
@@ -109,6 +121,23 @@ REL_BOUND = 1e-5
 # at full precision (lam itself does not fit float32: 1 - lam is 2.1e-5 at
 # 480 kHz), so they differ by float32 round-off over the chunk (~1e-6).
 AGC_BOUND = 1e-4
+# The tensor-core route (csrc/fir_tc.cu: K1a, K6) against the split
+# emulation of its arithmetic (ops/fir_tc.py, the same bf16 passes: 3 on
+# float32 planes, 2 on bfloat16, 1 after set_mxu_precision('fast')): the
+# same exact bf16 products summed in float32 in another order, ~1e-7 of
+# |y| apart, so FM audio within TC_SPLIT_FM rad and y, |y| and the AGC's
+# state within TC_SPLIT_REL of the largest; an indexing or carry fault
+# shows as errors of order 1.  Against the float32 plain versions the
+# route is held to the gates above: its three passes keep ~2^-16 of each
+# product (bf16 planes: two, the samples being exact), ~1e-5 of |y|, so
+# the FM audio stays within ERR_BOUND (1e-4 rad), K6 am within REL_BOUND
+# (the JAX test allows 1e-4 of max |y| for this arithmetic) and the AGC
+# within AGC_BOUND; 'fast' (one pass, ~2^-9 of each product) is held to
+# the split emulation only, and to FAST_SNR_DB against 'high'.
+TC_SPLIT_FM = 1e-5
+TC_SPLIT_REL = 2e-6
+# the JAX package's gate (tests/test_tpu_smoke.py, fast precision on chip)
+FAST_SNR_DB = 70.0
 PEAK_HZ = 10.0  # tone check: the peak within this of the tone
 # An app's WAV on the card against the same app on the CPU (plain
 # versions): the kernels' bound on the audio (AGC_BOUND, the wider of the
@@ -198,6 +227,7 @@ def next_carry(x, t, out, y_last, carry, deemph):
 
 def phase_parity(torch, L, gen):
     from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops.fir_fm import fir_fm_exact
 
     worst = {}
     # (D, T): the staged kernel's strides, the rx app's WFM stride at
@@ -217,6 +247,7 @@ def phase_parity(torch, L, gen):
                     check(op._t == t, f"tap count {op._t} != {t}")
                     carry = op.init_carry("cuda")
                     err = 0.0
+                    routes = dict(fir_fm_exact.routes)
                     # block 0 warms the carry up (the zero-history start
                     # is a transient of the test signal, not of the
                     # kernel); blocks 1-3 are compared, carry-chained
@@ -236,9 +267,12 @@ def phase_parity(torch, L, gen):
                         else:
                             ok_, yk = op_, yp
                         carry = next_carry(x, t, ok_, yk, carry, deemph)
+                    route = [r for r, n in fir_fm_exact.routes.items()
+                             if n > routes[r]]
                     name = f"{str(dtype)[6:]} D={d} T={t} C={c} " \
                            f"deemph={int(deemph)}"
-                    print(f"parity K1a {name}: max_abs_err={err:.3e}")
+                    print(f"parity K1a {name}: max_abs_err={err:.3e} "
+                          f"route {route}")
                     check(err < ERR_BOUND,
                           f"kernel vs plain {name}: {err} >= {ERR_BOUND}")
                     worst[dtype] = max(worst.get(dtype, 0.0), err)
@@ -346,16 +380,17 @@ def phase_modes(torch, gen):
     return worst
 
 
-def drive_path(torch, L, label, stages_fn, b, x32, out_len, entries):
+def drive_path(torch, L, label, stages_fn, b, x32, out_len, entries,
+               route):
     """A path through its entry points: bind, compile, one step, then three
     runs of 10 carry-chained steps for float32 and bfloat16 planes.  Every
     kernel's launch count is set to 0 before and read after, and must be
-    the path's own: 31 launches of its kernel per plane dtype.  Returns
+    the path's own: 31 launches of its kernel per plane dtype, every one on
+    ``route`` (the kernel that runs it: "tc", "staged" or "warp").  Returns
     {plane: (Msps, ms per step)} and the launches of the path's kernel."""
     from libsdr_tpu_torch.ops import fir_fm as F
 
-    for e in entries:
-        e.launches = 0
+    set_counts_zero(entries)
     res = {}
     for plane, plane_dtype, x in (("f32", None, x32),
                                   ("bf16", torch.bfloat16,
@@ -390,10 +425,14 @@ def drive_path(torch, L, label, stages_fn, b, x32, out_len, entries):
     counts = {e.__name__: e.launches for e in
               (F.fir_fm_exact, F.fir_exact, F.fir_am_exact,
                F.fir_usb_exact)}
-    print(f"phase 4 {label} kernel launches: {counts}")
     own = entries[0].__name__
+    print(f"phase 4 {label} kernel launches: {counts}, {own} by route "
+          f"{entries[0].routes}")
     check(counts[own] == 2 * (1 + 3 * 10), f"{label}: {own} launches "
           f"{counts[own]}")
+    check(entries[0].routes[route] == counts[own],
+          f"{label}: {own} launches not all on the {route} route: "
+          f"{entries[0].routes}")
     check(all(v == 0 for k, v in counts.items() if k != own),
           f"{label}: other kernels launched: {counts}")
     return res, counts[own]
@@ -461,7 +500,8 @@ def phase_banks(torch, L, gen, smi):
             smi)
         steps, launches = drive_path(
             torch, L, label, lambda mode=mode: rx_stages(mode, FS, FS / 8),
-            b, x32, n_out, [entry] + [e for e in entries if e is not entry])
+            b, x32, n_out, [entry] + [e for e in entries if e is not entry],
+            "warp")
         out[entry.__name__] = (res, steps, launches, d, b, op._t)
         del x32
         torch.cuda.empty_cache()
@@ -504,7 +544,8 @@ def phase_banks(torch, L, gen, smi):
           f"{lib_ms:.3f} ms | {smi}")
     steps, launches = drive_path(
         torch, L, "DDC bank", ddc, BLOCK, x32, BLOCK // 4,
-        [F.fir_exact] + [e for e in entries if e is not F.fir_exact])
+        [F.fir_exact] + [e for e in entries if e is not F.fir_exact],
+        "staged")
     out["fir_exact"] = (res, steps, launches, 4, BLOCK, t)
     out["library_fir_exact"] = lib_ms
     del x32
@@ -533,8 +574,7 @@ def phase_apps(tmp: Path):
     entries = (F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact)
 
     def run(main, args, expect):
-        for e in entries:
-            e.launches = 0
+        set_counts_zero(entries)
         out, ref = tmp / "out.wav", tmp / "ref.wav"
         main(args + ["-o", str(out), "--device", "cuda"])
         counts = {e.__name__: e.launches for e in entries}
@@ -623,6 +663,76 @@ def bound(nbytes, ops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / FLOPS_F32 * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def bound_tc(nbytes, tc_ops, f32_ops):
+    """bound() of a call on the tensor-core route: the bytes at the HBM
+    rate, or its operations, the FIR's products on the tensor cores at the
+    dense bf16 rate and the epilogue's on the CUDA cores at the float32
+    rate (two units that run at once), whichever takes longest."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(tc_ops / FLOPS_BF16_TC, f32_ops / FLOPS_F32) * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def phase_fast_snr(torch, L, x32, smi):
+    """set_mxu_precision('fast') against 'high' through the main path's
+    chain (IQBaseBand(order=64, decim=4) -> FMDemod -> FMDeemph, fused, on
+    the tc route), the JAX package's gate
+    (tests/test_tpu_smoke.py::test_fast_precision_mode_on_chip): its FM
+    signal, a 900 Hz tone at 75 kHz deviation on a 120 kHz carrier at
+    960 kHz, on 64 channels x 2^17, audio SNR at least FAST_SNR_DB on
+    channel 0.  Also printed, not held: the same on the main path's own
+    test signal x32 (FM tones with noise, where the audio has clicks at
+    outputs with |y| near 0 that one pass can move).  Returns the gate's
+    SNR."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import FMDeemph, FMDemod, IQBaseBand, siggen
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops.fir import set_mxu_precision
+
+    fs, n_ch, block = 960_000.0, 64, 1 << 17
+    audio = siggen.sine(fs, block + 4096, 900.0, amps=0.7)
+    iq = siggen.fm_modulate(fs, audio, deviation=75_000.0,
+                            carrier=120_000.0)[:block]
+    tone = Complex(torch.tensor(np.tile(iq.real[None], (n_ch, 1)),
+                                dtype=torch.float32, device="cuda"),
+                   torch.tensor(np.tile(iq.imag[None], (n_ch, 1)),
+                                dtype=torch.float32, device="cuda"))
+
+    def snr_db(x, stages, b):
+        rx = L.Pipeline(stages)
+        rx.bind(L.StreamSpec(np.complex64, fs, b, channels=(x.re.shape[0],)))
+        step = rx.compile()
+        c0 = rx.init_carry("cuda")
+        _, high = step(c0, x)
+        try:
+            set_mxu_precision("fast")
+            n0 = F.fir_fm_exact.routes["tc"]
+            _, fast = step(c0, x)
+            torch.cuda.synchronize()
+            check(F.fir_fm_exact.routes["tc"] == n0 + 1,
+                  "'fast' off the tc route")
+        finally:
+            set_mxu_precision("high")
+        p_err = ((high - fast).double() ** 2).mean(dim=1)
+        check(bool((p_err > 0).all()), "'fast' equals 'high'")
+        return 10 * torch.log10((high.double() ** 2).mean(dim=1) / p_err)
+
+    gate = float(snr_db(tone, [IQBaseBand(fc=120_000, width=200_000,
+                                          order=64, decim=4,
+                                          design="textbook"),
+                               FMDemod(), FMDeemph()], block)[0])
+    main = snr_db(x32, [IQBaseBand(fc=FS / 8, width=FS / 4.8, order=64,
+                                   decim=4, design="textbook"),
+                        FMDemod(), FMDeemph()], BLOCK)
+    print(f"phase 4 'fast' vs 'high' audio SNR through the main path's "
+          f"chain: {gate:.1f} dB on the JAX gate's tone (gate "
+          f"{FAST_SNR_DB:g} dB); on the main path's noisy test signal "
+          f"channel 0 {float(main[0]):.1f} dB, worst of {CHANNELS} "
+          f"{float(main.min()):.1f} dB (not held) | {smi}")
+    check(gate >= FAST_SNR_DB, f"'fast' SNR {gate} dB < {FAST_SNR_DB}")
+    return gate
 
 
 def afsk_op(L, d, ell, c, b, plane_dtype=None):
@@ -823,8 +933,11 @@ def counts_now(entries):
 
 
 def set_counts_zero(entries):
+    """Every entry's launch count to 0, and its counts by route."""
     for e in entries:
         e.launches = 0
+        if hasattr(e, "routes"):
+            e.routes = dict.fromkeys(e.routes, 0)
 
 
 def phase_p1(torch, L, gen, smi):
@@ -990,10 +1103,12 @@ def phase_p2(torch, L, gen, smi):
         best = min(best, time.perf_counter() - t0)
         counts = counts_now(entries)
         outs = ys
+    from libsdr_tpu_torch.ops import fir_fm as F
     check(counts["fir_fm_exact"] == nb and counts["pll"] == nb
           and all(v == 0 for k, v in counts.items()
-                  if k not in ("fir_fm_exact", "pll")),
-          f"P2 launches {counts}")
+                  if k not in ("fir_fm_exact", "pll"))
+          and F.fir_fm_exact.routes["tc"] == nb,
+          f"P2 launches {counts}, K1a routes {F.fir_fm_exact.routes}")
     t0 = time.perf_counter()
     chan_bits = compact(Ragged(
         np.concatenate([y.data.cpu().numpy() for y in outs], -1),
@@ -1691,6 +1806,175 @@ def phase_mxu_parity(torch, gen):
     return worst, cases
 
 
+# The tc route's strides (csrc/fir_common.cuh::tc_min_d, tc_max_d): K1a's
+# (D, T) with T = order + D - 1 (the P2 bank's D = 10, T = 41 among them),
+# K6's (D, T, s0, C), by plane dtype.
+TC_K1A_SHAPES = {"float32": ((4, 67), (5, 68), (8, 67), (10, 41), (16, 47)),
+                 "bfloat16": ((4, 67), (5, 68), (8, 67), (10, 41), (16, 47),
+                              (24, 55), (40, 71))}
+TC_K6_SHAPES = {"float32": ((4, 67, 1, 64), (4, 67, 0, 3), (4, 67, 4, 1),
+                            (8, 67, 9, 3), (16, 67, 9, 3)),
+                "bfloat16": ((4, 67, 1, 64), (4, 67, 0, 3), (8, 67, 9, 3),
+                             (16, 67, 9, 3), (40, 71, 1, 3))}
+
+
+def phase_tc_parity(torch, L, gen):
+    """The tensor-core route (csrc/fir_tc.cu) on the card: K1a (mode fm of
+    fir_fm_exact) at the route's strides (TC_K1A_SHAPES), float32 and
+    bfloat16 planes, de-emphasis on
+    and off, 'high' and 'fast', on 3 channels (64 at D = 4) of FM tones:
+    a warm block and three carry-chained blocks of 11,017 outputs (2 chunks
+    a channel, a ragged last tile), every output and y_last against the
+    split emulation (ops/fir_tc.py) within TC_SPLIT_FM / TC_SPLIT_REL, and
+    at 'high' against the plain version within ERR_BOUND; every launch on
+    the tc route.  Then K6 (fir_fm_mxu, TC_K6_SHAPES) at window starts 0-9
+    in fm with and
+    without de-emphasis and am with and without the AGC, the same way.
+    Returns the worst errors and the case count."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import fir_mxu as M
+    from libsdr_tpu_torch.ops import fir_tc as TC
+    from libsdr_tpu_torch.ops.fir import set_mxu_precision
+
+    worst = dict.fromkeys(("k1a split", "k1a plain", "k6 split",
+                           "k6 plain"), 0.0)
+    cases = 0
+    try:
+        for fast in (False, True):
+            set_mxu_precision("fast" if fast else "high")
+            for dtype in (torch.float32, torch.bfloat16):
+                passes = TC.passes_for(dtype, fast)
+                for d, t in TC_K1A_SHAPES[str(dtype)[6:]]:
+                    c = 64 if d == 4 else 3
+                    for deemph in (True, False):
+                        e_split, e_plain = phase_tc_k1a(
+                            torch, L, gen, d, t, c, dtype, deemph, passes)
+                        worst["k1a split"] = max(worst["k1a split"],
+                                                 e_split)
+                        worst["k1a plain"] = max(worst["k1a plain"],
+                                                 e_plain)
+                        cases += 1
+                        print(f"parity tc K1a {str(dtype)[6:]} D={d} T={t} "
+                              f"C={c} deemph={int(deemph)} passes={passes}"
+                              f": vs split {e_split:.3e} rad"
+                              + ("" if fast else
+                                 f", vs plain {e_plain:.3e} rad"))
+                for d, t, s0, c in TC_K6_SHAPES[str(dtype)[6:]]:
+                    b = 80 * 128 * d
+                    taps = Complex(
+                        torch.randn(t, generator=gen, device="cuda") / t ** 0.5,
+                        torch.randn(t, generator=gen, device="cuda") / t ** 0.5)
+                    x = noise(torch, gen, c, b, dtype)
+                    fm, fm_taps, rot = mxu_fm_bank(torch, gen, c, b, d, t,
+                                                   dtype)
+                    lead = Complex(torch.full((c, 1), 0.6, device="cuda"),
+                                   torch.full((c, 1), -0.8, device="cuda"))
+                    state = torch.full((c, 1), 0.4, device="cuda")
+                    lam = float(np.exp(-1.0 / (0.1 * FS / d)))
+                    line = []
+                    for mode, xin, g, ab, gain in (
+                            ("fm", fm, fm_taps, None, 1.3),
+                            ("fm", fm, fm_taps, (0.95, 0.05), 1.3),
+                            ("am", x, taps, None, 1.0),
+                            ("am", x, taps, (lam, 1 - lam), 0.125),
+                            ("am", x, taps, (0.9, 0.2), 0.125)):
+                        args = (xin, g, d, s0, lead, rot, gain, ab,
+                                None if ab is None else state, mode)
+                        n0 = M.fir_fm_mxu.routes["tc"]
+                        got = M.fir_fm_mxu(*args)
+                        emu = TC.fm_mxu_split(*args, passes=passes)
+                        torch.cuda.synchronize()
+                        check(M.fir_fm_mxu.routes["tc"] == n0 + 1,
+                              f"K6 {mode} D={d}: not on the tc route")
+                        es = k6_split_err(torch, got, emu, mode, ab)
+                        check(es < (TC_SPLIT_FM if mode == "fm"
+                                    else TC_SPLIT_REL),
+                              f"tc K6 {mode} ab={ab} {dtype} D={d} T={t} "
+                              f"s0={s0} passes={passes} vs split: {es}")
+                        worst["k6 split"] = max(worst["k6 split"], es)
+                        ep = 0.0
+                        if not fast:
+                            ref = M.fir_fm_mxu_plain(*args)
+                            ep, bnd = k6_errs(torch, got, ref, mode,
+                                              ab is not None)
+                            check(ep < bnd, f"tc K6 {mode} ab={ab} {dtype} "
+                                            f"D={d} vs plain: {ep}")
+                            worst["k6 plain"] = max(worst["k6 plain"], ep)
+                        line.append(f"{mode}{'+iir' if ab else ''} "
+                                    f"{es:.1e}/{ep:.1e}")
+                        cases += 1
+                    print(f"parity tc K6 {str(dtype)[6:]} D={d} T={t} "
+                          f"s0={s0} C={c} passes={passes} (vs split / vs "
+                          f"plain): " + ", ".join(line))
+                    del x, fm
+    finally:
+        set_mxu_precision("high")
+    return worst, cases
+
+
+def phase_tc_k1a(torch, L, gen, d, t, c, dtype, deemph, passes):
+    """One K1a case of phase_tc_parity: (worst error vs split, vs plain;
+    0 for 'fast', which is held to the split emulation only)."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops import fir_tc as TC
+    from libsdr_tpu_torch.ops.fir_fm import fir_fm_exact_plain
+
+    b = d * (5 * 2048 + 777)
+    op = fused_op(L, d, t - d + 1, c, b, dtype).stages[0]
+    carry = op.init_carry("cuda")
+    e_split = e_plain = 0.0
+    for k in range(4):
+        xr, xi = fm_signal(torch, gen, c, b, d, "cuda", k * b)
+        x = Complex(xr.to(dtype), xi.to(dtype))
+        args = (x, op._taps(x.device), d, carry[0], carry[1], op._rot,
+                op._gain)
+        kw = dict(deemph_ab=op._dab if deemph else None,
+                  dstate=carry[2] if deemph else None)
+        emu, y_emu = TC.fm_exact_split(*args, **kw, passes=passes)
+        if k == 0:
+            out, y_last = emu, y_emu
+        else:
+            n0 = F.fir_fm_exact.routes["tc"]
+            out, y_last = F.fir_fm_exact(*args, **kw)
+            torch.cuda.synchronize()
+            check(F.fir_fm_exact.routes["tc"] == n0 + 1,
+                  f"K1a D={d} T={t}: not on the tc route")
+            check(bool(torch.isfinite(out).all()), "tc K1a not finite")
+            scale = float(torch.maximum(y_emu.re.abs().max(),
+                                        y_emu.im.abs().max()))
+            ey = max(float((y_last.re - y_emu.re).abs().max()),
+                     float((y_last.im - y_emu.im).abs().max())) / scale
+            es = float((out - emu).abs().max())
+            name = f"{dtype} D={d} T={t} C={c} deemph={int(deemph)} " \
+                   f"passes={passes}"
+            check(es < TC_SPLIT_FM and ey < TC_SPLIT_REL,
+                  f"tc K1a vs split {name}: {es} rad, y_last {ey}")
+            e_split = max(e_split, es)
+            if passes > 1:
+                ref, y_ref = fir_fm_exact_plain(*args, **kw)
+                ep = max(float((out - ref).abs().max()),
+                         float((y_last.re - y_ref.re).abs().max()),
+                         float((y_last.im - y_ref.im).abs().max()))
+                check(ep < ERR_BOUND, f"tc K1a vs plain {name}: {ep}")
+                e_plain = max(e_plain, ep)
+        carry = next_carry(x, t, out, y_last, carry, deemph)
+    return e_split, e_plain
+
+
+def k6_split_err(torch, got, emu, mode, ab):
+    """K6 on the tc route against the split emulation: fm absolute in rad,
+    am relative to the largest output, the AGC's state relative."""
+    out, eout = got[0], emu[0]
+    check(bool(torch.isfinite(out).all()), f"tc K6 {mode} not finite")
+    if mode == "fm":
+        return float((out - eout).abs().max())
+    e = float((out - eout).abs().max()) / float(eout.abs().max())
+    if ab is not None:
+        e = max(e, float(((got[1] - emu[1]) / emu[1]).abs().max()))
+    return e
+
+
 def f1_taps(torch, L):
     """The DDC bank's T = 67 taps (IQBaseBand(order=64, decim=4)) as float32
     planes on the card."""
@@ -1843,8 +2127,10 @@ def phase_k6(torch, L, gen, smi):
             ms_step = best / 10 * 1e3
             counts = counts_now(entries)
             check(counts["fir_fm_mxu"] == 1 + 3 * 10 and all(
-                v == 0 for k, v in counts.items() if k != "fir_fm_mxu"),
-                f"K6 {mode} {plane} launches {counts}")
+                v == 0 for k, v in counts.items() if k != "fir_fm_mxu")
+                and M.fir_fm_mxu.routes["tc"] == counts["fir_fm_mxu"],
+                f"K6 {mode} {plane} launches {counts}, routes "
+                f"{M.fir_fm_mxu.routes}")
             launches += counts["fir_fm_mxu"]
             ref = M.fir_fm_mxu_plain(*args)
             torch.cuda.synchronize()
@@ -1854,9 +2140,12 @@ def phase_k6(torch, L, gen, smi):
             ms = cuda_ms(torch, lambda: M.fir_fm_mxu(*args), 5)
             plain_ms = cuda_ms(torch, lambda: M.fir_fm_mxu_plain(*args), 2)
             # bytes: the planes read once, the float32 audio written once;
-            # operations an output: the FIR's 8T and the epilogue's ~50
-            b_ms, b_by = bound(c * (2 * x.re.element_size() * b + 4 * n),
-                               c * n * (8 * F1_T + 50))
+            # operations an output: the FIR's 8T in the tc route's passes
+            # on the tensor cores, the epilogue's ~50 (fm) or ~5 (am)
+            passes = 3 if plane == "f32" else 2
+            b_ms, b_by = bound_tc(c * (2 * x.re.element_size() * b + 4 * n),
+                                  c * n * passes * 8 * F1_T,
+                                  c * n * (50 if mode == "fm" else 5))
             res[(mode, plane)] = dict(ms_step=ms_step, err=e, ms=ms,
                                       plain_ms=plain_ms, bound=(b_ms, b_by))
             print(f"phase K6 {mode} {plane} planes ({c}x{b}, T={F1_T}, "
@@ -1990,8 +2279,20 @@ def main() -> int:
     phase_pll_parity(torch)
     k4_worst, k4_cases = phase_k4_parity(torch, gen)
     mxu_worst, mxu_cases = phase_mxu_parity(torch, gen)
+    tc_worst, tc_cases = phase_tc_parity(torch, L, gen)
+    print(f"phase 3 parity tc route (csrc/fir_tc.cu): {tc_cases} cases, "
+          f"worst K1a {tc_worst['k1a split']:.3e} rad vs split (bound "
+          f"{TC_SPLIT_FM:g}), {tc_worst['k1a plain']:.3e} rad vs plain "
+          f"(bound {ERR_BOUND:g}); K6 {tc_worst['k6 split']:.3e} vs split "
+          f"(bounds {TC_SPLIT_FM:g} rad fm, {TC_SPLIT_REL:g} am), "
+          f"{tc_worst['k6 plain']:.3e} vs plain (bounds {ERR_BOUND:g} rad "
+          f"fm, {REL_BOUND:g} am, {AGC_BOUND:g} AGC)")
 
-    # Kernel vs plain at the main path's shapes, timed with CUDA events.
+    # Kernel vs plain at the main path's shapes, timed with CUDA events,
+    # and on two channels against the split emulation of the tc route, at
+    # 'high' and at 'fast'.
+    from libsdr_tpu_torch.ops import fir_tc as TC
+    from libsdr_tpu_torch.ops.fir import set_mxu_precision
     rx = fused_op(L, 4, 64, CHANNELS, BLOCK)
     op = rx.stages[0]
     xr, xi = fm_signal(torch, gen, CHANNELS, BLOCK, 4, "cuda")
@@ -2002,19 +2303,45 @@ def main() -> int:
         _, (o0, y0) = run_pair(op, x, op.init_carry("cuda"), True)
         carry = next_carry(x, op._t, o0, y0, None, True)
         del o0
+        n0 = fir_fm_exact.routes["tc"]
         (ok_, _), (op_, _) = run_pair(op, x, carry, True)
+        check(fir_fm_exact.routes["tc"] == n0 + 1, "main shape off tc")
         err = float((ok_ - op_).abs().max())
         del op_
         check(err < ERR_BOUND, f"main-shape kernel vs plain {label}: {err}")
         args = (x, op._taps(x.device), 4, carry[0], carry[1], op._rot,
                 op._gain)
         kw = dict(deemph_ab=op._dab, dstate=carry[2])
+        two = (x[:2], args[1], 4, carry[0][:2], carry[1][:2], op._rot,
+               op._gain)
+        kw2 = dict(deemph_ab=op._dab, dstate=carry[2][:2])
+        e_split = {}
+        for fast in (False, True):
+            passes = TC.passes_for(x.re.dtype, fast)
+            try:
+                set_mxu_precision("fast" if fast else "high")
+                got = fir_fm_exact(*args, **kw)[0][:2]
+                emu = TC.fm_exact_split(*two, **kw2, passes=passes)[0]
+                torch.cuda.synchronize()
+                e_split[passes] = float((got - emu).abs().max())
+                if fast:
+                    fast_ms = cuda_ms(torch, lambda: fir_fm_exact(*args,
+                                                                  **kw), 5)
+            finally:
+                set_mxu_precision("high")
+            del got, emu
+            check(e_split[passes] < TC_SPLIT_FM,
+                  f"main-shape {label} {passes} passes vs split: "
+                  f"{e_split[passes]}")
         ms = cuda_ms(torch, lambda: fir_fm_exact(*args, **kw), 5)
         plain_ms = cuda_ms(torch, lambda: fir_fm_exact_plain(*args, **kw), 2)
-        main[label] = (err, ms, plain_ms)
-        print(f"phase 3 main shape {label} ({CHANNELS}x{BLOCK}, T=67, D=4): "
-              f"max_abs_err={err:.3e} kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms | {smi}")
+        main[label] = (err, ms, plain_ms, e_split, fast_ms)
+        print(f"phase 3 main shape {label} ({CHANNELS}x{BLOCK}, T=67, D=4, "
+              f"tc route): max_abs_err={err:.3e} rad vs plain (bound "
+              f"{ERR_BOUND:g}), vs split on 2 channels "
+              + ", ".join(f"{p} passes {e:.3e}" for p, e in e_split.items())
+              + f" rad (bound {TC_SPLIT_FM:g}); kernel {ms:.3f} ms "
+              f"('fast' {fast_ms:.3f}), plain {plain_ms:.3f} ms | {smi}")
     torch.cuda.synchronize()
 
     # Phase 4: the main path through the user's entry points, then the
@@ -2025,7 +2352,9 @@ def main() -> int:
         lambda: [IQBaseBand(fc=FS / 8, width=FS / 4.8, order=64, decim=4,
                             design="textbook"), FMDemod(), FMDeemph()],
         BLOCK, x32, BLOCK // 4,
-        [F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact])
+        [F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact],
+        "tc")
+    fast_snr = phase_fast_snr(torch, L, x32, smi)
     del x32, xr, xi
     torch.cuda.empty_cache()
     banks = phase_banks(torch, L, gen, smi)
@@ -2069,12 +2398,28 @@ def main() -> int:
     # bytes (planes read once, outputs written once) and float32 operations
     # (an FMA counts two; the FIR's 8T per output, the discriminator and
     # the epilogues a few tens).
+    # K1a on the tc route: its FIR's 8T operations an output in its three
+    # bf16 passes on the tensor cores, the discriminator and de-emphasis's
+    # ~50 on the CUDA cores; the bytes as before.
     n_main = BLOCK // 4
-    err, ms, plain_ms = main["f32"]
-    b_ms, b_by = bound(CHANNELS * (8 * BLOCK + 4 * n_main),
-                       CHANNELS * n_main * (8 * 67 + 50))
+    err, ms, plain_ms, _, _ = main["f32"]
+    b_ms, b_by = bound_tc(CHANNELS * (8 * BLOCK + 4 * n_main),
+                          CHANNELS * n_main * 3 * 8 * 67,
+                          CHANNELS * n_main * 50)
+    plan = TC.tc_plan(67, 4, 4, 3)
+    for label, isz, passes in (("f32", 4, 3), ("bf16", 2, 2)):
+        nb = CHANNELS * (2 * isz * BLOCK + 4 * n_main)
+        run_ops = CHANNELS * n_main * TC.mma_ops(67, 4, plan, passes)
+        print(f"bound K1a tc route {label} planes: bytes "
+              f"{nb / HBM_BYTES_PER_S * 1e3:.3f} ms; tensor cores "
+              f"{CHANNELS * n_main * passes * 8 * 67 / FLOPS_BF16_TC * 1e3:.3f}"
+              f" ms dense ({passes} passes of 8T), "
+              f"{run_ops / FLOPS_BF16_TC * 1e3:.3f} ms as run (the band's "
+              f"m16n8k16 tiles, S={plan.S}); epilogue "
+              f"{CHANNELS * n_main * 50 / FLOPS_F32 * 1e3:.3f} ms; kernel "
+              f"{main[label][1]:.3f} ms")
     record = [dict(name="fir_fm_exact", route="cuda",
-                   source="libsdr_tpu_torch/csrc/fir_fm_exact.cu",
+                   source="libsdr_tpu_torch/csrc/fir_tc.cu",
                    replaces="libsdr_tpu/ops/pallas_fir_mxu.py:777",
                    launches=launches, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -2134,17 +2479,26 @@ def main() -> int:
             bound_by=b_by, library_ms=lib_ms))
     # K5 at F1 (offset 0, float32 planes; library: the strided conv1d over
     # concat(tail, x)); K6 at full width in fm with de-emphasis
-    for name, line, res, launches, lib_ms in (
+    for name, line, res, launches, lib_ms, src in (
             ("fir_mxu", 204, f1[(0, "f32")], f1_launches,
-             f1[(0, "f32")]["lib_ms"]),
-            ("fir_fm_mxu", 410, k6[("fm", "f32")], k6_launches, None)):
+             f1[(0, "f32")]["lib_ms"], "fir_fm_exact.cu"),
+            ("fir_fm_mxu", 410, k6[("fm", "f32")], k6_launches, None,
+             "fir_tc.cu")):
         record.append(dict(
             name=name, route="cuda",
-            source="libsdr_tpu_torch/csrc/fir_fm_exact.cu",
+            source=f"libsdr_tpu_torch/csrc/{src}",
             replaces=f"libsdr_tpu/ops/pallas_fir_mxu.py:{line}",
             launches=launches, max_abs_err=res["err"], ms=res["ms"],
             plain_ms=res["plain_ms"], bound_ms=res["bound"][0],
             bound_by=res["bound"][1], library_ms=lib_ms))
+    print(f"tc route ({tc_cases} parity cases): K1a at the "
+          f"main shape {main['f32'][1]:.3f} / {main['bf16'][1]:.3f} ms (f32 "
+          f"/ bf16 planes; 'fast' {main['f32'][4]:.3f} / "
+          f"{main['bf16'][4]:.3f}), K6 fm "
+          f"{k6[('fm', 'f32')]['ms']:.3f} / {k6[('fm', 'bf16')]['ms']:.3f}"
+          f", am + AGC {k6[('am', 'f32')]['ms']:.3f} / "
+          f"{k6[('am', 'bf16')]['ms']:.3f} ms; 'fast' vs 'high' "
+          f"{fast_snr:.1f} dB")
     print(f"slice 5: K5/K6 parity {mxu_cases} cases (worst K5 "
           f"{mxu_worst['fir_mxu']:.2e}, K6 fm {mxu_worst['fm']:.2e} rad); F1 "
           + ", ".join(f"offset {o} {p} {r['ms_step']:.3f}"

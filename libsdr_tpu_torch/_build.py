@@ -111,7 +111,7 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         f32, f32, f32,       # rot_r, rot_i, gain
         f64, f64, i32,       # a, b, iir (de-emphasis or AGC)
         p, i32,              # afsk: 13 operand pointers, window L
-        i32, p]              # bf16 planes, stream
+        i32, i32, p]         # fast (one bf16 pass), bf16 planes, stream
     lib.sdr_fir_exact.restype = i32
     lib.sdr_fir_mxu.argtypes = [
         p, p, p, p,          # xr, xi, tail_r, tail_i
@@ -129,7 +129,7 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         i64, i32, i32,       # window start s0, K, K_agc
         f32, f32, f32,       # rot_r, rot_i, gain
         f64, f64, i32,       # a, b, iir (de-emphasis or AGC)
-        i32, p]              # bf16 planes, stream
+        i32, i32, p]         # fast (one bf16 pass), bf16 planes, stream
     lib.sdr_fir_fm_mxu.restype = i32
     lib.sdr_pll.argtypes = [
         p, p, p, p, p, p,    # sym, signs, ss_in, ph_in, om_in, lb_in
@@ -149,9 +149,14 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         i64, i64, i32, i32,  # C, F, M, P
         f32, i32, i32, p]    # gain, demod, bf16 planes, stream
     lib.sdr_pfb.restype = i32
-    # mode, C, n_out, T, D, L, bf16 planes
-    lib.sdr_fir_chunks.argtypes = [i32, i64, i64, i32, i32, i32, i32]
+    # mode, tensor-core mode of the entry, C, n_out, T, D, L, bf16 planes,
+    # fast, the route (out)
+    lib.sdr_fir_chunks.argtypes = [i32, i32, i64, i64, i32, i32, i32, i32,
+                                   i32, p]
     lib.sdr_fir_chunks.restype = i32
+    # T, D, bf16 planes, fast, the plan (out, 8 ints)
+    lib.sdr_fir_tc_plan.argtypes = [i32, i32, i32, i32, p]
+    lib.sdr_fir_tc_plan.restype = i32
     lib.sdr_agc_chunks.argtypes = [i64, i64]
     lib.sdr_agc_chunks.restype = i32
     lib.sdr_cuda_error_string.argtypes = [i32]

@@ -69,6 +69,37 @@ inline int staged_max_d(int mode) {
 #endif
 }
 
+// The strides that take the tensor-core kernel (fir_tc.cu) in the modes
+// and entries that have it (kFm of K1 and K6, kAm of K6): tc_min_d() up to
+// tc_max_d(bf16), by plane dtype.  Set from the three kernels timed in
+// mode fm at D = 2..40 on an H100 (libsdr_tpu_torch/tools/fir_paths.py,
+// PERF.md): with bfloat16 planes it is the fastest at every stride from 4
+// to 40; with float32 planes, whose three passes and hi/lo conversion cost
+// it more, it ties or wins from 4 to 16 and loses above; below 4 the
+// staged kernel's outputs are cheaper than its per-output epilogue and
+// MMAs.  The comparison builds set SDR_TC_MAX_D for both dtypes (0: no
+// stride on it; a large value: every stride from 1 whose plan fits).
+inline int tc_min_d() {
+#ifdef SDR_TC_MAX_D
+  return 1;
+#else
+  return 4;
+#endif
+}
+
+inline int tc_max_d(int bf16) {
+#ifdef SDR_TC_MAX_D
+  (void)bf16;
+  return SDR_TC_MAX_D;
+#else
+  return bf16 ? 40 : 16;
+#endif
+}
+
+// Which kernel runs a launch: the staged kernel, the warp kernel, or the
+// tensor-core kernel.
+enum Route { kRouteStaged = 0, kRouteWarp = 1, kRouteTc = 2 };
+
 struct Params {
   const void* xr;
   const void* xi;
@@ -166,11 +197,14 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 }
 
 // Full-quadrant atan2 from an odd minimax polynomial, |err| < 2e-5 rad; the
-// same polynomial as the plain version (ops/fir_fm.py::atan2_poly).
+// same polynomial as the plain version (ops/fir_fm.py::atan2_poly).  FAST:
+// the ratio from the fast division (2 ulp, ~1e-7 rad; fir_tc.cu).
+template <bool FAST = false>
 __device__ __forceinline__ float atan2_poly(float y, float x) {
   const float ax = fabsf(x), ay = fabsf(y);
   const float mx = fmaxf(ax, ay), mn = fminf(ax, ay);
-  const float t = mn / fmaxf(mx, 1e-30f);
+  const float t = FAST ? __fdividef(mn, fmaxf(mx, 1e-30f))
+                       : mn / fmaxf(mx, 1e-30f);
   const float s = t * t;
   float p = -0.0117212f;
   p = p * s + 0.05265332f;
@@ -183,6 +217,142 @@ __device__ __forceinline__ float atan2_poly(float y, float x) {
   if (x < 0.f) r = 3.14159265358979324f - r;
   return y < 0.f ? -r : r;
 }
+
+// kFm's audio of one output y from y[j-1] = (pr, pi):
+// gain * atan2poly(y conj(y[j-1]) rot).
+template <bool FAST = false>
+__device__ __forceinline__ float fm_audio(float yr, float yi, float pr,
+                                          float pi, const Params& p) {
+  const float zr = yr * pr + yi * pi;
+  const float zi = yi * pr - yr * pi;
+  const float zr2 = zr * p.rot_r - zi * p.rot_i;
+  const float zi2 = zr * p.rot_i + zi * p.rot_r;
+  return p.gain * atan2_poly<FAST>(zi2, zr2);
+}
+
+// x*g as the FIR computes it: in float32 (P = 0, the staged and warp
+// kernels), or in the tensor-core kernel's P bf16 passes (x_hi*g_hi,
+// + x_hi*g_lo, + x_lo*g_hi; fir_tc.cu), the products its MMAs sum.
+template <int P>
+__device__ __forceinline__ float split_mul(float x, float g) {
+  if constexpr (P == 0) {
+    return x * g;
+  } else {
+    const float xh = __bfloat162float(__float2bfloat16_rn(x));
+    const float gh = __bfloat162float(__float2bfloat16_rn(g));
+    float r = xh * gh;
+    if constexpr (P >= 2) {
+      r += xh * __bfloat162float(__float2bfloat16_rn(g - gh));
+    }
+    if constexpr (P == 3) {
+      r += __bfloat162float(__float2bfloat16_rn(x - xh)) * gh;
+    }
+    return r;
+  }
+}
+
+// y at window start w0 (any index of sample_at's), summed by one warp in
+// split_mul<P>'s arithmetic: a later chunk's y[j_begin - 1], which lies in
+// the chunk before it.  (The tensor-core kernel's one pass in float32
+// would put the chunk's first output ~1e-4 rad off its own arithmetic.)
+template <int P, typename Tin>
+__device__ float2 warp_y_at(const Tin* xr, const Tin* xi, const Tin* tr,
+                            const Tin* ti, long long w0, const Params& p,
+                            int lane) {
+  float ar = 0.f, ai = 0.f;
+  for (int i = lane; i < p.T; i += 32) {
+    const long long n = w0 + i;
+    const float vr = to_f32(sample_at(xr, tr, n, p));
+    const float vi = to_f32(sample_at(xi, ti, n, p));
+    const float gr = p.taps_r[i], gi = p.taps_i[i];
+    ar += split_mul<P>(vr, gr) - split_mul<P>(vi, gi);
+    ai += split_mul<P>(vi, gr) + split_mul<P>(vr, gi);
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    ar += __shfl_xor_sync(0xffffffffu, ar, off);
+    ai += __shfl_xor_sync(0xffffffffu, ai, off);
+  }
+  return make_float2(ar, ai);
+}
+
+// The de-emphasis out[j] = a*out[j-1] + b*audio[j] over a segment of
+// kThreads*R consecutive outputs, R to a thread in order, as a chunked
+// scan: a per-thread pass from state 0, a scan of the thread ends over the
+// warp with shuffles, a pass over the warp totals (from the state before
+// the segment, *state, which it leaves as the state after the segment's
+// last slot): one thread's loop, or with WARP_PREFIX the same scan in warp
+// 0 (fir_tc.cu; the staged kernel keeps the loop, measured faster there),
+// and the fix-up out += a^(r+1) * state_in.  Every thread of the block
+// calls it (two barriers); loc holds the audio and gets the output.
+template <int R>
+struct DeemphScan {
+  float a, b, aR, a_lane, a32;
+
+  __device__ DeemphScan(float a_, float b_, int lane) : a(a_), b(b_) {
+    aR = 1.f;
+    for (int r = 0; r < R; ++r) aR *= a;
+    a_lane = 1.f;
+    for (int q = 0; q < lane; ++q) a_lane *= aR;
+    a32 = 1.f;
+    for (int q = 0; q < 32; ++q) a32 *= aR;
+  }
+
+  template <bool WARP_PREFIX = false>
+  __device__ __forceinline__ void run(float (&loc)[R], float* s_wtot,
+                                      float* s_wpre, float* state, int lane,
+                                      int warp) const {
+    float l = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      l = a * l + b * loc[r];
+      loc[r] = l;
+    }
+    // Inclusive scan of S_t = sum_{u<=t} A^(t-u) l_u over the warp.
+    float S = l, m = aR;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, S, off);
+      if (lane >= off) S = fmaf(m, v, S);
+      m *= m;
+    }
+    float Sx = __shfl_up_sync(0xffffffffu, S, 1);
+    if (lane == 0) Sx = 0.f;
+    if (lane == 31) s_wtot[warp] = S;
+    __syncthreads();
+    if (WARP_PREFIX && warp == 0) {
+      // the warps' entry states: the same scan over the kWarps totals
+      // (powers A32 = a^(32R)), from the state before the segment
+      const float t = lane < kWarps ? s_wtot[lane] : 0.f;
+      float W = t, mw = a32, aw = 1.f;
+#pragma unroll
+      for (int off = 1; off < kWarps; off <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, W, off);
+        if (lane >= off) W = fmaf(mw, v, W);
+        if (lane & off) aw *= mw;  // A32^lane
+        mw *= mw;
+      }
+      const float P0 = *state;
+      const float Wx = __shfl_up_sync(0xffffffffu, W, 1);
+      if (lane < kWarps) s_wpre[lane] = fmaf(aw, P0, lane ? Wx : 0.f);
+      if (lane == kWarps - 1) *state = fmaf(aw * a32, P0, W);
+    } else if (!WARP_PREFIX && warp == 0 && lane == 0) {
+      float P = *state;
+      for (int w = 0; w < kWarps; ++w) {
+        s_wpre[w] = P;
+        P = fmaf(a32, P, s_wtot[w]);
+      }
+      *state = P;
+    }
+    __syncthreads();
+    const float s_in = fmaf(a_lane, s_wpre[warp], Sx);
+    float ap = a;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      loc[r] = fmaf(ap, s_in, loc[r]);
+      ap *= a;
+    }
+  }
+};
 
 // The USB mode's sample: (re + im)/2 of y * (a0 * ramp[j]).
 __device__ __forceinline__ float usb_sig(float yr, float yi, float ar,
@@ -207,6 +377,21 @@ int warp_chunks(int mode, long long C, long long n_out, int T, int D, int L,
                 int bf16, int smem_max, int sms);
 int warp_launch(int mode, const Params& p, long long C, int bf16,
                 cudaStream_t stream, int smem_max);
+
+// The de-emphasis across chunks after a launch with K > 1 chunks (kFm;
+// fir_fm_exact.cu): every chunk but the first ran from state 0, and
+// p.ends holds each chunk's last output.
+int deemph_chunks_launch(const Params& p, long long C, cudaStream_t stream);
+
+// The tensor-core kernel (fir_tc.cu) for kFm and K6's kAm: whether a plan
+// of it fits the card's shared memory at this shape (passes: 1 for 'fast',
+// else 3 for float32 planes and 2 for bfloat16), the chunks per channel
+// for C channels (-2 - cudaError_t on a failed query), and the launch.
+bool tc_fits(int T, int D, int bf16, int fast, int smem_max, int smem_sm);
+int tc_chunks(int mode, long long C, long long n_out, int T, int D, int bf16,
+              int fast, int smem_max, int smem_sm, int sms);
+int tc_launch(int mode, const Params& p, long long C, int bf16, int fast,
+              cudaStream_t stream, int smem_max, int smem_sm);
 
 // The AGC of kAm / kUsb over out (C, n_out) in place (agc.cu): chunk ends
 // from state 0, a scan of them from sd_in, then out = gain*sig/sd; sd_out

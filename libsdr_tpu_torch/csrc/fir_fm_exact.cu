@@ -34,10 +34,12 @@
 // 67 TFLOP/s f32 the two bounds are close at D = 4, so neither can be
 // ignored; at the rx app's strides (D >= 40, T/D < 2) HBM bounds it.
 //
-// Two kernels share the work by stride.  Strides up to staged_max_d(mode)
-// (fir_common.cuh) take the staged kernel below; larger ones the warp
-// kernel of fir_warp.cu, which stages a few windows per warp instead of D
-// polyphase rows per block.
+// Three kernels share the work by shape (route_of below): mode kFm of K1
+// and K6, and kAm of K6, take the tensor-core kernel of fir_tc.cu at the
+// strides of its cut (fir_common.cuh: tc_min_d, tc_max_d); every other
+// launch takes the staged kernel below at strides up to staged_max_d(mode)
+// and the warp kernel of fir_warp.cu above, which stages a few windows per
+// warp instead of D polyphase rows per block.
 //
 // Design of the staged kernel:
 // * Each channel's B/D outputs are cut into K chunks, K from the occupancy
@@ -185,23 +187,11 @@ fir_fm_exact_kernel(const Params p) {
     } else if (warp == 0) {
       // A later chunk starts from y[j_begin - 1], recomputed here, and from
       // de-emphasis state 0 (deemph_chunk_fixup adds the true state later).
-      const long long w0 = (j_begin - 1) * D + p.s0;
-      float ar = 0.f, ai = 0.f;
-      for (int i = lane; i < T; i += 32) {
-        const long long n = w0 + i;
-        const float vr = to_f32(sample_at(xr, tr, n, p));
-        const float vi = to_f32(sample_at(xi, ti, n, p));
-        const float gr = p.taps_r[i], gi = p.taps_i[i];
-        ar += gr * vr - gi * vi;
-        ai += gr * vi + gi * vr;
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        ar += __shfl_xor_sync(0xffffffffu, ar, off);
-        ai += __shfl_xor_sync(0xffffffffu, ai, off);
-      }
+      const float2 y =
+          warp_y_at<0>(xr, xi, tr, ti, (j_begin - 1) * D + p.s0, p, lane);
       if (lane == 0) {
-        s_state[0] = ar;
-        s_state[1] = ai;
+        s_state[0] = y.x;
+        s_state[1] = y.y;
         s_state[2] = 0.f;
       }
     }
@@ -221,14 +211,7 @@ fir_fm_exact_kernel(const Params p) {
                  : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  // De-emphasis scan constants: A = a^R per thread.
-  const float a = p.a, bco = p.b;
-  float aR = 1.f;
-  for (int r = 0; r < R; ++r) aR *= a;
-  float a_lane = 1.f;
-  for (int q = 0; q < lane; ++q) a_lane *= aR;
-  float a32 = 1.f;
-  for (int q = 0; q < 32; ++q) a32 *= aR;
+  const DeemphScan<R> deemph(p.a, p.b, lane);
   // Polyphase position of sample m = tid + u*kThreads, advanced per u.
   const int dq = kThreads / D, dp = kThreads % D;
   const int p0 = tid % D, q0 = tid / D;
@@ -403,11 +386,7 @@ fir_fm_exact_kernel(const Params p) {
     float loc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const float zr = yr[r] * pr + yi[r] * pi;
-      const float zi = yi[r] * pr - yr[r] * pi;
-      const float zr2 = zr * p.rot_r - zi * p.rot_i;
-      const float zi2 = zr * p.rot_i + zi * p.rot_r;
-      loc[r] = p.gain * atan2_poly(zi2, zr2);
+      loc[r] = fm_audio(yr[r], yi[r], pr, pi, p);
       pr = yr[r];
       pi = yi[r];
     }
@@ -452,40 +431,7 @@ fir_fm_exact_kernel(const Params p) {
     }
 
     if (p.deemph) {  // uniform across the block: the barriers are safe
-      float l = 0.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        l = a * l + bco * loc[r];
-        loc[r] = l;
-      }
-      // Inclusive scan of S_t = sum_{u<=t} A^(t-u) l_u over the warp.
-      float S = l, m = aR;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, S, off);
-        if (lane >= off) S = fmaf(m, v, S);
-        m *= m;
-      }
-      float Sx = __shfl_up_sync(0xffffffffu, S, 1);
-      if (lane == 0) Sx = 0.f;
-      if (lane == 31) s_wtot[warp] = S;
-      __syncthreads();
-      if (tid == 0) {
-        float P = s_state[2];
-        for (int w = 0; w < kWarps; ++w) {
-          s_wpre[w] = P;
-          P = fmaf(a32, P, s_wtot[w]);
-        }
-        s_state[2] = P;
-      }
-      __syncthreads();
-      const float s_in = fmaf(a_lane, s_wpre[warp], Sx);
-      float ap = a;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        loc[r] = fmaf(ap, s_in, loc[r]);
-        ap *= a;
-      }
+      deemph.run(loc, s_wtot, s_wpre, s_state + 2, lane, warp);
     }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -614,12 +560,16 @@ int staged_mode(int mode, const Params& p, long long C, int bf16,
   return -1;
 }
 
-int device_limits(int* smem_max, int* sms) {
+int device_limits(int* smem_max, int* smem_sm, int* sms) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(smem_max,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(
+        smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   }
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
@@ -660,23 +610,41 @@ bool bad_iir(int mode, int iir, long long n_out, long long C, int K,
   return true;
 }
 
-// Launches the FIR kernel of the shape's path for one mode.
-int launch(int mode, const Params& p, long long C, int bf16,
-           cudaStream_t stream, int smem_max) {
-  if (p.D > staged_max_d(mode)) {
-    return warp_launch(mode, p, C, bf16, stream, smem_max);
+// The kernel that runs a launch, by shape alone.  tc says whether the
+// entry's mode has the tensor-core kernel (K1's kFm, K6's kFm and kAm):
+// then strides from tc_min_d() to tc_max_d(bf16) take it where its plan
+// fits in shared memory; every other launch takes the staged kernel up to
+// staged_max_d and the warp kernel above.
+int route_of(int mode, int tc, int T, int D, int bf16, int fast, int smem_max,
+             int smem_sm) {
+  if (tc && D >= tc_min_d() && D <= tc_max_d(bf16) &&
+      tc_fits(T, D, bf16, fast, smem_max, smem_sm)) {
+    return kRouteTc;
+  }
+  return D > staged_max_d(mode) ? kRouteWarp : kRouteStaged;
+}
+
+// Launches the FIR kernel of the shape's route for one mode.
+int launch(int mode, int tc, const Params& p, long long C, int bf16,
+           int fast, cudaStream_t stream, int smem_max, int smem_sm) {
+  switch (route_of(mode, tc, p.T, p.D, bf16, fast, smem_max, smem_sm)) {
+    case kRouteTc:
+      return tc_launch(mode, p, C, bf16, fast, stream, smem_max, smem_sm);
+    case kRouteWarp:
+      return warp_launch(mode, p, C, bf16, stream, smem_max);
   }
   return staged_mode(mode, p, C, bf16, stream, smem_max, nullptr);
 }
 
 // One mode on one block: the FIR kernel with its epilogue, then mode kFm's
 // de-emphasis across chunks, or the AGC of modes kAm and kUsb (lam = a, b)
-// from s_in into s_out.  p holds the operands and the window form.
-int run(int mode, Params p, long long C, int K, int K_agc, float gain,
+// from s_in into s_out.  p holds the operands and the window form; tc and
+// fast are route_of's.
+int run(int mode, int tc, Params p, long long C, int K, int K_agc, float gain,
         const float* s_in, float* s_out, float* ends, double a, double b,
-        int iir, int bf16, void* stream) {
-  int smem_max = 0, sms = 0;
-  int e = device_limits(&smem_max, &sms);
+        int iir, int fast, int bf16, void* stream) {
+  int smem_max = 0, smem_sm = 0, sms = 0;
+  int e = device_limits(&smem_max, &smem_sm, &sms);
   if (e != 0) return e;
   const bool agc = iir && (mode == kAm || mode == kUsb);
   const long long n_out = p.n_out;
@@ -689,21 +657,26 @@ int run(int mode, Params p, long long C, int K, int K_agc, float gain,
   p.b = (float)b;
   p.deemph = mode == kFm && iir;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = launch(mode, p, C, bf16, s, smem_max);
+  e = launch(mode, tc, p, C, bf16, fast, s, smem_max, smem_sm);
   if (e != 0 || !iir) return e;
   if (agc) {
     return agc_launch(p.out, s_in, s_out, ends, C, n_out, K_agc, a, b, gain,
                       s);
   }
   if (K == 1) return 0;
-  deemph_chunk_scan<<<(unsigned)((C + 255) / 256), 256, 0, s>>>(p, C);
-  e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  deemph_chunk_fixup<<<(unsigned)(C * (K - 1)), 256, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return deemph_chunks_launch(p, C, s);
 }
 
 }  // namespace
+
+int deemph_chunks_launch(const Params& p, long long C, cudaStream_t stream) {
+  deemph_chunk_scan<<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(p, C);
+  const int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  deemph_chunk_fixup<<<(unsigned)(C * (p.K - 1)), 256, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace sdr
 
 using namespace sdr;
@@ -712,18 +685,25 @@ extern "C" {
 
 // Chunks per channel for a launch of `mode` with n_out outputs a channel:
 // as many as fill the resident block slots of the card in one wave, with a
-// least chunk length per path.  Returns K >= 1, -1 if the shape is outside
-// the kernel's gate, or -2 - cudaError_t.
-int sdr_fir_chunks(int mode, long long C, long long n_out, int T, int D,
-                   int L, int bf16) {
+// least chunk length per route.  tc and fast as for route_of; *route gets
+// the route (kRouteStaged, kRouteWarp or kRouteTc).  Returns K >= 1, -1 if
+// the shape is outside the kernel's gate, or -2 - cudaError_t.
+int sdr_fir_chunks(int mode, int tc, long long C, long long n_out, int T,
+                   int D, int L, int bf16, int fast, int* route) {
   if (bad_shape(C, n_out, T, D) || mode < kFm || mode > kAfsk ||
       (mode == kAfsk && (L < 2 || L > kAfskMaxL))) {
     return -1;
   }
-  int smem_max = 0, sms = 0, per_sm = 0;
-  int e = device_limits(&smem_max, &sms);
+  int smem_max = 0, smem_sm = 0, sms = 0, per_sm = 0;
+  int e = device_limits(&smem_max, &smem_sm, &sms);
   if (e != 0) return -2 - e;
-  if (D > staged_max_d(mode)) {
+  const int r = route_of(mode, tc, T, D, bf16, fast, smem_max, smem_sm);
+  if (route) *route = r;
+  if (r == kRouteTc) {
+    return tc_chunks(mode, C, n_out, T, D, bf16, fast, smem_max, smem_sm,
+                     sms);
+  }
+  if (r == kRouteWarp) {
     return warp_chunks(mode, C, n_out, T, D, L, bf16, smem_max, sms);
   }
   Params p{};
@@ -739,8 +719,8 @@ int sdr_fir_chunks(int mode, long long C, long long n_out, int T, int D,
 
 // Chunks per channel of the AGC passes over (C, n_out) outputs.
 int sdr_agc_chunks(long long C, long long n_out) {
-  int smem_max = 0, sms = 0;
-  const int e = device_limits(&smem_max, &sms);
+  int smem_max = 0, smem_sm = 0, sms = 0;
+  const int e = device_limits(&smem_max, &smem_sm, &sms);
   if (e != 0) return -2 - e;
   return agc_chunks(C, n_out, sms);
 }
@@ -753,7 +733,9 @@ int sdr_agc_chunks(long long C, long long n_out) {
 // mode:
 //   kFm   prev_r/prev_i (C,) is y[-1] and ylast_r/ylast_i (C,) get y[B/D-1];
 //         with iir != 0 the de-emphasis out = a*out[-1] + b*audio runs from
-//         s_in (C,), with ends (C, K) scratch when K > 1;
+//         s_in (C,), with ends (C, K) scratch when K > 1; it takes the
+//         tensor-core kernel where route_of says so, in one bf16 pass when
+//         fast != 0 (set_mxu_precision('fast')), else f32-accurate;
 //   kUsb  ramp_r/ramp_i are (B/D,) and ph_r/ph_i point at one float each;
 //   kAm, kUsb with iir != 0: the AGC with lam = a (and 1 - lam; b is not
 //         read) from s_in (C,) into s_out (C,), ends (C, K_agc) scratch; out
@@ -772,7 +754,8 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
                   const float* s_in, float* s_out, float* ends, long long C,
                   long long B, int T, int D, int K, int K_agc, float rot_r,
                   float rot_i, float gain, double a, double b, int iir,
-                  const void* const* afsk, int L, int bf16, void* stream) {
+                  const void* const* afsk, int L, int fast, int bf16,
+                  void* stream) {
   const long long n_out = D > 0 ? B / D : 0;
   const bool disc = mode == kFm || mode == kAfsk;
   bool afsk_ok = mode == kAfsk && afsk && !iir && L >= 2 && L <= kAfskMaxL;
@@ -821,8 +804,8 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
   }
   // the AGC of K1 is lam's own: b = 1 - lam
   const bool agc = mode == kAm || mode == kUsb;
-  return run(mode, p, C, K, K_agc, gain, s_in, s_out, ends, a,
-             agc ? 1.0 - a : b, iir, bf16, stream);
+  return run(mode, mode == kFm, p, C, K, K_agc, gain, s_in, s_out, ends, a,
+             agc ? 1.0 - a : b, iir, fast, bf16, stream);
 }
 
 // K5: the complex FIR alone (out, out_i: the planes of y, (C, n_out)) with
@@ -855,8 +838,8 @@ int sdr_fir_mxu(const void* xr, const void* xi, const void* tail_r,
   p.wrap = wrap;
   p.T = T;
   p.D = D;
-  return run(kFir, p, C, K, 0, 1.f, nullptr, nullptr, nullptr, 0.0, 0.0, 0,
-             bf16, stream);
+  return run(kFir, 0, p, C, K, 0, 1.f, nullptr, nullptr, nullptr, 0.0, 0.0,
+             0, 0, bf16, stream);
 }
 
 // K6: the v1 FIR with windows from x[s0 + j*D], s0 >= 0, over a block of
@@ -866,7 +849,8 @@ int sdr_fir_mxu(const void* xr, const void* xi, const void* tail_r,
 // iir != 0 the de-emphasis (a, b) from s_in (C,), ends (C, K) scratch when
 // K > 1) or kAm (with iir != 0 the AGC sd = a*sd + b*|y| from s_in (C,), its
 // last state into s_out (C,), ends (C, K_agc) scratch).  out is (C, n_out).
-// Returns 0, -1 outside the gate, else a cudaError_t.
+// Both modes take the tensor-core kernel where route_of says so (fast as
+// for sdr_fir_exact).  Returns 0, -1 outside the gate, else a cudaError_t.
 int sdr_fir_fm_mxu(int mode, const void* xr, const void* xi,
                    const float* taps_r, const float* taps_i,
                    const float* prev_r, const float* prev_i, float* out,
@@ -874,7 +858,7 @@ int sdr_fir_fm_mxu(int mode, const void* xr, const void* xi,
                    float* s_out, float* ends, long long C, long long B,
                    int T, int D, long long s0, int K, int K_agc, float rot_r,
                    float rot_i, float gain, double a, double b, int iir,
-                   int bf16, void* stream) {
+                   int fast, int bf16, void* stream) {
   const long long sd = 128LL * D;
   const long long n_out = D > 0 ? B / D : 0;
   if (bad_shape(C, n_out, T, D) || (mode != kFm && mode != kAm) ||
@@ -902,8 +886,8 @@ int sdr_fir_fm_mxu(int mode, const void* xr, const void* xi,
   p.D = D;
   p.rot_r = rot_r;
   p.rot_i = rot_i;
-  return run(mode, p, C, K, K_agc, gain, s_in, s_out, ends, a, b, iir, bf16,
-             stream);
+  return run(mode, 1, p, C, K, K_agc, gain, s_in, s_out, ends, a, b, iir,
+             fast, bf16, stream);
 }
 
 const char* sdr_cuda_error_string(int code) {

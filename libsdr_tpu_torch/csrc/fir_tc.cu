@@ -1,0 +1,808 @@
+// Tensor-core decimating complex FIR with the FM discriminator (+ the
+// de-emphasis) or the AM envelope: the route of mode kFm (K1a, entry
+// sdr_fir_exact; K6 fm, entry sdr_fir_fm_mxu) and of K6's kAm at strides
+// tc_min_d() to tc_max_d() (fir_common.cuh).  It computes what the staged
+// kernel of fir_fm_exact.cu computes in those modes, with the same window
+// form (Params: K1's start D - T with the tail, K6's s0 >= 0 and its wrap
+// of 128*D) and the same epilogues.
+//
+// Replaces the TPU kernels libsdr_tpu/ops/pallas_fir_mxu.py::_kernel_fm2
+// (:777, mode 'fm') and ::_kernel_fm (:410, modes 'fm' and 'am'), and does
+// their arithmetic: the FIR as block-Toeplitz frame matmuls, f32-accurate
+// from a manual split into bf16 passes (_make_mm, :161):
+//
+//   float32 planes  x_hi*g_hi + x_hi*g_lo + x_lo*g_hi    (3 passes)
+//   bfloat16 planes x*g_hi + x*g_lo                      (2 passes: x exact)
+//   'fast'          x_hi*g_hi                            (1 pass)
+//
+// with float32 accumulators throughout.
+//
+// What bounds it on an H100, at the main path's shape (64 ch x 2^24, T = 67,
+// D = 4): the bytes, 8 a complex input sample with float32 planes and 4/D
+// of audio an output, 9.66 GB or 2.885 ms at 3.35 TB/s (bf16 planes: 1.603
+// ms).  The staged kernel spends 8T + 50 float32 operations an output on
+// the CUDA cores, 2.3 ms at 67 TFLOP/s, so it cannot reach that bound;
+// here the FIR runs on the tensor cores (bf16 at 989 TFLOP/s dense), about
+// 2,200 operations an output in three passes once the Toeplitz band is
+// skipped, 0.6 ms at peak, and the CUDA cores keep only the conversion and
+// the epilogue.  Measured (PERF.md), it is the block's phases in series
+// that hold it at ~55% of the float32 bound, not the MMAs' arithmetic.
+//
+// Design:
+// * GEMM rows are frames: S consecutive outputs of one channel.  Row f of a
+//   tile is the frame's window, K = (S-1)*D + T samples padded to Kp (a
+//   multiple of 16), real and imaginary planes side by side (reduction
+//   depth 2*Kp).  The tap matrix is (2Kp x 2S):
+//       [Wr | Wi] . [[Gr, Gi], [-Gi, Gr]],   G[k, s] = g[k - s*D]
+//   with its columns interleaved (Re y, Im y) of each output, so that each
+//   accumulator pair of the mma.sync m16n8k16 layout is one output.  Its
+//   8-column n-tiles (4 outputs each) touch only a band of 16-row k-tiles;
+//   only the band is stored and multiplied.
+// * A is not materialised: the rows are overlapping windows of one span of
+//   samples at a row stride of S*D, so a tile's span is converted once into
+//   bf16 arrays (hi and lo for float32 planes, once a sample; bf16 planes
+//   are copied) and every row is loaded with ldmatrix at its own address.
+//   S*D is a multiple of 8 (16-byte rows), chosen an odd multiple of 8
+//   where the stride allows it, so that the 8 rows of an ldmatrix phase
+//   fall on distinct banks (S = 14 at D = 4: 112 bytes).
+// * HBM stays busy: a ring of two raw stages per block, each a tile's span
+//   of both planes, filled by cp.async.bulk (one copy a plane, completion on
+//   an mbarrier) two tiles ahead, while the block converts, multiplies and
+//   runs the epilogue of the current tile.  A block has 8 warps: all
+//   convert (16-byte words shifted by the span's alignment), all run the
+//   MMAs (16 frames and up to 2 n-tiles each, an accumulator per pass so
+//   that one step's MMAs do not wait on each other) and all run the
+//   epilogue; two blocks share an SM where they fit (the main path: 106
+//   KB each), so one block's MMAs overlap the other's conversion and
+//   epilogue.  Spans that reach into the tail or past the block (the first
+//   tile of a channel in K1, K6's last frame) are read by the threads
+//   through sample_at instead.
+// * Epilogue: the accumulators go to shared memory in output order (over
+//   the converted span, which the MMAs no longer read), and each thread
+//   runs the staged kernel's discriminator and de-emphasis scan
+//   (fir_common.cuh: fm_audio, DeemphScan) over 4 consecutive outputs, or
+//   gain*|y|, and stores them 16 bytes at a time; the de-emphasis across
+//   chunks and K6's AGC are the same follow-up kernels as the staged
+//   route's.  A later chunk's y[j_begin - 1] is recomputed in the same
+//   passes (warp_y_at<P>).
+// * The plan (S, frames a tile, buffer sizes) depends on T, D, the plane
+//   dtype and the pass count only (tc_plan); where none fits in shared
+//   memory, route_of sends the launch to the staged or warp kernel.  The
+//   kernel allocates nothing and does not synchronise.
+
+#include <stdint.h>
+
+#include "fir_common.cuh"
+
+namespace sdr {
+namespace {
+
+constexpr int kTcR = 4;                       // epilogue outputs a thread
+constexpr int kTcSlots = kThreads * kTcR;     // epilogue outputs a tile
+constexpr int kTcMaxNt = 4;                   // n-tiles a frame, at most
+constexpr int kTcHeader = 128;  // mbarriers, carried state, scan scratch
+constexpr long long kTcMinChunk = 4096;       // outputs per chunk, at least
+
+// One tile's geometry and the block's shared-memory layout.
+struct TcPlan {
+  int S;    // outputs a frame
+  int F;    // frames a tile: 64, 32 or 16
+  int Kp;   // a frame's window, padded to a multiple of 16 samples
+  int KT;   // Kp / 16
+  int NTL;  // n-tiles a frame: ceil(S / 4)
+  int KBW;  // k-tiles of the widest n-tile band
+  int LA;   // samples of each converted array
+  int CAP;  // samples of a raw stage buffer of one plane
+  int na;   // converted arrays: re hi, im hi (+ re lo, im lo when 3 passes)
+  int raw_off, a_off, b_off, bytes;
+};
+
+// The epilogue's slot of output j: one pad slot after every 4, so that the
+// lanes' reads (4 apart) spread over the banks.
+__host__ __device__ __forceinline__ int tc_skew(int j) { return j + j / 4; }
+
+__host__ __device__ __forceinline__ int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+__host__ __device__ __forceinline__ int imin(int a, int b) {
+  return a < b ? a : b;
+}
+
+// k-tiles [lo, hi) of the band of n-tile nt (outputs 4nt .. 4nt+3).
+__host__ __device__ __forceinline__ void band(int nt, int S, int D, int T,
+                                              int KT, int* lo, int* hi) {
+  const int s_hi = imin(4 * nt + 3, S - 1);
+  *lo = (4 * nt * D) / 16;
+  *hi = imin(KT, (s_hi * D + T + 15) / 16);
+}
+
+// Bank-conflict degree of an ldmatrix phase over 8 rows `stride` bytes
+// apart (a multiple of 16): the most rows on one 16-byte slot of 128.
+int ldsm_ways(int stride) {
+  int count[8] = {0};
+  int ways = 0;
+  for (int r = 0; r < 8; ++r) {
+    const int slot = (int)(((long long)r * stride % 128) / 16);
+    if (++count[slot] > ways) ways = count[slot];
+  }
+  return ways;
+}
+
+TcPlan make_plan(int T, int D, int isz, int passes, int S, int F) {
+  TcPlan g{};
+  g.S = S;
+  g.F = F;
+  g.Kp = round_up((S - 1) * D + T, 16);
+  g.KT = g.Kp / 16;
+  g.NTL = (S + 3) / 4;
+  for (int nt = 0; nt < g.NTL; ++nt) {
+    int lo, hi;
+    band(nt, S, D, T, g.KT, &lo, &hi);
+    if (hi - lo > g.KBW) g.KBW = hi - lo;
+  }
+  const int per = 16 / isz;  // samples in 16 bytes
+  const long long lbuf = (long long)(F * S - 1) * D + T;
+  const long long la = (long long)(F - 1) * S * D + g.Kp;
+  if (lbuf + 2 * per > (1 << 24) || la > (1 << 24)) {
+    g.bytes = 0x7fffffff;
+    return g;
+  }
+  g.LA = round_up((int)la, 8);
+  // a raw stage holds the span and 16 bytes of alignment at each end; the
+  // conversion reads 16-byte words up to 16 bytes past the converted span
+  g.CAP = round_up((int)(lbuf > g.LA ? lbuf : g.LA) + 2 * per, per);
+  g.na = passes == 3 ? 4 : 2;
+  const long long raw = 4LL * g.CAP * isz;  // 2 stages x 2 planes
+  // the converted arrays, and over them the epilogue's slots
+  const long long ys = 8LL * (tc_skew(kTcSlots - 1) + 1);
+  const long long arr = (long long)g.na * g.LA * 2 > ys
+                            ? (long long)g.na * g.LA * 2 : ys;
+  const long long taps = 2LL * g.NTL * g.KBW * 512;
+  const long long total = kTcHeader + raw + (arr + 15) / 16 * 16 + taps;
+  if (total > 0x7fffffffLL) {
+    g.bytes = 0x7fffffff;
+    return g;
+  }
+  g.raw_off = kTcHeader;
+  g.a_off = (int)(kTcHeader + raw);
+  g.b_off = g.a_off + (int)((arr + 15) / 16 * 16);
+  g.bytes = (int)total;
+  return g;
+}
+
+// The plan of a shape: frames of S <= 16 outputs with S*D a multiple of 8,
+// fewest bank conflicts first and then the largest S, 64 frames a tile
+// where that fits (then 32, 16); first within two blocks an SM, then
+// within one.  False when nothing fits.
+bool tc_plan(int T, int D, int bf16, int fast, int smem_max, int smem_sm,
+             TcPlan* out) {
+  if (T < 1 || D < 1) return false;
+  const int isz = bf16 ? 2 : 4;
+  const int passes = fast ? 1 : (bf16 ? 2 : 3);
+  int cand[16], nc = 0;
+  for (int ways = 1; ways <= 8; ++ways) {
+    for (int S = 4 * kTcMaxNt; S >= 1; --S) {
+      if ((S * D) % 8 == 0 && ldsm_ways(2 * S * D) == ways) cand[nc++] = S;
+    }
+  }
+  const int limits[2] = {smem_sm / 2 - 1024, smem_max};
+  for (int limit : limits) {
+    for (int mw = 4; mw >= 1; mw /= 2) {
+      for (int i = 0; i < nc; ++i) {
+        const TcPlan g = make_plan(T, D, isz, passes, cand[i], 16 * mw);
+        if (g.bytes <= limit) {
+          *out = g;
+          return true;
+        }
+      }
+    }
+  }
+  return false;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra.uni DONE;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a . b, one m16n8k16 bf16 product with float32 accumulators.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The tap blocks in shared memory: for each plane half h (0: the rows' real
+// samples, 1: their imaginary ones), n-tile nt and k-tile kk of its band,
+// 512 bytes [hi/lo][k 0-7 / 8-15][column n][8 k] of bf16, so that one
+// ldmatrix.x4 at block + 16*lane gives the hi and lo fragments of B.
+// Column n is output 4nt + n/2, its real part for even n: the entries are
+// (Gr, Gi) for h = 0 and (-Gi, Gr) for h = 1, G[k, s] = g[k - s*D].
+__device__ void build_taps(__nv_bfloat16* B, const TcPlan& g, const Params& p,
+                           int tid) {
+  const int total = 2 * g.NTL * g.KBW * 256;
+  for (int idx = tid; idx < total; idx += kThreads) {
+    const int kq = idx & 7, n = (idx >> 3) & 7, kh = (idx >> 6) & 1;
+    const int hl = (idx >> 7) & 1, blk = idx >> 8;
+    const int kb = blk % g.KBW, nt = (blk / g.KBW) % g.NTL;
+    const int h = blk / (g.KBW * g.NTL);
+    int lo, hi;
+    band(nt, g.S, p.D, p.T, g.KT, &lo, &hi);
+    const int kk = lo + kb;
+    const int s = 4 * nt + n / 2;
+    const int i = 16 * kk + 8 * kh + kq - s * p.D;
+    float v = 0.f;
+    if (kk < hi && s < g.S && i >= 0 && i < p.T) {
+      const float gr = p.taps_r[i], gi = p.taps_i[i];
+      v = h == 0 ? (n & 1 ? gi : gr) : (n & 1 ? gr : -gi);
+    }
+    const __nv_bfloat16 vh = __float2bfloat16_rn(v);
+    B[idx] = hl ? __float2bfloat16_rn(v - __bfloat162float(vh)) : vh;
+  }
+}
+
+// One warp's share of a tile's MMAs: 16 frames (m-tile mt) and up to 2
+// n-tiles nt0, nt0 + 1 (nnt of them), over the k-tiles of their bands.
+// acc[i][q] holds, per the m16n8k16 accumulator layout, pass q's sum for
+// n-tile nt0 + i: (Re y, Im y) of output 4(nt0 + i) + lane%4 of frames
+// 16*mt + lane/4 ([0..1]) and + 8 ([2..3]).  Each pass has its own
+// accumulator, so that the MMAs of one step do not wait on each other, and
+// the next step's A fragments are loaded before this step's MMAs.
+template <int P>
+__device__ __forceinline__ void mma_frames(float (&acc)[2][P][4],
+                                           uint32_t a_sh, uint32_t b_sh,
+                                           const TcPlan& g, int D, int T,
+                                           int mt, int nt0, int nnt,
+                                           int lane) {
+  int lo[2], hi[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    band(nt0 + i, g.S, D, T, g.KT, &lo[i], &hi[i]);
+    if (i >= nnt) lo[i] = hi[i] = 0;
+  }
+  const int k0 = lo[0], k1 = nnt > 1 ? max(hi[0], hi[1]) : hi[0];
+  // this lane's row address (ldmatrix.x4: rows 0-15, columns 0 and 8)
+  const uint32_t row =
+      (uint32_t)((16 * mt + (lane & 15)) * g.S * D + 8 * (lane >> 4));
+  const uint32_t plane = 2u * g.LA;  // bytes of one converted array
+  auto a_at = [&](int step) {  // step = 2 kk + h
+    return a_sh + (step & 1) * plane + 2u * (row + 16u * (step >> 1));
+  };
+  uint32_t ah[4], al[4], nh[4], nl[4];
+  ldsm_x4(ah, a_at(2 * k0));
+  if constexpr (P == 3) ldsm_x4(al, a_at(2 * k0) + 2 * plane);
+  for (int step = 2 * k0; step < 2 * k1; ++step) {
+    const int kk = step >> 1, h = step & 1;
+    if (step + 1 < 2 * k1) {
+      ldsm_x4(nh, a_at(step + 1));
+      if constexpr (P == 3) ldsm_x4(nl, a_at(step + 1) + 2 * plane);
+    }
+    uint32_t b[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kk >= lo[i] && kk < hi[i]) {
+        const uint32_t bb =
+            b_sh +
+            ((uint32_t)((h * g.NTL + nt0 + i) * g.KBW + kk - lo[i]) << 9) +
+            16u * lane;
+        if constexpr (P == 1) {
+          ldsm_x2(b[i][0], b[i][1], bb);
+        } else {
+          ldsm_x4(b[i], bb);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kk >= lo[i] && kk < hi[i]) {
+        mma(acc[i][0], ah, b[i][0], b[i][1]);
+        if constexpr (P >= 2) mma(acc[i][1], ah, b[i][2], b[i][3]);
+        if constexpr (P == 3) mma(acc[i][2], al, b[i][0], b[i][1]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      ah[q] = nh[q];
+      if constexpr (P == 3) al[q] = nl[q];
+    }
+  }
+}
+
+// Converts samples [0, LA) of a tile's span (get(plane, m) for m < Ls, 0
+// past it) into the bf16 arrays: re hi, im hi, and for 3 passes re lo, im lo
+// (lo = bf16(x - hi)); two samples a thread and step.  The path of the
+// spans that reach into the tail or past the block (sample_at).
+template <int P, typename Get>
+__device__ __forceinline__ void convert(__nv_bfloat16* A, int LA, int Ls,
+                                        int tid, Get get) {
+  uint32_t* a32 = reinterpret_cast<uint32_t*>(A);
+  const int la2 = LA / 2;
+  for (int q = tid; q < la2; q += kThreads) {
+    const int m = 2 * q;
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      const float2 v = make_float2(m < Ls ? get(pl, m) : 0.f,
+                                   m + 1 < Ls ? get(pl, m + 1) : 0.f);
+      const __nv_bfloat162 h = __float22bfloat162_rn(v);
+      a32[pl * la2 + q] = bits(h);
+      if constexpr (P == 3) {
+        const float2 hf = __bfloat1622float2(h);
+        a32[(2 + pl) * la2 + q] = bits(
+            __float22bfloat162_rn(make_float2(v.x - hf.x, v.y - hf.y)));
+      }
+    }
+  }
+}
+
+// The same from a raw stage (sample m of a plane at raw[off + m], the
+// buffer 16-byte aligned): 16-byte words shifted into place.  Float32
+// planes: 4 samples a thread and step, their hi (and lo) as 8 bytes, the
+// loop specialised by the offset (OFF) and two steps in flight; bfloat16
+// planes: 8 samples, copied as 16 bytes (x is its own hi).
+template <int P, int OFF>
+__device__ __forceinline__ void convert_plane(__nv_bfloat16* hi,
+                                              __nv_bfloat16* lo, int LA,
+                                              int Ls, const float* raw,
+                                              int tid) {
+  const int la4 = LA / 4;
+  const float4* rb = reinterpret_cast<const float4*>(raw);
+  auto one = [&](int q, const float4& a, const float4& b) {
+    const int m = 4 * q;
+    float v[4];
+    v[0] = OFF == 0 ? a.x : OFF == 1 ? a.y : OFF == 2 ? a.z : a.w;
+    v[1] = OFF == 0 ? a.y : OFF == 1 ? a.z : OFF == 2 ? a.w : b.x;
+    v[2] = OFF == 0 ? a.z : OFF == 1 ? a.w : OFF == 2 ? b.x : b.y;
+    v[3] = OFF == 0 ? a.w : OFF == 1 ? b.x : OFF == 2 ? b.y : b.z;
+    if (m + 3 >= Ls) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = m + i < Ls ? v[i] : 0.f;
+    }
+    const __nv_bfloat162 h0 = __float22bfloat162_rn(make_float2(v[0], v[1]));
+    const __nv_bfloat162 h1 = __float22bfloat162_rn(make_float2(v[2], v[3]));
+    *reinterpret_cast<uint2*>(hi + m) = make_uint2(bits(h0), bits(h1));
+    if constexpr (P == 3) {
+      const float2 f0 = __bfloat1622float2(h0), f1 = __bfloat1622float2(h1);
+      *reinterpret_cast<uint2*>(lo + m) = make_uint2(
+          bits(__float22bfloat162_rn(make_float2(v[0] - f0.x, v[1] - f0.y))),
+          bits(__float22bfloat162_rn(make_float2(v[2] - f1.x, v[3] - f1.y))));
+    }
+  };
+  int q = tid;
+  for (; q + kThreads < la4; q += 2 * kThreads) {
+    const float4 a0 = rb[q], b0 = rb[q + 1];
+    const float4 a1 = rb[q + kThreads], b1 = rb[q + kThreads + 1];
+    one(q, a0, b0);
+    one(q + kThreads, a1, b1);
+  }
+  if (q < la4) one(q, rb[q], rb[q + 1]);
+}
+
+template <int P>
+__device__ __forceinline__ void convert_raw(__nv_bfloat16* A, int LA, int Ls,
+                                            const float* raw_r,
+                                            const float* raw_i, int off_r,
+                                            int off_i, int tid) {
+#pragma unroll
+  for (int pl = 0; pl < 2; ++pl) {
+    __nv_bfloat16* hi = A + (size_t)pl * LA;
+    __nv_bfloat16* lo = A + (size_t)(2 + pl) * LA;
+    const float* raw = pl ? raw_i : raw_r;
+    switch (pl ? off_i : off_r) {
+      case 0: convert_plane<P, 0>(hi, lo, LA, Ls, raw, tid); break;
+      case 1: convert_plane<P, 1>(hi, lo, LA, Ls, raw, tid); break;
+      case 2: convert_plane<P, 2>(hi, lo, LA, Ls, raw, tid); break;
+      default: convert_plane<P, 3>(hi, lo, LA, Ls, raw, tid); break;
+    }
+  }
+}
+
+// Words w[k .. k+3] of the 8 words (a, b), shifted right by sh bits more.
+__device__ __forceinline__ uint4 shift_words(const uint4& a, const uint4& b,
+                                             int k, int sh) {
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t r[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    r[i] = k == 0 ? w[i] : k == 1 ? w[i + 1] : k == 2 ? w[i + 2] : w[i + 3];
+  }
+  return make_uint4(__funnelshift_r(r[0], r[1], sh),
+                    __funnelshift_r(r[1], r[2], sh),
+                    __funnelshift_r(r[2], r[3], sh),
+                    __funnelshift_r(r[3], r[4], sh));
+}
+
+template <int P>
+__device__ __forceinline__ void convert_raw(__nv_bfloat16* A, int LA, int Ls,
+                                            const __nv_bfloat16* raw_r,
+                                            const __nv_bfloat16* raw_i,
+                                            int off_r, int off_i, int tid) {
+  const int la8 = LA / 8;
+  for (int q = tid; q < la8; q += kThreads) {
+    const int m = 8 * q;
+#pragma unroll
+    for (int pl = 0; pl < 2; ++pl) {
+      const uint4* rb = reinterpret_cast<const uint4*>(pl ? raw_i : raw_r) + q;
+      const int off = pl ? off_i : off_r;  // samples: 2 bytes each
+      uint4 r = shift_words(rb[0], rb[1], off >> 1, (off & 1) * 16);
+      if (m + 7 >= Ls) {
+        uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (m + i >= Ls) w[i / 2] &= (i & 1) ? 0x0000ffffu : 0xffff0000u;
+        }
+        r = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      *reinterpret_cast<uint4*>(A + (size_t)pl * LA + m) = r;
+    }
+  }
+}
+
+// A thread's kTcR outputs v[0 .. n-1] (n may be <= 0 or past kTcR) to o:
+// one 16-byte store where o is aligned and all four are valid.
+__device__ __forceinline__ void store4(float* o, const float (&v)[kTcR],
+                                       int n) {
+  if (n >= kTcR && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kTcR; ++r) {
+    if (r < n) o[r] = v[r];
+  }
+}
+
+template <int MODE, typename Tin, int P>
+__global__ void __launch_bounds__(kThreads, 2)
+fir_tc_kernel(const Params p, const TcPlan g) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int isz = (int)sizeof(Tin);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // one a raw stage
+  float* s_state = reinterpret_cast<float*>(smem + 16);  // y[-1], de-emph
+  float* s_wtot = s_state + 4;
+  float* s_wpre = s_wtot + kWarps;
+  Tin* raw = reinterpret_cast<Tin*>(smem + g.raw_off);  // [stage][plane]
+  __nv_bfloat16* A = reinterpret_cast<__nv_bfloat16*>(smem + g.a_off);
+  float2* ys = reinterpret_cast<float2*>(smem + g.a_off);  // over A
+  __nv_bfloat16* Bt = reinterpret_cast<__nv_bfloat16*>(smem + g.b_off);
+
+  const int T = p.T, D = p.D, NT = g.F * g.S;  // NT: outputs a tile
+  const long long c = blockIdx.x / p.K;
+  const int k = blockIdx.x % p.K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long j_begin = k * p.chunk;
+  const long long j_end = min(p.n_out, j_begin + p.chunk);
+  const Tin* xr = static_cast<const Tin*>(p.xr) + c * p.B;
+  const Tin* xi = static_cast<const Tin*>(p.xi) + c * p.B;
+  const Tin* tr = p.s0 < 0 ? static_cast<const Tin*>(p.tail_r) + c * (T - 1)
+                           : nullptr;
+  const Tin* ti = p.s0 < 0 ? static_cast<const Tin*>(p.tail_i) + c * (T - 1)
+                           : nullptr;
+  float* orow = p.out + c * p.n_out;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_addr(&bar[s])),
+                   "r"(1)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  build_taps(Bt, g, p, tid);
+  if constexpr (MODE == kFm) {
+    if (k == 0) {
+      if (tid == 0) {
+        s_state[0] = p.prev_r[c];
+        s_state[1] = p.prev_i[c];
+        s_state[2] = p.deemph ? p.dstate[c] : 0.f;
+      }
+    } else if (warp == 0) {
+      // a later chunk starts from y[j_begin - 1] and de-emphasis state 0
+      const float2 y = warp_y_at<P>(xr, xi, tr, ti,
+                                    (j_begin - 1) * D + p.s0, p, lane);
+      if (lane == 0) {
+        s_state[0] = y.x;
+        s_state[1] = y.y;
+        s_state[2] = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+
+  const long long n_tiles = (j_end - j_begin + NT - 1) / NT;
+  // Tile t's span: window start base, Ls samples, nv outputs.
+  auto span = [&](long long t, long long* base, int* Ls, int* nv) {
+    const long long j0 = j_begin + t * NT;
+    *nv = (int)min((long long)NT, j_end - j0);
+    *Ls = (*nv - 1) * D + T;
+    *base = j0 * D + p.s0;
+  };
+  // Thread 0: the bulk copies of tile t's span into its raw stage, for a
+  // span inside the block; 16-byte aligned, so each plane's copy starts up
+  // to 15 bytes early (still inside the planes' allocation: a row never
+  // starts before an aligned address of it).
+  auto fetch = [&](long long t) {
+    long long base;
+    int Ls, nv;
+    span(t, &base, &Ls, &nv);
+    if (!inner_run(base, Ls, p)) return;
+    const int st = (int)(t & 1);
+    uintptr_t a0[2];
+    uint32_t n[2];
+    for (int pl = 0; pl < 2; ++pl) {
+      const uintptr_t a = reinterpret_cast<uintptr_t>((pl ? xi : xr) + base);
+      a0[pl] = a & ~(uintptr_t)15;
+      n[pl] = (uint32_t)(((a + (uintptr_t)Ls * isz + 15) & ~(uintptr_t)15) -
+                         a0[pl]);
+    }
+    const uint32_t b = smem_addr(&bar[st]);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                     "r"(b),
+                 "r"(n[0] + n[1])
+                 : "memory");
+    for (int pl = 0; pl < 2; ++pl) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(
+              smem_addr(raw + (size_t)(2 * st + pl) * g.CAP)),
+          "l"(a0[pl]), "r"(n[pl]), "r"(b)
+          : "memory");
+    }
+  };
+  if (tid == 0) {
+    fetch(0);
+    if (n_tiles > 1) fetch(1);
+  }
+  const DeemphScan<kTcR> deemph(p.a, p.b, lane);
+  const uint32_t a_sh = smem_addr(A), b_sh = smem_addr(Bt);
+  // this warp's MMAs: m-tile mt, n-tiles nt0 .. nt0 + nnt - 1 (the m-tiles
+  // of a tile times its groups of n-tiles cover the 8 warps)
+  const int n_mt = g.F / 16, groups = kWarps / n_mt;
+  const int per_group = (g.NTL + groups - 1) / groups;
+  const int mt = warp % n_mt, nt0 = (warp / n_mt) * per_group;
+  const int nnt = max(0, min(per_group, g.NTL - nt0));
+  uint32_t phase = 0;  // bit s: the parity stage s completes next
+
+  for (long long t = 0; t < n_tiles; ++t) {
+    long long base;
+    int Ls, nv;
+    span(t, &base, &Ls, &nv);
+    const long long j0 = j_begin + t * NT;
+    if (inner_run(base, Ls, p)) {
+      const int st = (int)(t & 1);
+      bar_wait(smem_addr(&bar[st]), (phase >> st) & 1u);
+      phase ^= 1u << st;
+      convert_raw<P>(
+          A, g.LA, Ls, raw + (size_t)(2 * st) * g.CAP,
+          raw + (size_t)(2 * st + 1) * g.CAP,
+          (int)((reinterpret_cast<uintptr_t>(xr + base) & 15) / isz),
+          (int)((reinterpret_cast<uintptr_t>(xi + base) & 15) / isz), tid);
+    } else {
+      convert<P>(A, g.LA, Ls, tid, [&](int pl, int m) {
+        return to_f32(pl ? sample_at(xi, ti, base + m, p)
+                         : sample_at(xr, tr, base + m, p));
+      });
+    }
+    __syncthreads();  // the span is converted and its raw stage free
+    if (tid == 0 && t + 2 < n_tiles) fetch(t + 2);
+
+    float acc[2][P][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        acc[i][q][0] = acc[i][q][1] = acc[i][q][2] = acc[i][q][3] = 0.f;
+      }
+    }
+    if (nnt > 0) mma_frames<P>(acc, a_sh, b_sh, g, D, T, mt, nt0, nnt, lane);
+    __syncthreads();  // every read of the span is done: ys goes over it
+    if (nnt > 0) {
+      const int f = 16 * mt + (lane >> 2);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int s = 4 * (nt0 + i) + (lane & 3);
+        if (i < nnt && s < g.S) {
+          float y[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            y[e] = acc[i][0][e];
+#pragma unroll
+            for (int q = 1; q < P; ++q) y[e] += acc[i][q][e];
+          }
+          ys[tc_skew(f * g.S + s)] = make_float2(y[0], y[1]);
+          ys[tc_skew((f + 8) * g.S + s)] = make_float2(y[2], y[3]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // Epilogue: this thread's outputs jb .. jb + 3 of the tile (those past
+    // nv, and the slots past the tile, are computed and not written).
+    const int jb = tid * kTcR;
+    float yr[kTcR], yi[kTcR], loc[kTcR];
+#pragma unroll
+    for (int r = 0; r < kTcR; ++r) {
+      const float2 v = ys[tc_skew(jb + r)];
+      yr[r] = v.x;
+      yi[r] = v.y;
+    }
+    if constexpr (MODE == kAm) {
+#pragma unroll
+      for (int r = 0; r < kTcR; ++r) {
+        loc[r] = p.gain * sqrtf(yr[r] * yr[r] + yi[r] * yi[r]);
+      }
+      store4(orow + j0 + jb, loc, nv - jb);
+    } else {
+      float pr, pi;
+      if (jb == 0) {
+        pr = s_state[0];
+        pi = s_state[1];
+      } else {
+        const float2 v = ys[tc_skew(jb - 1)];
+        pr = v.x;
+        pi = v.y;
+      }
+#pragma unroll
+      for (int r = 0; r < kTcR; ++r) {
+        loc[r] = fm_audio<true>(yr[r], yi[r], pr, pi, p);
+        pr = yr[r];
+        pi = yi[r];
+      }
+      if (p.deemph) {  // uniform across the block: the barriers are safe
+        deemph.template run<true>(loc, s_wtot, s_wpre, s_state + 2, lane,
+                                  warp);
+      }
+      store4(orow + j0 + jb, loc, nv - jb);
+    }
+    __syncthreads();  // every read of ys and of the carried state is done
+    if constexpr (MODE == kFm) {
+      // the tile's last output carries into the next tile
+#pragma unroll
+      for (int r = 0; r < kTcR; ++r) {
+        if (jb + r == nv - 1) {
+          s_state[0] = yr[r];
+          s_state[1] = yi[r];
+          s_state[2] = loc[r];
+          if (p.ends && j0 + nv == j_end) p.ends[blockIdx.x] = loc[r];
+        }
+      }
+    }
+  }
+  if constexpr (MODE == kFm) {
+    __syncthreads();
+    if (tid == 0 && k == p.K - 1) {
+      p.ylast_r[c] = s_state[0];
+      p.ylast_i[c] = s_state[1];
+    }
+  }
+}
+
+using TcKernel = void (*)(const Params, const TcPlan);
+
+TcKernel tc_kernel(int mode, int bf16, int fast) {
+  if (mode == kFm) {
+    if (bf16) {
+      return fast ? fir_tc_kernel<kFm, __nv_bfloat16, 1>
+                  : fir_tc_kernel<kFm, __nv_bfloat16, 2>;
+    }
+    return fast ? fir_tc_kernel<kFm, float, 1> : fir_tc_kernel<kFm, float, 3>;
+  }
+  if (mode == kAm) {
+    if (bf16) {
+      return fast ? fir_tc_kernel<kAm, __nv_bfloat16, 1>
+                  : fir_tc_kernel<kAm, __nv_bfloat16, 2>;
+    }
+    return fast ? fir_tc_kernel<kAm, float, 1> : fir_tc_kernel<kAm, float, 3>;
+  }
+  return nullptr;
+}
+
+// The kernel of (mode, bf16, fast) with its plan's shared memory allowed;
+// 0, -1 (no kernel or no plan), or a cudaError_t.
+int tc_prepare(int mode, int T, int D, int bf16, int fast, int smem_max,
+               int smem_sm, TcKernel* kernel, TcPlan* g) {
+  *kernel = tc_kernel(mode, bf16, fast);
+  if (!*kernel || !tc_plan(T, D, bf16, fast, smem_max, smem_sm, g)) return -1;
+  return (int)cudaFuncSetAttribute(
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g->bytes);
+}
+
+}  // namespace
+
+bool tc_fits(int T, int D, int bf16, int fast, int smem_max, int smem_sm) {
+  TcPlan g;
+  return tc_plan(T, D, bf16, fast, smem_max, smem_sm, &g);
+}
+
+int tc_chunks(int mode, long long C, long long n_out, int T, int D, int bf16,
+              int fast, int smem_max, int smem_sm, int sms) {
+  TcKernel kernel;
+  TcPlan g;
+  int e = tc_prepare(mode, T, D, bf16, fast, smem_max, smem_sm, &kernel, &g);
+  if (e != 0) return e == -1 ? -1 : -2 - e;
+  int per_sm = 0;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         kThreads, g.bytes);
+  if (e != 0) return -2 - e;
+  const long long k = (long long)sms * per_sm / C;
+  const long long most = n_out / kTcMinChunk;
+  return fit_chunks(n_out, k < most ? k : most);
+}
+
+int tc_launch(int mode, const Params& p, long long C, int bf16, int fast,
+              cudaStream_t stream, int smem_max, int smem_sm) {
+  TcKernel kernel;
+  TcPlan g;
+  const int e =
+      tc_prepare(mode, p.T, p.D, bf16, fast, smem_max, smem_sm, &kernel, &g);
+  if (e != 0) return e;
+  kernel<<<(unsigned)(C * p.K), kThreads, g.bytes, stream>>>(p, g);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sdr
+
+extern "C" {
+
+// The tensor-core kernel's plan for a shape (tc_plan), for the tests that
+// hold ops/fir_tc.py's layout to it: out gets S, frames a tile, Kp, the
+// n-tiles, the widest band's k-tiles, LA, CAP and the shared-memory bytes.
+// Returns 0, -1 when no plan fits, or -2 - cudaError_t.
+int sdr_fir_tc_plan(int T, int D, int bf16, int fast, int* out) {
+  int dev = 0, smem_max = 0, smem_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&smem_max,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(
+        &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  }
+  if (e != cudaSuccess) return -2 - (int)e;
+  sdr::TcPlan g;
+  if (!sdr::tc_plan(T, D, bf16, fast, smem_max, smem_sm, &g)) return -1;
+  const int v[8] = {g.S, g.F, g.Kp, g.NTL, g.KBW, g.LA, g.CAP, g.bytes};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
+}
+
+}  // extern "C"

@@ -161,13 +161,26 @@ def _fir_kernel_block(taps, x: Complex, tail: Complex, stride: int,
     return y.reshape(lead + (y.re.shape[-1],)), new_tail(x, tail, t)
 
 
+_PRECISION = "high"
+
+
 def set_mxu_precision(mode: str) -> None:
-    """Accepts the JAX package's precision modes, 'high' and 'fast', for API
-    parity.  Both run the same float32 kernel here; a reduced-precision
-    tensor-core variant does not exist yet."""
+    """Select the FIR kernels' arithmetic, as the JAX package's
+    ``set_mxu_precision`` does: 'high' (the default) is float32-accurate;
+    'fast' makes the tensor-core route (``csrc/fir_tc.cu``: mode fm of
+    ``fir_fm_exact``, ``fir_fm_mxu``) run one bf16 pass, the TPU kernels'
+    'x1'.  The staged and warp kernels, and every plain version, compute in
+    float32 either way."""
+    global _PRECISION
     if mode not in ("high", "fast"):
         raise ConfigError(f"set_mxu_precision: unknown mode {mode!r} "
                           "(use 'high' or 'fast')")
+    _PRECISION = mode
+
+
+def mxu_precision() -> str:
+    """The mode last set by :func:`set_mxu_precision`."""
+    return _PRECISION
 
 
 class FIRFilter(Processor):

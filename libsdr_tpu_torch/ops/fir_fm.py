@@ -30,25 +30,41 @@ and for the AM and USB modes ``out = gain * sig`` or, with the AGC,
 Each entry dispatches on the device of its input: a CPU tensor takes its
 plain PyTorch version (``*_plain``, beside it); a CUDA tensor launches the
 hand-written kernels of ``csrc/`` or raises.  Each entry counts its kernel
-launches in ``<entry>.launches``.
+launches in ``<entry>.launches`` and, by the kernel that ran, in
+``<entry>.routes`` (``{"tc": n, "staged": n, "warp": n}``).
 
-Two kernels, by stride.  Strides up to 40 in modes fm and usb, and up to
-16 in modes fir and am, take the staged kernel; larger ones the
-warp-per-output kernel.  The cut is where the two kernels' times on an
-H100 cross (``tools/fir_paths.py``; PERF.md).
+Three kernels, by shape (``csrc/fir_common.cuh::route_of``).  Mode fm
+(:func:`fir_fm_exact`) takes the tensor-core kernel (``csrc/fir_tc.cu``) at
+strides 4 to 16 with float32 planes and 4 to 40 with bfloat16 planes,
+where its plan fits in shared memory: the FIR as the TPU kernel's frame
+matmul on bf16 tensor cores, f32-accurate in three passes (two for
+bfloat16 planes; one after ``set_mxu_precision('fast')``,
+``ops/fir_tc.py``).  Every other launch takes the staged kernel at strides
+up to 40 in modes fm, usb and afsk and up to 16 in modes fir and am, and
+the warp-per-output kernel above.  The cuts are where the kernels' times on
+an H100 cross (``tools/fir_paths.py``, mode fm at D = 2..40, 64 ch x 2^24,
+T = 32 + D - 1; PERF.md): at D = 4 the tensor-core kernel takes 4.5 ms
+against the staged kernel's 5.9 with float32 planes and 3.5 against 5.5
+with bfloat16; it loses at D = 3, and with float32 planes at D = 24 and
+32 (7.9 against 6.6 ms at 24).
 
 Chunks.  Each channel's B/D outputs are cut into K chunks, K as large as the
 card's resident slots allow in one wave, and each chunk is one block of the
-staged kernel (chunks of at least 4096 outputs) or one warp of the warp
-kernel (at least 64 outputs).  The de-emphasis state crosses chunk edges
-through two small follow-up kernels: a per-channel scan of the chunk-end
-values and a fix-up of each later chunk's head.  The AGC runs after the FIR
-kernel in three launches of its own (``csrc/agc.cu``).
+tensor-core or the staged kernel (chunks of at least 4096 outputs) or one
+warp of the warp kernel (at least 64 outputs).  The de-emphasis state
+crosses chunk edges through two small follow-up kernels: a per-channel scan
+of the chunk-end values and a fix-up of each later chunk's head.  The AGC
+runs after the FIR kernel in three launches of its own (``csrc/agc.cu``).
 
 The kernels' shape gate.  They take any C with C*K < 2^31, any T >= 1, any
 D >= 1 and any B that is a multiple of D, with one limit on shared memory
 (232,448 bytes a block on an H100):
 
+* the tensor-core kernel: two raw stages and the converted span of a tile
+  of 16-64 frames, and the band of the tap matrix (``ops/fir_tc.tc_plan``);
+  the main path (T = 67, D = 4) plans frames of 14 outputs, 64 a tile, in
+  106 KB with float32 planes (two blocks an SM).  Where no plan fits (T in
+  the thousands) the launch takes the staged kernel;
 * the staged kernel: a block of 256 threads stages one segment of 256*R
   outputs (R = 4, 2 or 1, the largest that fits) polyphase with one pad
   slot after every R samples (none for R = 1), about
@@ -57,8 +73,7 @@ D >= 1 and any B that is a multiple of D, with one limit on shared memory
       Q = 256*R + (T-1)//D,
 
   itemsize 4 for float32 planes and 2 for bfloat16; with float32 planes
-  this holds for T up to about 12,000 at D = 16 and 9,400 at D = 40.  The
-  bench configuration (T = 67, D = 4) runs at R = 4 in 42 KB.
+  this holds for T up to about 12,000 at D = 16 and 9,400 at D = 40.
 * the warp kernel: the taps and eight per-warp staging buffers of
   max(512, T) samples, 8*T + 16*max(512, T)*itemsize bytes, so
   T <= 3,228 for float32 planes and T <= 5,811 for bfloat16.
@@ -303,10 +318,19 @@ def fir_afsk_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
     return out, y_last, tails[0], tails[1]
 
 
-# Kernel launches, counted where they happen.
+# Kernel launches, counted where they happen, in all and by route.
+_ROUTES = ("staged", "warp", "tc")   # csrc/fir_common.cuh::Route
+
+
+def reset_counts(entry) -> None:
+    """Set an entry's launch counts to 0."""
+    entry.launches = 0
+    entry.routes = dict.fromkeys(_ROUTES, 0)
+
+
 for _entry in (fir_fm_exact, fir_exact, fir_am_exact, fir_usb_exact,
                fir_afsk_exact):
-    _entry.launches = 0
+    reset_counts(_entry)
 
 # The C interface's modes (csrc/fir_common.cuh).
 _MODE_FM, _MODE_FIR, _MODE_AM, _MODE_USB, _MODE_AFSK = 0, 1, 2, 3, 4
@@ -365,12 +389,15 @@ def _small(name, dev):
     return small
 
 
-def _chunks(name, lib, mode, c, n_out, t, d, ell, xr):
-    """K for a launch of n_out outputs a channel, or ValueError outside
-    the gate."""
+def _chunks(name, lib, mode, c, n_out, t, d, ell, xr, tc=False):
+    """(K, route name) for a launch of n_out outputs a channel, or
+    ValueError outside the gate; ``tc``: whether the entry's mode has the
+    tensor-core kernel."""
+    route = ctypes.c_int(-1)
     with torch.cuda.device(xr.device):
-        k = lib.sdr_fir_chunks(mode, c, n_out, t, d, ell,
-                               int(xr.dtype == torch.bfloat16))
+        k = lib.sdr_fir_chunks(mode, int(tc), c, n_out, t, d, ell,
+                               int(xr.dtype == torch.bfloat16), _fast(),
+                               ctypes.byref(route))
     if k == -1:
         raise ValueError(f"{name}: shape outside the kernel's gate (C={c}, "
                          f"{n_out} outputs, T={t}, D={d}, L={ell}, "
@@ -378,7 +405,19 @@ def _chunks(name, lib, mode, c, n_out, t, d, ell, xr):
     if k < -1:
         msg = lib.sdr_cuda_error_string(-2 - k).decode()
         raise RuntimeError(f"{name}: device query failed: {msg}")
-    return k
+    return k, _ROUTES[route.value]
+
+
+def _fast() -> int:
+    """1 after set_mxu_precision('fast'): the tensor-core route's one
+    bf16 pass."""
+    from libsdr_tpu_torch.ops.fir import mxu_precision
+    return int(mxu_precision() == "fast")
+
+
+def _count(entry, route: str) -> None:
+    entry.launches += 1
+    entry.routes[route] += 1
 
 
 def _check(name, lib, rc):
@@ -459,7 +498,8 @@ def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
         ops = (ctypes.c_void_p * 13)(*[v.data_ptr() for v in (
             tpl + [n0] + u_in + u_out)])
     lib = _build.library()
-    k = _chunks(name, lib, mode, c, n, t, d, ell, xr)
+    k, route = _chunks(name, lib, mode, c, n, t, d, ell, xr,
+                       tc=mode == _MODE_FM)
     out = empty(c, n)
     out_i = empty(c, n) if mode == _MODE_FIR else None
     a, bc, s_in, s_out, ends, k_agc = _iir_operands(
@@ -472,10 +512,10 @@ def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
             _ptr(ri), _ptr(phr), _ptr(phi), out.data_ptr(), _ptr(out_i),
             _ptr(ylr), _ptr(yli), _ptr(s_in), _ptr(s_out), _ptr(ends), c, b,
             t, d, k, k_agc, rot.real, rot.imag, float(gain), a, bc,
-            int(iir_ab is not None), ops, ell,
+            int(iir_ab is not None), ops, ell, _fast(),
             int(xr.dtype == torch.bfloat16), ctypes.c_void_p(stream))
     _check(name, lib, rc)
-    entry.launches += 1
+    _count(entry, route)
     y_last = None if ylr is None else Complex(ylr, yli)
     if mode == _MODE_AFSK:
         return out, None, y_last, (Complex(*u_out[:2]), Complex(*u_out[2:]))

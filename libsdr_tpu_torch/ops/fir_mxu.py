@@ -29,13 +29,17 @@ other than ``stride - 1`` to it, one launch a block, with windows that
 start in the (C, T-1) carry tail.
 
 Each entry dispatches on the device of its input: a CPU tensor takes its
-plain PyTorch version (``*_plain``, beside it); a CUDA tensor launches the
-staged or warp kernel of ``csrc/fir_fm_exact.cu`` and ``csrc/fir_warp.cu``
-with the caller's window start (C entries ``sdr_fir_mxu`` and
+plain PyTorch version (``*_plain``, beside it); a CUDA tensor launches a
+kernel with the caller's window start (C entries ``sdr_fir_mxu`` and
 ``sdr_fir_fm_mxu``; the AGC is ``csrc/agc.cu``'s passes), or raises
-``ValueError`` naming the limit it is outside.  K5's launches, from
+``ValueError`` naming the limit it is outside.  K5 runs the staged or warp
+kernel of ``csrc/fir_fm_exact.cu`` and ``csrc/fir_warp.cu``; K6, in both
+modes, the tensor-core kernel of ``csrc/fir_tc.cu`` at the strides of
+``ops/fir_fm.py``'s cut where its plan fits (``ops/fir_tc.py``; one bf16
+pass after
+``set_mxu_precision('fast')``), else the same two.  K5's launches, from
 :func:`fir_mxu` and :func:`fir_offset`, count in ``fir_mxu.launches``;
-K6's in ``fir_fm_mxu.launches``.
+K6's in ``fir_fm_mxu.launches``; both by route in ``.routes``.
 
 The gate, re-derived for Hopper (:func:`mxu_fir_supported`): the TPU's
 MXU rows, 8/16-row alignment and VMEM budget do not apply, since the CUDA
@@ -58,8 +62,9 @@ from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.ops.fir import _conv1d, _n_taps, _taps_planes
 from libsdr_tpu_torch.ops.fir_fm import (_MODE_AM, _MODE_FIR, _MODE_FM,
                                          _PLANE_DTYPES, _agc_plain, _check,
-                                         _checked_planes, _chunks, _fm_plain,
-                                         _iir_operands, _plain, _ptr, _small)
+                                         _checked_planes, _chunks, _count,
+                                         _fast, _fm_plain, _iir_operands,
+                                         _plain, _ptr, _small, reset_counts)
 
 _S = 128        # outputs per frame
 _NSP = 128      # invalid outputs at the end of fir_mxu's and fir_fm_mxu's y
@@ -195,7 +200,7 @@ def _launch_fir(name, x, taps, d, s0, n_out, wrap, tail=None) -> Complex:
         tr = small(tail.re, xr.dtype, (c, t - 1))
         ti = small(tail.im, xr.dtype, (c, t - 1))
     lib = _build.library()
-    k = _chunks(name, lib, _MODE_FIR, c, n_out, t, d, 0, xr)
+    k, route = _chunks(name, lib, _MODE_FIR, c, n_out, t, d, 0, xr)
     out = torch.empty((c, n_out), dtype=torch.float32, device=dev)
     out_i = torch.empty_like(out)
     with torch.cuda.device(dev):
@@ -206,7 +211,7 @@ def _launch_fir(name, x, taps, d, s0, n_out, wrap, tail=None) -> Complex:
             n_out, wrap, k, int(xr.dtype == torch.bfloat16),
             ctypes.c_void_p(stream))
     _check(name, lib, rc)
-    fir_mxu.launches += 1
+    _count(fir_mxu, route)
     return Complex(out, out_i)
 
 
@@ -287,7 +292,7 @@ def fir_fm_mxu(x: Complex, taps, stride: int, offset: int,
         pi = small(lead_last.im.reshape(c), torch.float32, (c,))
         ylr, yli = empty(c), empty(c)   # y[n_out - 1]: not returned
     lib = _build.library()
-    k = _chunks(name, lib, kmode, c, n_out, t, d, 0, xr)
+    k, route = _chunks(name, lib, kmode, c, n_out, t, d, 0, xr, tc=True)
     out = empty(c, n_out)
     a, bc, s_in, s_out, ends, k_agc = _iir_operands(
         name, lib, kmode, c, n_out, k, deemph_ab,
@@ -300,16 +305,16 @@ def fir_fm_mxu(x: Complex, taps, stride: int, offset: int,
             gi.data_ptr(), _ptr(pr), _ptr(pi), out.data_ptr(), _ptr(ylr),
             _ptr(yli), _ptr(s_in), _ptr(s_out), _ptr(ends), c, b, t, d, s0,
             k, k_agc, rot.real, rot.imag, float(gain), a, bc,
-            int(deemph_ab is not None), int(xr.dtype == torch.bfloat16),
-            ctypes.c_void_p(stream))
+            int(deemph_ab is not None), _fast(),
+            int(xr.dtype == torch.bfloat16), ctypes.c_void_p(stream))
     _check(name, lib, rc)
-    fir_fm_mxu.launches += 1
+    _count(fir_fm_mxu, route)
     if mode == "am" and deemph_ab is not None:
         return out, s_out[:, None], _NSP
     return out, _NSP
 
 
-# Kernel launches, counted where they happen: K5 (fir_mxu, fir_offset) and
-# K6.
-fir_mxu.launches = 0
-fir_fm_mxu.launches = 0
+# Kernel launches, counted where they happen, in all and by route: K5
+# (fir_mxu, fir_offset) and K6.
+reset_counts(fir_mxu)
+reset_counts(fir_fm_mxu)

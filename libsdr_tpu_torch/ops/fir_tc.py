@@ -1,0 +1,290 @@
+"""The tensor-core route of the FM-mode FIR (``csrc/fir_tc.cu``): its layout
+and a plain emulation of its arithmetic.
+
+K1a (``ops/fir_fm.fir_fm_exact``) and K6 (``ops/fir_mxu.fir_fm_mxu``, modes
+'fm' and 'am') launch the tensor-core kernel at strides 4 to 16 with
+float32 planes and 4 to 40 with bfloat16 planes, where its plan fits in
+shared memory (``csrc/fir_common.cuh::route_of``); this module
+holds what that kernel's arithmetic and layout are, in plain PyTorch, so
+that the CPU tests reach them:
+
+* :func:`tc_plan`: the kernel's plan of a shape, the rule of
+  ``fir_tc.cu::tc_plan`` (frames of S outputs with S*D a multiple of 8,
+  fewest ldmatrix bank conflicts, then the largest S; 64 frames a tile
+  where two blocks fit an SM, else 32 or 16);
+* :func:`tap_matrix`: the (2Kp, 2S) tap matrix ``[[Gr, Gi], [-Gi, Gr]]``,
+  ``G[k, s] = g[k - s*D]``, columns interleaved (Re y, Im y) of each
+  output; :func:`tap_blocks`: its band, split into bf16 hi and lo, in the
+  kernel's shared-memory order;
+* :func:`frames`: the GEMM rows, each frame's window of Kp samples of a
+  span, real and imaginary planes side by side;
+* :func:`fir_y_split`: y as the kernel computes it, the frame GEMM in 3, 2
+  or 1 bf16 passes with float32 sums (``passes=None``: one float32 GEMM),
+  and :func:`fm_exact_split` / :func:`fm_mxu_split`, K1a's and K6's
+  results with it.
+
+The passes are the TPU kernel's (``libsdr_tpu/ops/pallas_fir_mxu.py::
+_make_mm``): float32 planes ``x_hi*g_hi + x_hi*g_lo + x_lo*g_hi``, bfloat16
+planes ``x*g_hi + x*g_lo``, and after ``set_mxu_precision('fast')`` one
+pass ``x_hi*g_hi``.  :func:`passes_for` gives the count.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from libsdr_tpu_torch.core import cplx
+from libsdr_tpu_torch.core.cplx import Complex
+from libsdr_tpu_torch.ops.fir import _n_taps, _taps_planes, full_f32
+
+# Shared memory of an H100 (SXM): the most a block may opt in to, and an
+# SM's (two blocks an SM each reserve 1 KB of it).
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472
+MAX_NT = 4      # n-tiles (8 columns, 4 outputs) a frame, at most
+THREADS = 256   # a block
+SLOTS = THREADS * 4   # epilogue outputs a tile (4 a thread)
+HEADER = 128    # mbarriers, carried state, scan scratch
+
+
+class TcPlan(NamedTuple):
+    S: int      # outputs a frame
+    F: int      # frames a tile: 64, 32 or 16
+    Kp: int     # a frame's window, padded to a multiple of 16
+    NTL: int    # n-tiles a frame
+    KBW: int    # k-tiles of the widest n-tile band
+    LA: int     # samples of each converted array
+    CAP: int    # samples of a raw stage buffer of one plane
+    bytes: int  # shared memory of a block
+
+
+def passes_for(dtype, fast: bool) -> int:
+    """bf16 passes of the kernel: 1 with 'fast', else 3 for float32 planes
+    and 2 for bfloat16 planes (their samples are exact in bf16)."""
+    if fast:
+        return 1
+    return 2 if dtype == torch.bfloat16 else 3
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def band(nt: int, s: int, d: int, t: int, kt: int) -> tuple[int, int]:
+    """k-tiles [lo, hi) of n-tile nt's nonzero taps (outputs 4nt..4nt+3)."""
+    s_hi = min(4 * nt + 3, s - 1)
+    return (4 * nt * d) // 16, min(kt, -(-(s_hi * d + t) // 16))
+
+
+def ldsm_ways(stride: int) -> int:
+    """Bank-conflict degree of 8 ldmatrix rows ``stride`` bytes apart."""
+    slots = [r * stride % 128 // 16 for r in range(8)]
+    return max(slots.count(v) for v in slots)
+
+
+def make_plan(t: int, d: int, itemsize: int, passes: int, s: int,
+              f: int) -> TcPlan:
+    kp = _round_up((s - 1) * d + t, 16)
+    kt = kp // 16
+    ntl = -(-s // 4)
+    kbw = max(hi - lo for lo, hi in (band(nt, s, d, t, kt)
+                                     for nt in range(ntl)))
+    per = 16 // itemsize
+    la = _round_up((f - 1) * s * d + kp, 8)
+    cap = _round_up(max((f * s - 1) * d + t, la) + 2 * per, per)
+    arrays = max((4 if passes == 3 else 2) * la * 2,
+                 8 * (SLOTS - 1 + (SLOTS - 1) // 4 + 1))
+    total = (HEADER + 4 * cap * itemsize + _round_up(arrays, 16)
+             + 2 * ntl * kbw * 512)
+    return TcPlan(s, f, kp, ntl, kbw, la, cap, total)
+
+
+def tc_plan(t: int, d: int, itemsize: int, passes: int,
+            smem_block: int = SMEM_BLOCK,
+            smem_sm: int = SMEM_SM) -> Optional[TcPlan]:
+    """The kernel's plan of a shape (``fir_tc.cu::tc_plan``), or None when
+    none fits in shared memory (the launch then takes the staged or warp
+    kernel)."""
+    if t < 1 or d < 1:
+        return None
+    cands = sorted((s for s in range(4 * MAX_NT, 0, -1) if s * d % 8 == 0),
+                   key=lambda s: (ldsm_ways(2 * s * d), -s))
+    for limit in (smem_sm // 2 - 1024, smem_block):
+        for mw in (4, 2, 1):
+            for s in cands:
+                plan = make_plan(t, d, itemsize, passes, s, 16 * mw)
+                if plan.bytes <= limit:
+                    return plan
+    return None
+
+
+def mma_ops(t: int, d: int, plan: TcPlan, passes: int) -> float:
+    """Tensor-core operations an output as the kernel runs them: each frame
+    of S outputs takes, for each of the two plane halves and each n-tile,
+    one m16n8k16 product (2*16*8*16 operations for 16 frames) per k-tile
+    of the band and pass."""
+    kt = plan.Kp // 16
+    tiles = sum(hi - lo for lo, hi in (band(nt, plan.S, d, t, kt)
+                                       for nt in range(plan.NTL)))
+    return 2 * tiles * passes * (2 * 16 * 8 * 16) / 16 / plan.S
+
+
+def split_bf16(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of float32 values as float32 tensors holding bf16 numbers:
+    hi = bf16(v) rounded to nearest, lo = bf16(v - hi)."""
+    hi = v.to(torch.bfloat16).float()
+    return hi, (v - hi).to(torch.bfloat16).float()
+
+
+def _taps(taps, device) -> tuple[torch.Tensor, torch.Tensor]:
+    gr, gi = _taps_planes(taps, torch.float32, device)
+    return gr, torch.zeros_like(gr) if gi is None else gi
+
+
+def tap_matrix(taps, d: int, s: int, kp: int, device="cpu") -> torch.Tensor:
+    """The (2Kp, 2S) float32 tap matrix: rows k < Kp multiply a frame's real
+    samples, rows Kp + k its imaginary ones; column 2s is Re y[s] and 2s+1
+    Im y[s]: ``[[Gr, Gi], [-Gi, Gr]]`` with ``G[k, s] = g[k - s*D]``."""
+    gr, gi = _taps(taps, device)
+    t = gr.shape[0]
+    k = torch.arange(kp, device=device)[:, None]
+    i = k - d * torch.arange(s, device=device)[None, :]
+    inside = (i >= 0) & (i < t)
+    ic = i.clamp(0, t - 1)
+    g_r = torch.where(inside, gr[ic], 0.0)
+    g_i = torch.where(inside, gi[ic], 0.0)
+    m = torch.empty((2 * kp, 2 * s), dtype=torch.float32, device=device)
+    m[:kp, 0::2], m[:kp, 1::2] = g_r, g_i
+    m[kp:, 0::2], m[kp:, 1::2] = -g_i, g_r
+    return m
+
+
+def tap_blocks(taps, d: int, plan: TcPlan, device="cpu") -> torch.Tensor:
+    """The tap matrix's band as the kernel stores it in shared memory:
+    (2 halves, NTL n-tiles, KBW k-tiles, 2 (hi, lo), 2 (k 0-7, 8-15),
+    8 columns, 8 k) bfloat16, block [h, nt, kb] holding rows
+    16*(lo + kb) .. + 15 of half h and columns 8nt .. 8nt + 7, lo the band's
+    first k-tile; zeros past the band."""
+    t = _n_taps(taps)
+    kt = plan.Kp // 16
+    ntl, kbw = plan.NTL, plan.KBW
+    dense = torch.zeros((2 * plan.Kp, 8 * ntl), dtype=torch.float32,
+                        device=device)
+    dense[:, :2 * plan.S] = tap_matrix(taps, d, plan.S, plan.Kp, device)
+    hi, lo_part = split_bf16(dense)
+    out = torch.zeros((2, ntl, kbw, 2, 2, 8, 8), dtype=torch.bfloat16,
+                      device=device)
+    for h in range(2):
+        for nt in range(ntl):
+            lo, top = band(nt, plan.S, d, t, kt)
+            for kb in range(top - lo):
+                rows = slice(h * plan.Kp + 16 * (lo + kb),
+                             h * plan.Kp + 16 * (lo + kb) + 16)
+                for hl, part in enumerate((hi, lo_part)):
+                    blk = part[rows, 8 * nt:8 * nt + 8]   # (16 k, 8 n)
+                    out[h, nt, kb, hl] = blk.reshape(2, 8, 8).transpose(
+                        1, 2).to(torch.bfloat16)
+    return out
+
+
+def frames(span: Complex, s: int, d: int, kp: int, n_frames: int
+           ) -> torch.Tensor:
+    """The GEMM rows of a span (C, L) of samples starting at output 0's
+    window: frame f's window is samples f*S*D .. f*S*D + Kp - 1 (zeros past
+    the span), real then imaginary: (C, n_frames, 2Kp)."""
+    need = (n_frames - 1) * s * d + kp
+    pad = max(0, need - span.re.shape[-1])
+
+    def rows(v):
+        v = torch.nn.functional.pad(v.float(), (0, pad))[..., :need]
+        return v.unfold(-1, kp, s * d)
+
+    return torch.cat([rows(span.re), rows(span.im)], dim=-1)
+
+
+def fir_y_split(span: Complex, taps, d: int, n_out: int,
+                passes: Optional[int] = 3, s: Optional[int] = None
+                ) -> Complex:
+    """y[j] = sum_i g[i] * span[j*D + i] for j < n_out, as the frame GEMM
+    of the tensor-core kernel: rows :func:`frames`, matrix
+    :func:`tap_matrix`, in ``passes`` bf16 passes (3: a_hi*b_hi + a_hi*b_lo
+    + a_lo*b_hi, 2: a_hi*b_hi + a_hi*b_lo, 1: a_hi*b_hi) with float32 sums,
+    or with ``passes=None`` one float32 GEMM.  s: outputs a frame (the
+    plan's by default)."""
+    t = _n_taps(taps)
+    dev = span.re.device
+    if s is None:
+        plan = tc_plan(t, d, 4, 3)
+        s = plan.S if plan is not None else 8
+    kp = _round_up((s - 1) * d + t, 16)
+    n_frames = -(-n_out // s)
+    a = frames(span, s, d, kp, n_frames)
+    m = tap_matrix(taps, d, s, kp, dev)
+    with full_f32():
+        if passes is None:
+            y = a @ m
+        else:
+            a_hi, a_lo = split_bf16(a)
+            m_hi, m_lo = split_bf16(m)
+            y = a_hi @ m_hi
+            if passes >= 2:
+                y = y + a_hi @ m_lo
+            if passes == 3:
+                y = y + a_lo @ m_hi
+    lead = y.shape[:-2]
+    y = y.reshape(lead + (n_frames * s, 2))[..., :n_out, :]
+    return Complex(y[..., 0].contiguous(), y[..., 1].contiguous())
+
+
+def span_k1(x: Complex, tail: Complex, d: int) -> Complex:
+    """K1's span: window j starts at x[j*D + D - T], in the (C, T-1) carry
+    tail for the first ones."""
+    return cplx.concatenate([tail.to(x.re.dtype), x], axis=-1)[..., d - 1:]
+
+
+def span_k6(x: Complex, t: int, d: int, offset: int) -> Complex:
+    """K6's span from window start ``offset``: the block, the last frame's
+    windows reading past it into the frame before it (x[n - 128*D])."""
+    b = x.re.shape[-1]
+    sd = 128 * d
+    past = offset + (b // d - 1) * d + t - b
+    if past > 0:
+        x = cplx.concatenate([x, x[..., b - sd:b - sd + past]], axis=-1)
+    return x[..., offset:]
+
+
+def fm_exact_split(x: Complex, taps, stride: int, tail: Complex,
+                   prev: Complex, rot: complex, gain: float, deemph_ab=None,
+                   dstate=None, passes: int = 3):
+    """K1a (``fir_fm_exact``) with y from :func:`fir_y_split`: (out, y_last)."""
+    from libsdr_tpu_torch.ops.fir_fm import _fm_plain
+
+    d = int(stride)
+    y = fir_y_split(span_k1(x, tail, d), taps, d, x.re.shape[-1] // d,
+                    passes)
+    return _fm_plain(y, prev, rot, gain, deemph_ab, dstate), y[..., -1]
+
+
+def fm_mxu_split(x: Complex, taps, stride: int, offset: int,
+                 lead_last: Complex, rot: complex, gain: float,
+                 deemph_ab=None, deemph_lead=None, mode: str = "fm",
+                 passes: int = 3):
+    """K6 (``fir_fm_mxu``) with y from :func:`fir_y_split`: its results."""
+    from libsdr_tpu_torch.ops.fir_fm import _agc_plain, _fm_plain
+    from libsdr_tpu_torch.ops.fir_mxu import _NSP
+
+    d = int(stride)
+    t = _n_taps(taps)
+    y = fir_y_split(span_k6(x, t, d, int(offset)), taps, d,
+                    x.re.shape[-1] // d, passes)
+    c = y.re.shape[0]
+    state = None if deemph_ab is None else deemph_lead.reshape(c)
+    if mode == "am":
+        audio, sd = _agc_plain(y.abs(), gain, deemph_ab, state)
+        if deemph_ab is None:
+            return audio, _NSP
+        return audio, sd[:, None], _NSP
+    return _fm_plain(y, lead_last.reshape(c), rot, gain, deemph_ab,
+                     state), _NSP

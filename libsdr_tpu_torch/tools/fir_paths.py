@@ -1,12 +1,16 @@
-"""The staged and the warp kernel of ``ops/fir_fm.py``, stride by stride.
+"""The staged, the warp and the tensor-core kernel of ``ops/fir_fm.py``,
+stride by stride.
 
     python -m libsdr_tpu_torch.tools.fir_paths [--strides 5,8,16,24,40,80]
-        [--channels 64] [--block 16777216] [--out fir_paths.json]
+        [--modes fm,fir,am,usb] [--channels 64] [--block 16777216]
+        [--out fir_paths.json]
 
-Needs one CUDA card and nvcc.  Builds the kernel library twice, in
+Needs one CUDA card and nvcc.  Builds the kernel library three times, in
 parallel: with every stride on the staged kernel (``SDR_STAGED_MAX_D``
-large) and with every stride on the warp kernel (``SDR_STAGED_MAX_D=0``).
-Then, for every mode (fm with de-emphasis, fir, am and usb with the AGC,
+large, ``SDR_TC_MAX_D=0``), with every stride on the warp kernel
+(``SDR_STAGED_MAX_D=0``, ``SDR_TC_MAX_D=0``) and, for mode fm, with every
+stride whose plan fits on the tensor-core kernel (``SDR_TC_MAX_D``
+large).  Then, for every mode (fm with de-emphasis, fir, am and usb with the AGC,
 afsk with a 40-sample correlator), stride D and plane dtype, on C channels
 of about ``--block`` samples with T = order + D - 1 taps (the rx chains'
 orders: 32 for fm and am, 64 for fir and usb; the AX.25 bank's 48 for
@@ -14,8 +18,9 @@ afsk), it holds the staged and the warp kernel against the plain
 version twice: from the op's initial carry ("cold": block 0, zero
 history) and from a warm carry (block 1, after the plain version ran
 block 0).  It times each kernel on block 1 with CUDA events, in the order
-staged, warp, warp, staged.  One line per case, and all of them as JSON
-in ``--out``.
+staged, warp, tc, tc, warp, staged (tc in mode fm only).  Each result
+names the route its launches took.  One line per case, and all of them as
+JSON in ``--out``.
 
 Errors are those of chip_smoke.py: fm absolute (rad times the gain), fir
 and AGC-free modes relative to the largest output, AGC absolute on the
@@ -41,8 +46,10 @@ FS = 960_000.0
 DEV = "cuda"
 ORDER = {"fm": 32, "fir": 64, "am": 32, "usb": 64, "afsk": 48}
 AFSK_L = 40   # the correlator window of mode afsk (the AX.25 bank's)
-VARIANTS = {"staged": ("SDR_STAGED_MAX_D=1000000",),
-            "warp": ("SDR_STAGED_MAX_D=0",)}
+VARIANTS = {"staged": ("SDR_STAGED_MAX_D=1000000", "SDR_TC_MAX_D=0"),
+            "warp": ("SDR_STAGED_MAX_D=0", "SDR_TC_MAX_D=0"),
+            "tc": ("SDR_TC_MAX_D=1000000",)}
+TC_MODES = ("fm",)   # the modes of K1 with a tensor-core route
 
 
 def fm_planes(gen, c, b, d, t0):
@@ -201,7 +208,10 @@ def run_case(case, dtype):
     x0 = case.block(0, dtype)
     a0, kw0 = case.args(x0, case.state0)
     ref0 = case.plain(*a0, **kw0)
-    for v in ("staged", "warp"):
+    kernels = ("staged", "warp") + (("tc",) if case.mode in TC_MODES
+                                    else ())
+    for v in kernels:
+        before = dict(case.entry.routes)
         with using(v):
             try:
                 got = case.entry(*a0, **kw0)
@@ -209,7 +219,9 @@ def run_case(case, dtype):
                 res[v] = {"outside_gate": str(e)}
                 continue
         torch.cuda.synchronize()
-        res[v] = {"err_cold": case.error(got, ref0)}
+        res[v] = {"err_cold": case.error(got, ref0),
+                  "route": [r for r, n in case.entry.routes.items()
+                            if n > before[r]][0]}
         if case.mode == "fm":
             bad = ((got[0] - ref0[0]).abs() > 1e-3).nonzero()
             res[v]["cold_outputs_off"] = int(bad.shape[0])
@@ -220,7 +232,7 @@ def run_case(case, dtype):
     x1 = case.block(1, dtype)
     a1, kw1 = case.args(x1, state)
     ref1 = case.plain(*a1, **kw1)
-    for v in ("staged", "warp"):
+    for v in kernels:
         if "outside_gate" in res[v]:
             continue
         with using(v):
@@ -229,8 +241,7 @@ def run_case(case, dtype):
         res[v]["err_warm"] = case.error(got, ref1)
         del got
     del ref1
-    order = ("staged", "warp", "warp", "staged")
-    for v in order:
+    for v in kernels + kernels[::-1]:
         if "outside_gate" in res[v]:
             continue
         with using(v):

@@ -1,18 +1,26 @@
 """Time the decimating-FIR kernels at the main path's shapes on the card.
 
-    python libsdr_tpu_torch/tools/fir_times.py [--planes f32 bf16] [--reps 10]
+    python libsdr_tpu_torch/tools/fir_times.py [--planes f32 bf16]
+        [--reps 10] [--variants default staged]
 
 64 channels x 2^24 samples, T = 67 random complex taps, D = 4: K1a
 (``fir_fm_exact`` with de-emphasis), K1b (``fir_exact``) and, where the
 package has them, K5 (``fir_offset`` at offset 0, F1's call) and K6
 (``fir_fm_mxu`` at window start 1 in fm with de-emphasis and am with the
 AGC).  Each kernel is timed with CUDA events over ``--reps`` launches after
-one warm-up; one JSON line per plane dtype, with the card's name and power
-limit.
+one warm-up; one JSON line per plane dtype and build variant, with the
+card's name and power limit and, where the entries count them, the routes
+the timed launches took.
+
+Build variants: ``default`` is the library as the package builds it;
+``staged`` is built with ``SDR_TC_MAX_D=0``, so that every launch takes the
+staged or warp kernel (the tensor-core route's comparison, in turns with
+``default`` in one call).
 
 The script imports ``libsdr_tpu_torch`` from the path, so one call can time
 two trees in turns (say parent, change, change, parent) by running it with
-``PYTHONPATH`` set to each tree's root.
+``PYTHONPATH`` set to each tree's root; a tree without the tensor-core
+route ignores the ``staged`` variant's define.
 """
 
 from __future__ import annotations
@@ -20,11 +28,13 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+from unittest import mock
 
 import numpy as np
 import torch
 
 C, B, T, D = 64, 1 << 24, 67, 4
+VARIANTS = {"default": (), "staged": ("SDR_TC_MAX_D=0",)}
 
 
 def _ms(fn, reps: int) -> float:
@@ -39,13 +49,21 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def _routes(entries):
+    return {e.__name__: dict(e.routes) for e in entries
+            if hasattr(e, "routes")}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--planes", nargs="+", default=["f32", "bf16"],
                     choices=["f32", "bf16"])
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--variants", nargs="+", default=["default"],
+                    choices=list(VARIANTS))
     args = ap.parse_args(argv)
 
+    from libsdr_tpu_torch import _build
     from libsdr_tpu_torch.core.cplx import Complex
     from libsdr_tpu_torch.ops import fir_fm as F
     try:
@@ -68,6 +86,8 @@ def main(argv=None) -> int:
     x32 = cn(C, B)
     prev = cn(C)
     state = torch.full((C,), 0.5, device="cuda")
+    entries = [F.fir_fm_exact, F.fir_exact] + (
+        [M.fir_mxu, M.fir_fm_mxu] if M is not None else [])
     for plane in args.planes:
         x = x32 if plane == "f32" else x32.to(torch.bfloat16)
         tail = cn(C, T - 1).to(x.re.dtype)
@@ -86,9 +106,19 @@ def main(argv=None) -> int:
             calls["K6 fir_fm_mxu am"] = lambda: M.fir_fm_mxu(
                 x, taps, D, 1, lead, 1.0, 0.125, (lam, 1 - lam),
                 state[:, None], mode="am")
-        times = {name: _ms(fn, args.reps) for name, fn in calls.items()}
-        print(json.dumps({"planes": plane, "shape": [C, B, T, D],
-                          "ms": times, "card": smi}))
+        for variant in args.variants:
+            lib = _build.library(VARIANTS[variant])
+            with mock.patch.object(_build, "library", lambda *a: lib):
+                before = _routes(entries)
+                times = {name: _ms(fn, args.reps)
+                         for name, fn in calls.items()}
+                after = _routes(entries)
+            taken = {name: {r: n - before[name][r] for r, n in rs.items()
+                            if n > before[name][r]}
+                     for name, rs in after.items()}
+            print(json.dumps({"planes": plane, "variant": variant,
+                              "shape": [C, B, T, D], "ms": times,
+                              "routes": taken, "card": smi}), flush=True)
         del x, tail
         torch.cuda.empty_cache()
     return 0

@@ -909,3 +909,253 @@ def test_mxu_entries_refuse_what_they_do_not_take(cuda):
         M.fir_fm_mxu(planes(2, 1024), taps(9), 4, 0, lead, 1.0, 1.0,
                      mode="usb")
     assert (M.fir_mxu.launches, M.fir_fm_mxu.launches) == n0
+
+
+# The tensor-core route (csrc/fir_tc.cu): mode fm of K1a and modes fm and am
+# of K6 at strides up to the cut, held against the split emulation of
+# ops/fir_tc.py in the same passes (3 on float32 planes, 2 on bfloat16, 1
+# after set_mxu_precision('fast')): the same bf16 products summed in
+# another order, ~1e-6 apart, so an indexing or carry fault shows as an
+# error of order 1; FM within SPLIT_FM rad, the rest within SPLIT_REL of
+# the largest output.  At 'high' they are also held against the float32
+# plain versions under the gates above.
+SPLIT_FM = 1e-5
+SPLIT_REL = 2e-6
+
+
+def _precision(fast):
+    from libsdr_tpu_torch.ops.fir import set_mxu_precision
+    set_mxu_precision("fast" if fast else "high")
+
+
+# the route's strides (csrc/fir_common.cuh::tc_min_d, tc_max_d): 4-16 with
+# float32 planes, 4-40 with bfloat16
+TC_K1A = [(dt, d, t, c) for dt in (torch.float32, torch.bfloat16)
+          for d, t, c in ((4, 67, 64), (5, 68, 3), (8, 67, 5), (10, 41, 3),
+                          (16, 47, 3))] + [
+    (torch.bfloat16, 24, 55, 3), (torch.bfloat16, 40, 71, 3)]
+TC_K6 = [(dt, d, t, s0, c) for dt in (torch.float32, torch.bfloat16)
+         for d, t, s0, c in ((4, 67, 1, 64), (4, 67, 0, 3), (4, 67, 4, 1),
+                             (8, 67, 9, 3), (16, 67, 9, 3))] + [
+    (torch.bfloat16, 40, 71, 1, 3)]
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("deemph", [True, False])
+@pytest.mark.parametrize("dtype,d,t,c", TC_K1A)
+def test_tc_kernel_matches_split_and_plain(cuda, dtype, deemph, fast, d, t,
+                                           c):
+    """K1a on the tensor-core route over a warm block and three
+    carry-chained blocks of 11,017 outputs a channel (chunks K > 1, a
+    ragged last tile): every output and y_last against the split
+    emulation, and at 'high' against the plain version."""
+    from libsdr_tpu_torch.ops import fir_tc as TC
+
+    b = d * (5 * 2048 + 777)
+    op = _op(d, t, c, b, dtype)
+    carry = op.init_carry(cuda)
+    passes = TC.passes_for(dtype, fast)
+    try:
+        _precision(fast)
+        for k in range(4):
+            x = _fm(c, b, d, k)
+            x = Complex(torch.tensor(x.real, device=cuda).to(dtype),
+                        torch.tensor(x.imag, device=cuda).to(dtype))
+            args = (x, op._taps(cuda), d, carry[0], carry[1], op._rot,
+                    op._gain)
+            kw = dict(deemph_ab=op._dab if deemph else None,
+                      dstate=carry[2] if deemph else None)
+            emu, y_emu = TC.fm_exact_split(*args, **kw, passes=passes)
+            if k == 0:
+                out, y_last = emu, y_emu
+            else:
+                n0 = fir_fm_exact.routes["tc"]
+                out, y_last = fir_fm_exact(*args, **kw)
+                assert fir_fm_exact.routes["tc"] == n0 + 1
+                torch.cuda.synchronize()
+                assert bool(torch.isfinite(out).all())
+                assert float((out - emu).abs().max()) < SPLIT_FM
+                scale = float(y_emu.abs().max())
+                assert float((y_last.re - y_emu.re).abs().max()) < \
+                    SPLIT_REL * scale
+                if not fast:
+                    ref, y_ref = fir_fm_exact_plain(*args, **kw)
+                    assert float((out - ref).abs().max()) < ERR_BOUND
+                    assert float((y_last.re - y_ref.re).abs().max()) < \
+                        ERR_BOUND
+            tail = x[..., b - (t - 1):].map(torch.clone)
+            carry = (tail, y_last, out[..., -1] if deemph else carry[2])
+    finally:
+        _precision(False)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("dtype,d,t,s0,c", TC_K6)
+def test_tc_k6_matches_split_and_plain(cuda, dtype, fast, d, t, s0, c):
+    """K6 on the tensor-core route, fm +- de-emphasis and am +- the AGC
+    ((lam, 1 - lam) and a b of its own), 80 frames of 128 outputs (K > 1,
+    the clamped last frame): every output and the AGC's state against the
+    split emulation, and at 'high' against the plain version."""
+    from libsdr_tpu_torch.ops import fir_mxu as M
+    from libsdr_tpu_torch.ops import fir_tc as TC
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7 * d + s0)
+    b = 80 * 128 * d
+    taps = Complex(torch.randn(t, generator=gen, device=cuda) / t ** 0.5,
+                   torch.randn(t, generator=gen, device=cuda) / t ** 0.5)
+    x = _noise(gen, (c, b), dtype, cuda)
+    fm, fm_taps, rot = _fm_bank(gen, c, b, d, t, dtype, cuda)
+    lead = Complex(torch.full((c, 1), 0.6, device=cuda),
+                   torch.full((c, 1), -0.8, device=cuda))
+    state = torch.full((c, 1), 0.4, device=cuda)
+    lam = float(np.exp(-1.0 / (0.1 * FS / d)))
+    passes = TC.passes_for(dtype, fast)
+    try:
+        _precision(fast)
+        for mode, xin, g, ab, gain in (("fm", fm, fm_taps, None, 1.3),
+                                       ("fm", fm, fm_taps, (0.95, 0.05), 1.3),
+                                       ("am", x, taps, None, 1.0),
+                                       ("am", x, taps, (lam, 1 - lam), 0.125),
+                                       ("am", x, taps, (0.9, 0.2), 0.125)):
+            args = (xin, g, d, s0, lead, rot, gain, ab,
+                    None if ab is None else state, mode)
+            n0 = M.fir_fm_mxu.routes["tc"]
+            got = M.fir_fm_mxu(*args)
+            emu = TC.fm_mxu_split(*args, passes=passes)
+            torch.cuda.synchronize()
+            assert M.fir_fm_mxu.routes["tc"] == n0 + 1
+            out, eout = got[0], emu[0]
+            assert out.shape == (c, b // d) and bool(torch.isfinite(out).all())
+            if mode == "fm":
+                assert float((out - eout).abs().max()) < SPLIT_FM, ab
+            else:
+                assert float((out - eout).abs().max()) < \
+                    SPLIT_REL * float(eout.abs().max()), ab
+            if ab is not None and mode == "am":
+                assert float(((got[1] - emu[1]) / emu[1]).abs().max()) < \
+                    SPLIT_REL
+            if fast:
+                continue
+            ref = M.fir_fm_mxu_plain(*args)
+            if mode == "fm":
+                assert float((out - ref[0]).abs().max()) < ERR_BOUND
+            elif ab is None:
+                assert float((out - ref[0]).abs().max()) / float(
+                    ref[0].abs().max()) < 1e-5
+            else:
+                assert float((out - ref[0]).abs().max()) < 1e-4
+    finally:
+        _precision(False)
+
+
+@pytest.mark.parametrize("t", [1, 17, 41, 67, 143, 263, 12001])
+def test_tc_plan_is_the_python_rule(cuda, t):
+    """The kernel's plan (sdr_fir_tc_plan) is ops/fir_tc.tc_plan's on this
+    card's shared memory, at every stride up to 40, both plane dtypes and
+    both precisions; both say when no plan fits."""
+    import ctypes
+
+    from libsdr_tpu_torch import _build
+    from libsdr_tpu_torch.ops import fir_tc as TC
+
+    lib = _build.library()
+    prop = torch.cuda.get_device_properties(cuda)
+    smem_block = getattr(prop, "shared_memory_per_block_optin",
+                         TC.SMEM_BLOCK)
+    smem_sm = getattr(prop, "shared_memory_per_multiprocessor", TC.SMEM_SM)
+    for d in range(1, 41):
+        for bf16 in (0, 1):
+            for fast in (0, 1):
+                out = (ctypes.c_int * 8)()
+                rc = lib.sdr_fir_tc_plan(t, d, bf16, fast, out)
+                want = TC.tc_plan(t, d, 2 if bf16 else 4,
+                                  TC.passes_for(torch.bfloat16 if bf16
+                                                else torch.float32, fast),
+                                  smem_block, smem_sm)
+                if want is None:
+                    assert rc == -1, (t, d, bf16, fast)
+                    continue
+                assert rc == 0 and list(out) == list(want), (t, d, bf16,
+                                                            fast)
+
+
+def test_paths_take_their_routes(cuda):
+    """The main path's K1a launches take the tensor-core route; the DDC
+    bank's K1b the staged kernel, the AM bank's K1c at D = 40 the warp
+    kernel; K1a at T = 12,001 (no tensor-core plan fits) the staged, and
+    at the cut's edges: D = 2 and 24 the staged kernel with float32 planes,
+    D = 24 the tensor-core kernel with bfloat16 planes."""
+    from libsdr_tpu_torch.apps.chains import rx_stages
+
+    def step(stages, b, c=4):
+        rx = P.Pipeline(stages)
+        rx.bind(P.StreamSpec(np.complex64, FS, b, channels=(c,)))
+        carry = rx.init_carry(cuda)
+        x = Complex(torch.randn(c, b, device=cuda),
+                    torch.randn(c, b, device=cuda))
+        rx.compile()(carry, x)
+        torch.cuda.synchronize()
+
+    for e in (F.fir_fm_exact, F.fir_exact, F.fir_am_exact):
+        F.reset_counts(e)
+    step([IQBaseBand(fc=FS / 8, width=FS / 4.8, order=64, decim=4,
+                     design="textbook"), FMDemod(), FMDeemph()], 1 << 16)
+    step([IQBaseBand(fc=FS / 8, width=FS / 4.8, order=64, decim=4,
+                     design="textbook")], 1 << 16)
+    step(rx_stages("AM", FS, FS / 8), 40 * 4096)
+    assert F.fir_fm_exact.routes == {"staged": 0, "warp": 0, "tc": 1}
+    assert F.fir_exact.routes == {"staged": 1, "warp": 0, "tc": 0}
+    assert F.fir_am_exact.routes == {"staged": 0, "warp": 1, "tc": 0}
+    op = _op(16, 12001, 3, 16 * 4096)
+    carry = op.init_carry(cuda)
+    x = Complex(torch.randn(3, 16 * 4096, device=cuda),
+                torch.randn(3, 16 * 4096, device=cuda))
+    fir_fm_exact(x, op._taps(cuda), 16, carry[0], carry[1], op._rot, 1.0)
+    assert F.fir_fm_exact.routes == {"staged": 1, "warp": 0, "tc": 1}
+    for d, dtype, route in ((2, torch.float32, "staged"),
+                            (24, torch.float32, "staged"),
+                            (24, torch.bfloat16, "tc")):
+        op = _op(d, 31 + d, 3, d * 4096, dtype)
+        carry = op.init_carry(cuda)
+        x = Complex(torch.randn(3, d * 4096, device=cuda),
+                    torch.randn(3, d * 4096, device=cuda)).to(dtype)
+        n0 = dict(F.fir_fm_exact.routes)
+        fir_fm_exact(x, op._taps(cuda), d, carry[0], carry[1], op._rot, 1.0)
+        assert F.fir_fm_exact.routes[route] == n0[route] + 1, (d, dtype)
+
+
+def test_fast_precision_keeps_70_db(cuda):
+    """set_mxu_precision('fast') (one bf16 pass on the tensor-core route)
+    against 'high' on the FM signal of the JAX package's own gate
+    (tests/test_tpu_smoke.py::test_fast_precision_mode_on_chip): 64
+    channels of a 900 Hz tone at 75 kHz deviation through the main path,
+    audio SNR above 70 dB; 'fast' must differ from 'high'."""
+    fs, n_ch, block = 960_000.0, 64, 1 << 17
+    audio = siggen.sine(fs, block + 4096, 900.0, amps=0.7)
+    iq = siggen.fm_modulate(fs, audio, deviation=75_000.0,
+                            carrier=120_000.0)[:block]
+    x = Complex(torch.tensor(np.tile(iq.real[None], (n_ch, 1)),
+                             dtype=torch.float32, device=cuda),
+                torch.tensor(np.tile(iq.imag[None], (n_ch, 1)),
+                             dtype=torch.float32, device=cuda))
+
+    def run():
+        rx = P.Pipeline([IQBaseBand(fc=120_000, width=200_000, order=64,
+                                    decim=4, design="textbook"),
+                         FMDemod(), FMDeemph()])
+        rx.bind(P.StreamSpec(np.complex64, fs, block, channels=(n_ch,)))
+        _, y = rx.compile()(rx.init_carry(cuda), x)
+        return y.double().cpu().numpy()
+
+    try:
+        y_hi = run()
+        _precision(True)
+        n0 = F.fir_fm_exact.routes["tc"]
+        y_fast = run()
+        assert F.fir_fm_exact.routes["tc"] == n0 + 1
+    finally:
+        _precision(False)
+    err = y_hi - y_fast
+    snr = 10 * np.log10(np.mean(y_hi[0] ** 2) / np.mean(err[0] ** 2))
+    assert 70.0 < snr < 200.0, snr

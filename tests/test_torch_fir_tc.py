@@ -1,0 +1,301 @@
+"""The tensor-core route of the FM-mode FIR (``ops/fir_tc.py``, the layout
+and arithmetic of ``csrc/fir_tc.cu``) on the CPU.
+
+1. The layout: the plan rule, the tap matrix's band in the kernel's
+   shared-memory blocks (bf16 hi and lo), and the frame GEMM over the
+   spans the kernel stages, in float32, against the plain y of K1
+   (``ops/fir_fm.py::_fir_y``) and of K6 (``ops/fir_mxu.py::_y_plain``):
+   1e-6 of the largest |y| (float32 sums in two orders, ~1e-7 measured).
+2. The split arithmetic: y in 3, 2 and 1 bf16 passes against the JAX
+   kernels in interpret mode (``pallas_fir_mxu.fir_fm_exact`` for K1a,
+   ``fir_fm_mxu`` for K6), at 'high' and after
+   ``set_mxu_precision('fast')``, under the JAX tests' own bounds
+   (tests/test_pallas.py): y within 1e-4 of the largest output, FM and AM
+   audio within 5e-3 x max(1, |v|).  Both sides form the same bf16
+   products (the kernels' passes), so they agree far inside those bounds;
+   the 'fast' case is also held against the 'high' JAX kernel, from which
+   it must differ (one pass keeps ~8 bits of each tap).
+
+The CUDA kernel is held to this emulation on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libsdr_tpu.core import cplx as jcplx
+from libsdr_tpu.ops import pallas_fir_mxu as pfm
+from libsdr_tpu.ops.fir import set_mxu_precision as jax_set_precision
+from libsdr_tpu_torch.core.cplx import Complex
+from libsdr_tpu_torch.core.stream import ConfigError
+from libsdr_tpu_torch.ops import fir_tc as TC
+from libsdr_tpu_torch.ops.fir import mxu_precision, set_mxu_precision
+from libsdr_tpu_torch.ops.fir_fm import _fir_y
+from libsdr_tpu_torch.ops.fir_mxu import _y_plain
+
+Y_REL = 1e-6        # frame GEMM in float32 against the plain y
+FIR_REL = 1e-4      # tests/test_pallas.py:36-37
+AUDIO_BOUND = 5e-3  # tests/test_pallas.py:125, 162 (x max(1, |v|))
+ROT, GAIN = np.exp(-0.41j), 1.3
+
+
+def _cn(rng, *shape):
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(
+        np.complex64)
+
+
+def _t(x, dtype=torch.float32):
+    """numpy complex -> torch Complex of float32 planes (then dtype)."""
+    return Complex(torch.from_numpy(x.real.copy()),
+                   torch.from_numpy(x.imag.copy())).to(dtype)
+
+
+def _taps(g):
+    return Complex(torch.tensor(g.real, dtype=torch.float32),
+                   torch.tensor(g.imag, dtype=torch.float32))
+
+
+def _j(x, dtype):
+    """torch Complex -> JAX Complex of the same values in ``dtype``."""
+    return jcplx.Complex(jnp.asarray(x.re.float().numpy()).astype(dtype),
+                         jnp.asarray(x.im.float().numpy()).astype(dtype))
+
+
+def _np(y):
+    return y.re.numpy() + 1j * y.im.numpy()
+
+
+def _worst(got, want):
+    return float((np.abs(got - want) / np.maximum(1.0, np.abs(want))).max())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 8, 10, 16, 40])
+def test_plan_rule(d):
+    """Every plan the rule makes keeps the kernel's constraints: 16-byte
+    rows (S*D a multiple of 8), at most 4 n-tiles, 16 frames a MMA warp,
+    each n-tile's band inside the k-tiles, its shared memory within a
+    block's; the main path's plan (T = 67, D = 4) is 14 outputs a frame at
+    a conflict-free 112-byte row stride, 64 frames a tile, two blocks an
+    SM for both plane dtypes."""
+    for t in (1, 17, 67, 143, 263):
+        for isz, passes in ((4, 3), (2, 2), (4, 1), (2, 1)):
+            plan = TC.tc_plan(t, d, isz, passes)
+            assert plan is not None, (t, d, isz)
+            assert plan.S * d % 8 == 0 and 1 <= plan.S <= 16
+            assert plan.F in (16, 32, 64) and plan.NTL == -(-plan.S // 4)
+            assert plan.Kp % 16 == 0 and plan.Kp >= (plan.S - 1) * d + t
+            assert plan.bytes <= TC.SMEM_BLOCK
+            for nt in range(plan.NTL):
+                lo, hi = TC.band(nt, plan.S, d, t, plan.Kp // 16)
+                assert 0 <= lo < hi <= plan.Kp // 16
+                assert hi - lo <= plan.KBW
+    if d == 4:
+        for isz, passes in ((4, 3), (2, 2)):
+            plan = TC.tc_plan(67, 4, isz, passes)
+            assert (plan.S, plan.F) == (14, 64)
+            assert TC.ldsm_ways(2 * plan.S * 4) == 1
+            assert plan.bytes <= TC.SMEM_SM // 2 - 1024
+    # thousands of taps do not fit: such launches take the staged kernel
+    assert TC.tc_plan(12001, 16, 4, 3) is None
+
+
+@pytest.mark.parametrize("d,t", [(2, 17), (4, 67), (16, 143), (5, 68)])
+def test_tap_blocks_hold_the_band(d, t):
+    """The kernel's shared-memory tap blocks are the tap matrix's band:
+    reassembled they equal the matrix's bf16 hi and lo parts exactly, and
+    the matrix has no nonzero outside the band; hi + lo is the tap to
+    2^-16 of the largest."""
+    rng = np.random.default_rng(d * 100 + t)
+    g = rng.normal(size=t) + 1j * rng.normal(size=t)
+    plan = TC.tc_plan(t, d, 4, 3)
+    kp, ntl = plan.Kp, plan.NTL
+    dense = torch.zeros(2 * kp, 8 * ntl)
+    dense[:, :2 * plan.S] = TC.tap_matrix(_taps(g), d, plan.S, kp)
+    hi, lo = TC.split_bf16(dense)
+    blocks = TC.tap_blocks(_taps(g), d, plan).float()
+    back = torch.zeros(2, 2 * kp, 8 * ntl)   # (hi/lo, rows, columns)
+    covered = torch.zeros(2 * kp, 8 * ntl, dtype=torch.bool)
+    for h in range(2):
+        for nt in range(ntl):
+            b_lo, b_hi = TC.band(nt, plan.S, d, t, kp // 16)
+            for kb in range(b_hi - b_lo):
+                r0 = h * kp + 16 * (b_lo + kb)
+                for hl in range(2):
+                    blk = blocks[h, nt, kb, hl]          # (kh, n, kq)
+                    back[hl, r0:r0 + 16, 8 * nt:8 * nt + 8] = \
+                        blk.transpose(1, 2).reshape(16, 8)
+                covered[r0:r0 + 16, 8 * nt:8 * nt + 8] = True
+            # slots past the band are zeros
+            assert not blocks[h, nt, b_hi - b_lo:].any()
+    assert torch.equal(back[0], hi) and torch.equal(back[1], lo)
+    assert not dense[~covered].any()
+    assert float((hi + lo - dense).abs().max()) <= \
+        2.0 ** -16 * float(dense.abs().max())
+    # one frame through the matrix: its interleaved columns are y's planes
+    x = _cn(rng, kp)
+    y = torch.cat([_t(x).re, _t(x).im]) @ TC.tap_matrix(_taps(g), d,
+                                                       plan.S, kp)
+    want = [np.dot(g, x[s * d:s * d + t].astype(np.complex128))
+            for s in range(plan.S)]
+    got = y[0::2].numpy() + 1j * y[1::2].numpy()
+    assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("d,t", [(2, 17), (4, 67), (16, 143), (2, 143),
+                                 (16, 17)])
+def test_frame_gemm_equals_plain_y_k1(d, t):
+    """K1's window start (D - T, the first windows in the carry tail): the
+    frame GEMM over the staged span in float32 equals _fir_y, with a ragged
+    last frame (B/D not a multiple of S)."""
+    rng = np.random.default_rng(d + 7 * t)
+    c = 3
+    s = TC.tc_plan(t, d, 4, 3).S
+    n_out = 37 * s + s // 2 + 1
+    x, tail = _t(_cn(rng, c, n_out * d)), _t(_cn(rng, c, t - 1))
+    g = _taps(rng.normal(size=t) + 1j * rng.normal(size=t))
+    want = _fir_y(x, g, d, tail)
+    got = TC.fir_y_split(TC.span_k1(x, tail, d), g, d, n_out, passes=None,
+                         s=s)
+    scale = float(max(want.re.abs().max(), want.im.abs().max()))
+    assert got.re.shape == want.re.shape == (c, n_out)
+    assert float(max((got.re - want.re).abs().max(),
+                     (got.im - want.im).abs().max())) < Y_REL * scale
+
+
+@pytest.mark.parametrize("s0", [0, 1, "D"])
+@pytest.mark.parametrize("d,t", [(2, 17), (4, 67), (16, 143)])
+def test_frame_gemm_equals_plain_y_k6(d, t, s0):
+    """K6's window starts 0, 1 and D, its last frame wrapping to the frame
+    before it (x[n - 128 D] past the block): the frame GEMM equals K6's
+    plain y, the ragged last frame included."""
+    s0 = d if s0 == "D" else s0
+    rng = np.random.default_rng(3 * d + t + s0)
+    c, b = 3, 2 * 128 * d
+    x = _t(_cn(rng, c, b))
+    g = _taps(rng.normal(size=t) + 1j * rng.normal(size=t))
+    want = _y_plain(x, g, d, s0)
+    s = TC.tc_plan(t, d, 4, 3).S
+    assert (b // d) % s != 0
+    got = TC.fir_y_split(TC.span_k6(x, t, d, s0), g, d, b // d,
+                         passes=None, s=s)
+    scale = float(max(want.re.abs().max(), want.im.abs().max()))
+    assert float(max((got.re - want.re).abs().max(),
+                     (got.im - want.im).abs().max())) < Y_REL * scale
+
+
+@pytest.fixture
+def jax_precision():
+    """Sets the JAX package's FIR precision for a test and restores 'high'
+    after it."""
+    def set_(mode):
+        jax_set_precision(mode)
+    try:
+        yield set_
+    finally:
+        jax_set_precision("high")
+
+
+def _k1_case(rng, c, d, t, b, dtype):
+    x = _t(_cn(rng, c, b), dtype)
+    tail = _t(_cn(rng, c, t - 1), dtype)
+    prev = _t(_cn(rng, c))
+    state = torch.from_numpy(rng.uniform(-0.5, 0.5, size=c).astype(
+        np.float32))
+    g = rng.normal(size=t) + 1j * rng.normal(size=t)
+    return x, tail, prev, state, g
+
+
+@pytest.mark.parametrize("precision", ["high", "fast"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_emulation_matches_jax_k1a(dtype, precision, jax_precision):
+    """K1a: the kernel's split arithmetic (3 passes on float32 planes, 2 on
+    bfloat16, 1 after 'fast') with the FM discriminator and the
+    de-emphasis, from nonzero carries, against the JAX exact-tiling kernel
+    in interpret mode at the same precision: every output and y_last."""
+    rng = np.random.default_rng(11 if dtype == "float32" else 12)
+    c, d, t, b = 16, 4, 67, 4096
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    x, tail, prev, state, g = _k1_case(rng, c, d, t, b, tdt)
+    ab = (0.95, 0.05)
+    fast = precision == "fast"
+    jax_precision(precision)
+    want, jy = pfm.fir_fm_exact(
+        _j(x, dtype), g, d, _j(tail, dtype),
+        jcplx.as_block(_np(prev)[:, None]), ROT, GAIN, deemph_ab=ab,
+        deemph_lead=jnp.asarray(state.numpy()[:, None]), interpret=True)
+    got, ty = TC.fm_exact_split(x, _taps(g), d, tail, prev, ROT, GAIN, ab,
+                                state, passes=TC.passes_for(tdt, fast))
+    want = np.asarray(want)
+    assert got.shape == want.shape == (c, b // d)
+    assert _worst(got.numpy(), want) < AUDIO_BOUND
+    y_ref = jcplx.to_numpy(jy)[:, 0]
+    assert np.abs(_np(ty) - y_ref).max() < FIR_REL * np.abs(y_ref).max()
+    if fast:
+        # one pass is not three: the 'high' kernel differs from it
+        jax_precision("high")
+        high, _ = pfm.fir_fm_exact(
+            _j(x, dtype), g, d, _j(tail, dtype),
+            jcplx.as_block(_np(prev)[:, None]), ROT, GAIN, deemph_ab=ab,
+            deemph_lead=jnp.asarray(state.numpy()[:, None]), interpret=True)
+        assert np.abs(np.asarray(high) - want).max() > 1e-4
+
+
+def _k6_case(rng, dtype):
+    c, d, t, s0 = 8, 2, 37, 1
+    b = 2 * pfm._FT * pfm._S * d
+    x = _t(_cn(rng, c, b), dtype)
+    g = rng.normal(size=t) + 1j * rng.normal(size=t)
+    lead = _t(_cn(rng, c, 1))
+    state = rng.uniform(0.3, 1.0, size=(c, 1)).astype(np.float32)
+    return x, g, d, s0, lead, state
+
+
+@pytest.mark.parametrize("precision", ["high", "fast"])
+@pytest.mark.parametrize("mode,ab", [("fm", None), ("fm", (0.93, 0.07)),
+                                     ("am", None), ("am", (0.97, 0.03))])
+def test_split_emulation_matches_jax_k6(mode, ab, precision, jax_precision):
+    """K6, modes fm (+- de-emphasis) and am (+- the AGC): the split
+    arithmetic against the JAX v1 kernel in interpret mode at the same
+    precision, every output (the clamped last frame too) and the AGC's
+    exported state."""
+    rng = np.random.default_rng(21)
+    x, g, d, s0, lead, state = _k6_case(rng, torch.float32)
+    rot, gain = (np.exp(-0.37j), 1.7) if mode == "fm" else (1.0, 0.125)
+    jax_precision(precision)
+    jr = pfm.fir_fm_mxu(
+        _j(x, "float32"), g, d, s0, jcplx.as_block(_np(lead)), rot, gain,
+        deemph_ab=ab, deemph_lead=None if ab is None else jnp.asarray(state),
+        mode=mode, interpret=True)
+    tr = TC.fm_mxu_split(x, _taps(g), d, s0, lead, rot, gain, ab,
+                         None if ab is None else torch.from_numpy(state),
+                         mode=mode,
+                         passes=TC.passes_for(torch.float32,
+                                              precision == "fast"))
+    jr = jr if isinstance(jr, tuple) else (jr,)
+    assert len(tr) == len(jr) == (3 if mode == "am" and ab else 2)
+    want, got = np.asarray(jr[0]), tr[0].numpy()
+    assert got.shape == want.shape
+    assert _worst(got, want) < AUDIO_BOUND
+    if mode == "am" and ab:
+        sd_want, sd_got = np.asarray(jr[1]), tr[1].numpy()
+        assert np.abs(sd_got - sd_want).max() < FIR_REL * np.abs(
+            sd_want).max()
+
+
+def test_passes_and_the_precision_switch():
+    """set_mxu_precision('fast') selects one pass for both plane dtypes;
+    'high' three for float32 planes and two for bfloat16; an unknown mode
+    raises and leaves the mode as it was."""
+    assert mxu_precision() == "high"
+    try:
+        set_mxu_precision("fast")
+        assert mxu_precision() == "fast"
+        with pytest.raises(ConfigError):
+            set_mxu_precision("x3")
+        assert mxu_precision() == "fast"
+    finally:
+        set_mxu_precision("high")
+    assert [TC.passes_for(dt, f) for dt in (torch.float32, torch.bfloat16)
+            for f in (False, True)] == [3, 1, 2, 1]
