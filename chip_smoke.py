@@ -17,7 +17,10 @@ its own line; the first failure exits non-zero:
    tap counts, channel counts and AGC on/off, three carry-chained blocks,
    with the AGC's chunk count K > 1; K1e (AFSK) across strides 2-100 and
    windows 2-128; K2/K3 (the bit-clock PLL) bit-exact across windows
-   2-512, 1-1000 lanes, both bit mappings and widened bounds; K4 (the
+   2-896, 1-1000 lanes, both bit mappings and widened bounds, blocks of
+   1-2056 steps, every lanes-per-warp layout of the serial pass, 4,096 to
+   65,536 lanes at the layout the lane cut gives them, and a block with no
+   emit; K4 (the
    polyphase channelizer, ``csrc/pfb.cu``) against ``pfb_plain`` over M
    8-4096 (the FFT and, at M = 1000, the direct DFT), P 1/8/32, F 1-4096,
    C 1/3, both variants and plane dtypes, and three chained blocks; K5 and
@@ -48,7 +51,8 @@ its own line; the first failure exits non-zero:
    receive paths on message traffic (``libsdr_tpu_torch/tools/
    digital_signals.py``), each with its launches counted from 0, every
    message decoded, and its kernels held against their plain versions on
-   the path's own inputs: P1, the AX.25 bank (64 ch x 2^21 at 192 kHz,
+   the path's own inputs (K2 and K3 also timed there, in ns a step beside
+   their chain's floor, with the layouts their launches took): P1, the AX.25 bank (64 ch x 2^21 at 192 kHz,
    K1e + K2, both plane dtypes); P2, the POCSAG bank (256 ch x 117,760 at
    240 kHz, 4 blocks, K1a + K2); P3, the multi-mode bank's PLL (3 x 64 ch
    x 2^18 at 24 kHz, one K3 launch a step); then the wideband paths on
@@ -656,6 +660,13 @@ def phase_apps(tmp: Path):
     check(rate == 8000 and err < 2e-3, "wavplay output")
 
 
+def chain_floor(t):
+    """ms that a PLL's loop-carried chain takes over t steps however many
+    lanes run: 3 dependent instructions a step (add, compare, select) at ~4
+    cycles each, at the H100's 1.98 GHz boost clock."""
+    return t * 3 * 4 / 1.98e9 * 1e3
+
+
 def bound(nbytes, ops):
     """The least time (ms) the card could take for a call and what sets it:
     the bytes it must move at the HBM rate, or its operations at the
@@ -847,59 +858,104 @@ def bank_params(ells, trans):
 
 
 def phase_pll_parity(torch):
-    """K2 and K3 bit-exact against their plain versions: windows 2-512,
+    """K2 and K3 bit-exact against their plain versions: windows 2-896,
     1-1000 lanes, both bit mappings, the real +-0.5% bounds and bounds
-    widened to 0.5-2x omega0, two chained blocks (one of a length that is
-    not a multiple of 16); then a bank mixing three configurations."""
-    from libsdr_tpu_torch.ops.pll import (pll, pll_bank, pll_bank_plain,
+    widened to 0.5-2x omega0, chained blocks of 2048 or 2056 steps, then 1,
+    31 and 33 (whole and part mask words); every lanes-per-warp layout of
+    the serial pass, at the lane counts the rule maps to each (1,000 to
+    34,000 lanes), and 4,096 to 65,536 lanes; a block with no emit and
+    one with omega started above its bound; then a bank mixing three
+    configurations at 192 and 17,001 lanes (1 and 32 lanes a warp).
+    Returns the layouts the parity calls took."""
+    from libsdr_tpu_torch.ops.pll import (LANES_PER_WARP, lanes_per_warp,
+                                          pll, pll_bank, pll_bank_plain,
                                           pll_plain)
 
     rng = np.random.default_rng(11)
+    taken = dict.fromkeys(LANES_PER_WARP, 0)
+
+    def chain(m, ell, mode, lo, hi, ts, start=1.0):
+        om0 = 1.0 / ell
+        kw = dict(omega_min=om0 * lo, omega_max=om0 * hi, gain=0.0005,
+                  transition=mode == "transition")
+        st = [torch.zeros(m, ell - 1, dtype=torch.int32),
+              torch.zeros(m, dtype=torch.int32), torch.zeros(m),
+              torch.full((m,), om0 * start),
+              torch.from_numpy(rng.integers(0, 1 << 16, m, dtype=np.int32))]
+        sg = [v.cuda() for v in st]
+        lanes = lanes_per_warp(m)
+        emits = 0
+        for t in ts:
+            sym = torch.from_numpy(pll_symbols(rng, m, t, ell))
+            n0 = pll.routes[lanes]
+            got = pll(sym.cuda(), *sg, **kw)
+            ref = pll_plain(sym, *st, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a.cpu(), r) for a, r in zip(got, ref))
+                  and pll.routes[lanes] == n0 + 1,
+                  f"pll vs plain L={ell} M={m} {mode} bounds {lo}-{hi} "
+                  f"T={t} {lanes} lanes a warp: not bit-exact")
+            emits += int((ref[0] >> 1).sum())
+            st, sg = list(ref[1:]), list(got[1:])
+        taken[lanes] += len(ts)
+        return emits
+
     cases = 0
-    for ell in (2, 20, 40, 264, 512):
+    for ell in (2, 20, 40, 264, 512, 896):
         for m in (1, 64, 256, 1000):
             for mode in ("normal", "transition"):
-                om0 = 1.0 / ell
                 for lo, hi, t in ((0.995, 1.005, 2048), (0.5, 2.0, 2056)):
-                    kw = dict(omega_min=om0 * lo, omega_max=om0 * hi,
-                              gain=0.0005, transition=mode == "transition")
-                    st = [torch.zeros(m, ell - 1, dtype=torch.int32),
-                          torch.zeros(m, dtype=torch.int32), torch.zeros(m),
-                          torch.full((m,), om0),
-                          torch.zeros(m, dtype=torch.int32)]
-                    sg = [v.cuda() for v in st]
-                    for _ in range(2):
-                        sym = torch.from_numpy(pll_symbols(rng, m, t, ell))
-                        got = pll(sym.cuda(), *sg, **kw)
-                        ref = pll_plain(sym, *st, **kw)
-                        torch.cuda.synchronize()
-                        check(all(torch.equal(a.cpu(), r)
-                                  for a, r in zip(got, ref)),
-                              f"pll vs plain L={ell} M={m} {mode} "
-                              f"bounds {lo}-{hi}: not bit-exact")
-                        st, sg = list(ref[1:]), list(got[1:])
+                    chain(m, ell, mode, lo, hi, (t, t, 1, 31, 33))
                     cases += 1
-    print(f"parity K2: {cases} cases (L 2-512, M 1-1000, both mappings, "
-          "real and widened bounds, 2 chained blocks): bit-exact")
-    cfg = [(20, 0, 64), (20, 1, 64), (264, 0, 64)]
-    ells = np.concatenate([np.full(n, e) for e, _, n in cfg])
-    trans = np.concatenate([np.full(n, tr) for _, tr, n in cfg])
-    kw, om0 = bank_params(ells, trans)
-    m, r = len(ells), int(ells.max()) - 1
-    st = [torch.zeros(m, r, dtype=torch.int32),
-          torch.zeros(m, dtype=torch.int32), torch.zeros(m),
-          torch.from_numpy(om0), torch.zeros(m, dtype=torch.int32)]
-    sg = [v.cuda() for v in st]
-    for t in (4096, 4104):
-        sym = torch.from_numpy(pll_symbols(rng, m, t, 20))
-        got = pll_bank(sym.cuda(), *sg, **kw)
-        ref = pll_bank_plain(sym, *st, **kw)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a.cpu(), b_) for a, b_ in zip(got, ref)),
-              "pll_bank vs plain: not bit-exact")
-        st, sg = list(ref[1:]), list(got[1:])
-    print("parity K3: a bank of L=20 normal, L=20 transition and L=264 "
-          "normal lanes, 2 chained blocks: bit-exact")
+    print(f"parity K2: {cases} cases (L 2-896, M 1-1000, both mappings, "
+          "real and widened bounds, chained blocks of 2048/2056, 1, 31 and "
+          "33 steps): bit-exact")
+    layout_m = (1000, 2000, 4000, 8000, 16000, 34000)
+    for m in layout_m:
+        for mode in ("normal", "transition"):
+            chain(m, 40, mode, 0.5, 2.0, (2056, 33))
+    for m in (4096, 16384, 65536):
+        chain(m, 20, "transition", 0.995, 1.005, (2056, 31))
+    check(sorted({lanes_per_warp(m) for m in layout_m})
+          == list(LANES_PER_WARP), "a layout without a parity case")
+    check(chain(64, 40, "normal", 0.01, 2.0, (33,), start=0.02) == 0,
+          "the no-emit block emitted")
+    chain(64, 40, "normal", 0.995, 1.005, (96, 2056), start=3.0)
+    print("parity K2 layouts: M (lanes a warp) "
+          f"{', '.join(f'{m} ({lanes_per_warp(m)})' for m in layout_m + (4096, 16384, 65536))}, "
+          "a block with no emit, omega started above its bound: "
+          "bit-exact")
+    for n in (64, 5667):
+        cfg = [(20, 0, n), (20, 1, n), (264, 0, n)]
+        ells = np.concatenate([np.full(k, e) for e, _, k in cfg])
+        trans = np.concatenate([np.full(k, tr) for _, tr, k in cfg])
+        kw, om0 = bank_params(ells, trans)
+        m, r = len(ells), int(ells.max()) - 1
+        st = [torch.zeros(m, r, dtype=torch.int32),
+              torch.zeros(m, dtype=torch.int32), torch.zeros(m),
+              torch.from_numpy(om0), torch.zeros(m, dtype=torch.int32)]
+        sg = [v.cuda() for v in st]
+        layout = lanes_per_warp(m)
+        for t in (4096, 4104, 33):
+            sym = torch.from_numpy(pll_symbols(rng, m, t, 20))
+            got = pll_bank(sym.cuda(), *sg, **kw)
+            ref = pll_bank_plain(sym, *st, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a.cpu(), b_) for a, b_ in zip(got, ref)),
+                  f"pll_bank vs plain, M={m}, {layout} lanes a warp: not "
+                  "bit-exact")
+            st, sg = list(ref[1:]), list(got[1:])
+            taken[layout] += 1
+        print("parity K3: a bank of L=20 normal, L=20 transition and L=264 "
+              f"normal lanes, M={m} ({layout} lanes a warp), 3 chained "
+              "blocks: bit-exact")
+    return taken
+
+
+def pll_layouts(entry):
+    """The serial pass's layouts an entry's launches took since its counts
+    were last set to 0: {lanes per warp: launches}."""
+    return {k: n for k, n in entry.routes.items() if n}
 
 
 class Capture:
@@ -999,6 +1055,7 @@ def phase_p1(torch, L, gen, smi):
             torch.cuda.synchronize()
             best = min(best, time.perf_counter() - t0)
         counts = counts_now(entries)
+        layouts = pll_layouts(pll)
         n_steps = 1 + 3 * iters
         check(counts["fir_afsk_exact"] == n_steps and counts["pll"] == n_steps
               and all(v == 0 for k, v in counts.items()
@@ -1055,9 +1112,11 @@ def phase_p1(torch, L, gen, smi):
               f"|disc|) kernel {k1e_ms:.3f} ms, plain {k1e_plain:.3f} ms, "
               f"bound {k1e_bound[0]:.3f} ms ({k1e_bound[1]})")
         print(f"phase P1 {plane} K2: kernel {k2_ms:.3f} ms ({n_out} steps x "
-              f"{c} lanes); on {held.shape[1]} steps kernel {k2_held:.3f} "
-              f"ms, plain {k2_plain:.1f} ms (bit-exact); bound "
-              f"{k2_bound[0]:.4f} ms ({k2_bound[1]})")
+              f"{c} lanes, {k2_ms * 1e6 / n_out:.2f} ns a step, layouts "
+              f"{layouts} lanes a warp: launches); on {held.shape[1]} steps "
+              f"kernel {k2_held:.3f} ms, plain {k2_plain:.1f} ms "
+              f"(bit-exact); bound {k2_bound[0]:.4f} ms ({k2_bound[1]}), "
+              f"chain floor {chain_floor(n_out):.3f} ms")
         check(decoded == 8 * c, f"P1 {plane}: {decoded} of {8 * c} frames")
         del x, carry, y, args, sym, held
         torch.cuda.empty_cache()
@@ -1102,6 +1161,7 @@ def phase_p2(torch, L, gen, smi):
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
         counts = counts_now(entries)
+        layouts = pll_layouts(pll)
         outs = ys
     from libsdr_tpu_torch.ops import fir_fm as F
     check(counts["fir_fm_exact"] == nb and counts["pll"] == nb
@@ -1133,17 +1193,23 @@ def phase_p2(torch, L, gen, smi):
     got = pll(sym, *pargs, **kw)
     ref = pll_plain(sym.cpu(), *(v.cpu() for v in pargs), **kw)
     k2_exact = all(torch.equal(a.cpu(), r) for a, r in zip(got, ref))
+    k2_ms = cuda_ms(torch, lambda: pll(sym, *pargs, **kw), 5)
+    n_sym = sym.shape[-1]
     print(f"phase P2 POCSAG bank ({c}x{blk} @ 240 kHz, T=41, D=10, L=20, "
           f"{nb} blocks): {ms_step:.2f} ms/step, pages decoded "
           f"{decoded}/{c} (host decode {host_s:.1f} s), launches {counts} "
           f"| {smi}")
     print(f"phase P2 kernels on block 2: K1a max_abs_err={k1a_err:.3e} "
           f"(bound {ERR_BOUND:g}); K2 on {tuple(sym.shape)} ASKDetector "
-          f"symbols: {'bit-exact' if k2_exact else 'DIFFERS'}")
+          f"symbols: {'bit-exact' if k2_exact else 'DIFFERS'}, kernel "
+          f"{k2_ms:.3f} ms ({k2_ms * 1e6 / n_sym:.2f} ns a step, chain "
+          f"floor {chain_floor(n_sym):.3f} ms), layouts {layouts} lanes a "
+          "warp: launches")
     check(k1a_err < ERR_BOUND, f"P2 K1a vs plain: {k1a_err}")
     check(k2_exact, "P2 K2 vs plain: not bit-exact")
     check(decoded == c, f"P2: {decoded} of {c} pages decoded")
-    return dict(ms_step=ms_step, decoded=decoded, counts=counts)
+    return dict(ms_step=ms_step, decoded=decoded, counts=counts,
+                k2_ms=k2_ms)
 
 
 def mode_decoded(mode, bits):
@@ -1206,6 +1272,7 @@ def phase_p3(torch, L, gen, smi):
     torch.cuda.synchronize()
     ms_step = (time.perf_counter() - t0) / steps * 1e3
     counts = counts_now(entries)
+    layouts = pll_layouts(pll_bank)
     check(counts["pll_bank"] == steps and all(
         v == 0 for k, v in counts.items() if k != "pll_bank"),
         f"P3 launches {counts}")
@@ -1225,9 +1292,11 @@ def phase_p3(torch, L, gen, smi):
     print(f"phase P3 mode bank (3 x {per} ch x {t} steps @ 24 kHz, L=20/20/"
           f"264): {ms_step:.2f} ms/step, launches {counts}; channels "
           f"decoded {decoded} of {per} each (host decode {host_s:.1f} s); "
-          f"K3 kernel {k3_ms:.3f} ms, plain {k3_plain:.1f} ms on the same "
-          f"block (bit-exact), bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) "
-          f"| {smi}")
+          f"K3 kernel {k3_ms:.3f} ms ({k3_ms * 1e6 / t:.2f} ns a step, "
+          f"layouts {layouts} lanes a warp: launches), plain "
+          f"{k3_plain:.1f} ms on the same block (bit-exact), bound "
+          f"{k3_bound[0]:.4f} ms ({k3_bound[1]}), chain floor "
+          f"{chain_floor(t):.3f} ms | {smi}")
     check(all(v == per for v in decoded.values()),
           f"P3: channels decoded {decoded} of {per} each")
     return dict(ms_step=ms_step, counts=counts, decoded=decoded,
@@ -1463,6 +1532,7 @@ def phase_w1(torch, gen, smi):
                                 device="cuda")
         scan_s = time.perf_counter() - t0
         counts = counts_now(entries)
+        layouts = pll_layouts(pll)
         check(counts["pfb_mxu"] == 2 and counts["pll"] == 2 and all(
             v == 0 for k, v in counts.items() if k not in ("pfb_mxu", "pll")),
             f"W1 {plane} launches {counts}")
@@ -1510,6 +1580,7 @@ def phase_w1(torch, gen, smi):
         got = pll(*a2, **kw2)
         k2_exact = all(torch.equal(u.cpu(), r) for u, r in zip(got, ref))
         n_steps = a2[0].numel()
+        t2 = a2[0].shape[-1]
         k2_bound = bound(2 * n_steps, 30 * n_steps)
         print(f"phase W1 {plane} planes ({m} ch x {b:,} @ "
               f"{W1_FS / 1e6:g} MHz, 2 blocks): {ms_block:.2f} ms/block "
@@ -1520,10 +1591,12 @@ def phase_w1(torch, gen, smi):
               f"{other} decodes of other addresses); launches {counts} "
               f"| {smi}")
         print(f"phase W1 {plane} K2 on the path's {tuple(a2[0].shape)} "
-              f"ASKDetector symbols: kernel {k2_ms:.3f} ms, plain "
-              f"{k2_plain:.1f} ms, "
+              f"ASKDetector symbols: kernel {k2_ms:.3f} ms "
+              f"({k2_ms * 1e6 / t2:.2f} ns a step, layouts {layouts} lanes "
+              f"a warp: launches), plain {k2_plain:.1f} ms, "
               f"{'bit-exact' if k2_exact else 'DIFFERS'}; bound "
-              f"{k2_bound[0]:.4f} ms ({k2_bound[1]}) | {smi}")
+              f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), chain floor "
+              f"{chain_floor(t2):.3f} ms | {smi}")
         check(k2_exact, f"W1 {plane} K2 vs plain: not bit-exact")
         check(len(ok) == len(pages),
               f"W1 {plane}: pages lost on "
@@ -1627,6 +1700,7 @@ def phase_w2(torch, gen, smi):
                 blocks=lambda blk: iter(blocks), device="cuda")
         total = time.perf_counter() - t0
         counts = counts_now(entries)
+        layouts = pll_layouts(pll_bank)
     finally:
         BPSK31.apply = apply
     check(all(counts[k] == n_blocks for k in ("pfb_mxu", "pll_bank",
@@ -1668,6 +1742,12 @@ def phase_w2(torch, gen, smi):
     got = pll_bank(*a3, **kw3)
     ref = pll_bank_plain(*(v.cpu() for v in a3), **kw3)
     k3_exact = all(torch.equal(u.cpu(), r) for u, r in zip(got, ref))
+    k3_ms = cuda_ms(torch, lambda: pll_bank(*a3, **kw3), 5)
+    t3 = a3[0].shape[-1]
+    print(f"phase W2 K3 on the path's {tuple(a3[0].shape)} symbols: kernel "
+          f"{k3_ms:.3f} ms ({k3_ms * 1e6 / t3:.2f} ns a step, chain floor "
+          f"{chain_floor(t3):.3f} ms), layouts {layouts} lanes a warp: "
+          f"launches | {smi}")
     print(f"phase W2 kernels on block 2: K1b on the PSK31 group's "
           f"{tuple(a1[0].shape)} planes max_err {k1b_err:.3e} of max |y| "
           f"(bound {REL_BOUND:g}); K3 on {tuple(a3[0].shape)} symbols: "
@@ -1677,7 +1757,7 @@ def phase_w2(torch, gen, smi):
     del x, blocks, c, k4, k1b, k3, a4, a1, a3, got, ref
     torch.cuda.empty_cache()
     return dict(ms_block=ms_block, counts=counts, decoded=ok, k4c=k4c,
-                bpsk31_share=spent[0] / total)
+                bpsk31_share=spent[0] / total, k3_ms=k3_ms)
 
 
 # -- slice 5: the v1 FIR (K5) and its FM/AM epilogues (K6) -----------------
@@ -2276,7 +2356,7 @@ def main() -> int:
     afsk_worst = phase_afsk_parity(torch, L, gen)
     print(f"phase 3 parity K1e: max disc error {afsk_worst:.3e} of max "
           f"|disc| (bound {AFSK_BOUND:g})")
-    phase_pll_parity(torch)
+    pll_taken = phase_pll_parity(torch)
     k4_worst, k4_cases = phase_k4_parity(torch, gen)
     mxu_worst, mxu_cases = phase_mxu_parity(torch, gen)
     tc_worst, tc_cases = phase_tc_parity(torch, L, gen)
@@ -2451,6 +2531,8 @@ def main() -> int:
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None))
     # K2 and K3: kernel and plain version timed on the same whole block
+    # (the floor of the recurrence's chain, a latency and not a bound of
+    # bytes or operations, is in the phases' lines)
     ms, plain_ms, _, _, (b_ms, b_by) = p1["f32"]["k2"]
     record.append(dict(
         name="pll", route="cuda", source="libsdr_tpu_torch/csrc/bitsync.cu",
@@ -2512,6 +2594,10 @@ def main() -> int:
           f"{w1['f32']['decoded']}/{w1['f32']['sent']} pages; WidebandFM "
           f"{wfm['f32']:.3f} / {wfm['bf16']:.3f} ms/step; W2 "
           f"{w2['ms_block']:.1f} ms/block, decoded {w2['decoded']}")
+    print(f"PLL (csrc/bitsync.cu): K2 P1 {p1['f32']['k2'][0]:.3f} ms, P2 "
+          f"{p2['k2_ms']:.3f}, W1 {w1['f32']['k2_ms']:.3f}; K3 P3 "
+          f"{p3['k3'][0]:.3f}, W2 {w2['k3_ms']:.3f} ms; parity layouts "
+          f"{pll_taken} (lanes a warp: calls)")
     print(f"paths: P1 {p1['f32']['ms_step']:.2f} / "
           f"{p1['bf16']['ms_step']:.2f} ms/step (f32 / bf16 planes), P2 "
           f"{p2['ms_step']:.2f} ms/step with {p2['decoded']}/256 pages, P3 "

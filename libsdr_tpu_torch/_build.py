@@ -136,10 +136,14 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         p, p, p, p, p,       # per-lane omin, omax, gain, transition, ell
         f32, f32, f32,       # omin, omax, gain (scalars)
         i32, i32,            # transition, ell (scalars)
-        p, p,                # bncr scratch, out
+        p, p,                # scratch, out
         p, p, p, p,          # ss_out, ph_out, om_out, lb_out
         i64, i64, i32, p]    # M, T, R, stream
     lib.sdr_pll.restype = i32
+    lib.sdr_pll_scratch_words.argtypes = [i64, i64]   # M, T
+    lib.sdr_pll_scratch_words.restype = i64
+    lib.sdr_pll_lanes_per_warp.argtypes = [i64]       # M
+    lib.sdr_pll_lanes_per_warp.restype = i32
     lib.sdr_pfb.argtypes = [
         p, p, p, p,          # xr, xi, hist_r, hist_i
         p, p, p,             # taps3, twiddle table re, im

@@ -19,15 +19,24 @@ Entries:
 
 Each dispatches on the device of ``sym``: a CPU tensor takes its plain
 PyTorch version (``*_plain``, beside it), a CUDA tensor launches the
-kernels of ``csrc/bitsync.cu`` or raises; each counts its kernel launches
-in ``<entry>.launches``.
+kernels of ``csrc/bitsync.cu`` or raises; each counts its calls of the
+kernels in ``<entry>.launches`` (one a call, for the five kernels it runs)
+and in ``<entry>.routes`` by the serial pass's lanes per warp.
+
+:func:`pll_split` emulates the kernels' split on the CPU, step for step:
+the majority pass's bit masks (bn and crossed, one 32-bit word per 32
+steps), the serial pass that carries only phase and omega and writes an
+emit mask, and the bits pass that rebuilds last_bits from per-word and
+per-chunk summaries.  The tests hold it against the JAX kernels; nothing
+on the card's path calls it.
 
 Layout: lanes first, (M, T) and (M, L-1), the BitStream carry's own layout,
 where the JAX kernels take time-major (T, M) and (L-1, M) and pad M to
 128-lane rows; no padding here, any M.  The TPU kernels' scheduling knobs
-(``set_variant``, ``groups=``) are not ported: this kernel always computes
+(``set_variant``, ``groups=``) are not ported: the kernels always compute
 the majority vote in a parallel pass before the serial loop (the JAX
-'split' variant, bit-identical to its 'ring').
+'split' variant, bit-identical to its 'ring'); the serial pass's layout
+on the card follows from M (:func:`lanes_per_warp`).
 """
 
 from __future__ import annotations
@@ -41,6 +50,12 @@ from libsdr_tpu_torch.ops.fir_fm import _check, _plain, _small
 
 # The kernels' largest majority window (csrc/bitsync.cu, kMaxWindow).
 MAX_WINDOW = 896
+# Steps in a mask word and words in a chunk of the bits pass
+# (csrc/bitsync.cu, kChunkWords).
+WORD_STEPS = 32
+CHUNK_WORDS = 32
+# The serial pass's layouts: lanes per warp.
+LANES_PER_WARP = (1, 2, 4, 8, 16, 32)
 
 
 def _majority_plain(sym, signs, sym_sum, ell):
@@ -100,6 +115,135 @@ def _pll_plain(sym, signs, sym_sum, phase, omega, last_bits, omin, omax,
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     return back(out), sg, ss, back(ph), back(om), back(lb)
+
+
+def _to_words(bits, w):
+    """(M, T) bool as (M, W) int64 mask words: bit k of word j is step
+    32j + k, the steps past T zero."""
+    m, t = bits.shape
+    pad = torch.zeros(m, w * WORD_STEPS, dtype=torch.int64)
+    pad[:, :t] = bits.to(torch.int64)
+    shifts = torch.arange(WORD_STEPS, dtype=torch.int64)
+    return (pad.view(m, w, WORD_STEPS) << shifts).sum(-1)
+
+
+def _word_bits(words, t):
+    """The inverse of :func:`_to_words`: (M, W) words as (M, T) bool."""
+    shifts = torch.arange(WORD_STEPS, dtype=torch.int64)
+    return ((words[..., None] >> shifts) & 1).flatten(1)[:, :t].bool()
+
+
+def _summaries(e, b):
+    """The summary of each word with emit mask e and bn mask b: its emit
+    count n capped at 16 in bits 16-20, the bn bits of its last n emits in
+    bits 0-15, the latest in bit 0."""
+    n = torch.zeros_like(e)
+    bits = torch.zeros_like(e)
+    for k in range(WORD_STEPS - 1, -1, -1):
+        take = (((e >> k) & 1) == 1) & (n < 16)
+        bits = torch.where(take, bits | (((b >> k) & 1) << n), bits)
+        n = n + take.to(torch.int64)
+    return n << 16 | bits
+
+
+def _compose(s1, s2):
+    """The summary of run s1 followed by run s2."""
+    n2 = s2 >> 16
+    n = torch.clamp((s1 >> 16) + n2, max=16)
+    return n << 16 | ((((s1 & 0xFFFF) << n2) | s2) & 0xFFFF)
+
+
+def _apply(lb, s):
+    """last_bits after a run with summary s, from lb before it."""
+    n = s >> 16
+    return torch.where(n == 0, lb, ((lb << n) | s) & 0xFFFF)
+
+
+def _phase_chain(cr_w, t, phase, omega, omin, omax, gain):
+    """The serial pass: phase and omega alone over the crossed mask words,
+    the nudge (clamped) only at crossing steps and the clamp alone only at
+    the block's first step; returns the emit mask words, phase', omega'."""
+    cr = _word_bits(cr_w, t).t().numpy()
+    m = cr.shape[1]
+    ph = phase.float().cpu().numpy().copy()
+    om = omega.float().cpu().numpy().copy()
+    g = gain.to(torch.float64).cpu().numpy()
+    lo, hi = omin.float().cpu().numpy(), omax.float().cpu().numpy()
+    one, half = np.float32(1.0), np.float32(0.5)
+    emits = np.empty((t, m), bool)
+    for k in range(t):
+        ph = ph + om
+        e = ph >= one
+        ph = np.where(e, ph - one, ph)
+        emits[k] = e
+        c = cr[k]
+        if k == 0 or c.any():
+            nudged = (om.astype(np.float64) + g * (half - ph)).astype(
+                np.float32)
+            clamped = np.minimum(np.maximum(np.where(c, nudged, om), lo), hi)
+            om = clamped if k == 0 else np.where(c, clamped, om)
+    emit_w = _to_words(torch.from_numpy(emits.T.copy()), cr_w.shape[1])
+    return emit_w, torch.from_numpy(ph), torch.from_numpy(om)
+
+
+def _bits_pass(emit_w, bn_w, lb_in, trans, t, chunk_words):
+    """The bits pass: each word's summary composed over its chunk so far,
+    the chunks' summaries scanned from lb_in, and each word's output bytes
+    from the last_bits entering it.  Returns (out (M, T) uint8, lb')."""
+    m, w = emit_w.shape
+    nc = -(-w // chunk_words)
+    s = torch.zeros(m, nc * chunk_words, dtype=torch.int64)
+    s[:, :w] = _summaries(emit_w, bn_w)
+    s = s.view(m, nc, chunk_words)
+    scan = torch.empty_like(s)
+    acc = torch.zeros(m, nc, dtype=torch.int64)
+    for j in range(chunk_words):
+        acc = _compose(acc, s[:, :, j])
+        scan[:, :, j] = acc
+    lb = lb_in.to(torch.int64).cpu()
+    enter = torch.empty(m, nc, dtype=torch.int64)
+    for c in range(nc):
+        enter[:, c] = lb
+        lb = _apply(lb, scan[:, c, -1])
+    ent = enter[:, :, None].expand(m, nc, chunk_words).clone()
+    ent[:, :, 1:] = _apply(ent[:, :, 1:], scan[:, :, :-1])
+    x = ent.reshape(m, -1)[:, :w]
+    tr = trans.cpu().bool()[:, None]
+    out = torch.empty(m, w, WORD_STEPS, dtype=torch.int64)
+    for k in range(WORD_STEPS):
+        ek = (emit_w >> k) & 1
+        x = torch.where(ek == 1, (x << 1) | ((bn_w >> k) & 1), x)
+        bit = torch.where(tr, (x ^ (x >> 1) ^ 1) & 1, x & 1)
+        out[:, :, k] = bit | ek << 1
+    return out.flatten(1)[:, :t].to(torch.uint8), lb.to(torch.int32)
+
+
+def pll_split(sym, signs, sym_sum, phase, omega, last_bits, *, omega_min,
+              omega_max, gain, transition, ell=None,
+              chunk_words=CHUNK_WORDS):
+    """The kernels' decomposition emulated on the CPU: the majority pass's
+    mask words, the serial pass over phase and omega writing emit words,
+    and the bits pass through per-word and per-chunk summaries
+    (``chunk_words`` words a chunk; the kernels take CHUNK_WORDS).  Same
+    arguments and results as :func:`pll_bank` (``ell`` None: every lane's
+    window is R + 1, as in :func:`pll`); parameters are scalars or (M,)
+    array-likes."""
+    m, t = sym.shape
+    dev = sym.device
+    r = signs.shape[1]
+    ell = _check_ell(r + 1 if ell is None else ell, r)
+    ell, omin, omax, gain, trans = (
+        _lanes(v, m, d, "cpu") for v, d in (
+            (ell, torch.int32), (omega_min, torch.float32),
+            (omega_max, torch.float32), (gain, torch.float32),
+            (transition, torch.int32)))
+    bn, crossed, ss, sg = _majority_plain(sym.cpu(), signs.cpu(),
+                                          sym_sum.cpu(), ell)
+    w = -(-t // WORD_STEPS)
+    bn_w, cr_w = _to_words(bn, w), _to_words(crossed, w)
+    emit_w, ph, om = _phase_chain(cr_w, t, phase, omega, omin, omax, gain)
+    out, lb = _bits_pass(emit_w, bn_w, last_bits, trans, t, chunk_words)
+    return tuple(v.to(dev) for v in (out, sg, ss, ph, om, lb))
 
 
 def _lanes(v, m, dtype, device):
@@ -197,9 +341,18 @@ def pll_bank(sym, signs, sym_sum, phase, omega, last_bits, *, omega_min,
                    vec, (0.0, 0.0, 0.0, 0, 0))
 
 
-# Kernel launches, counted where they happen.
+# Kernel launches, counted where they happen, in all and by lanes per warp.
 pll.launches = 0
 pll_bank.launches = 0
+pll.routes = dict.fromkeys(LANES_PER_WARP, 0)
+pll_bank.routes = dict.fromkeys(LANES_PER_WARP, 0)
+
+
+def lanes_per_warp(m: int) -> int:
+    """The serial pass's lanes per warp for an M-lane call on the card
+    (csrc/bitsync.cu's rule, sdr_pll_lanes_per_warp)."""
+    from libsdr_tpu_torch import _build
+    return _build.library().sdr_pll_lanes_per_warp(m)
 
 
 def _check_ell(ell, r, most=None):
@@ -235,24 +388,27 @@ def _launch(entry, sym, signs, sym_sum, phase, omega, last_bits, vec, scal):
     ph = small(phase, torch.float32, (m,))
     om = small(omega, torch.float32, (m,))
     lb = small(last_bits, torch.int32, (m,))
-    bncr = torch.empty((m, t), dtype=torch.uint8, device=dev)
+    lib = _build.library()
+    lanes = lanes_per_warp(m)
+    scratch = torch.empty(lib.sdr_pll_scratch_words(m, t), dtype=torch.int32,
+                          device=dev)
     out = torch.empty((m, t), dtype=torch.uint8, device=dev)
     ss2 = torch.empty(m, dtype=torch.int32, device=dev)
     ph2 = torch.empty(m, dtype=torch.float32, device=dev)
     om2 = torch.empty(m, dtype=torch.float32, device=dev)
     lb2 = torch.empty(m, dtype=torch.int32, device=dev)
     ptrs = [None] * 5 if vec is None else [v.data_ptr() for v in vec]
-    lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdr_pll(sym.data_ptr(), sg.data_ptr() if r else None,
                          ss.data_ptr(), ph.data_ptr(), om.data_ptr(),
-                         lb.data_ptr(), *ptrs, *scal, bncr.data_ptr(),
+                         lb.data_ptr(), *ptrs, *scal, scratch.data_ptr(),
                          out.data_ptr(), ss2.data_ptr(), ph2.data_ptr(),
                          om2.data_ptr(), lb2.data_ptr(), m, t, r,
                          ctypes.c_void_p(stream))
     _check(name, lib, rc)
     entry.launches += 1
+    entry.routes[lanes] += 1
     # The carried signs: the last R of concat(signs, this block's signs).
     new = torch.where(sym[:, max(0, t - r):] > 0, 1, -1).to(torch.int32)
     sg2 = torch.cat([sg[:, sg.shape[1] - (r - new.shape[1]):], new],

@@ -29,8 +29,10 @@ step time):
 
 Then it profiles the PLL kernel alone at 2^16 steps for 64 to 65,536
 lanes (a recurrence per lane: the time per step stays flat while it is
-latency-bound) and writes the SASS of its serial loop (``cuobjdump``) to
-``--sass`` for reading the dependent chain of one step.
+latency-bound) and writes the SASS of its kernels (``cuobjdump``;
+``pll_serial``, the serial loop, first, then ``pll_majority``, ``pll_sums``,
+``pll_scan`` and ``pll_bits``) to ``--sass`` for reading the dependent chain
+of one step.
 """
 
 from __future__ import annotations
@@ -211,26 +213,33 @@ def pll_scaling(gen):
     return out
 
 
+PLL_KERNELS = ("pll_serial", "pll_majority", "pll_sums", "pll_scan",
+               "pll_bits")
+
+
 def sass(path: Path) -> None:
-    """The SASS of the PLL's serial kernel, from the built library."""
+    """The SASS of the PLL's kernels, from the built library, the serial
+    loop first."""
     lib, _ = _build.build()
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     dump = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
-    keep, lines = False, []
+    funcs, cur = {}, None
     for line in dump.splitlines():
         if "Function :" in line:
-            keep = "pll_serial" in line
-        if keep:
-            lines.append(line)
+            cur = next((k for k in PLL_KERNELS if k in line), None)
+        if cur is not None:
+            funcs.setdefault(cur, []).append(line)
+    lines = [x for k in PLL_KERNELS for x in funcs.get(k, [])]
     path.write_text("\n".join(lines) + "\n")
-    print(f"SASS of pll_serial: {len(lines)} lines -> {path}")
+    print(f"SASS of {', '.join(k for k in PLL_KERNELS if k in funcs)}: "
+          f"{len(lines)} lines -> {path}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="digital_profile.json")
-    ap.add_argument("--sass", default="pll_serial.sass")
+    ap.add_argument("--sass", default="pll.sass")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")

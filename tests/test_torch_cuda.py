@@ -378,45 +378,60 @@ def _pll_inputs(rng, m, t, run):
 
 
 @pytest.mark.parametrize("mode", ["normal", "transition"])
-@pytest.mark.parametrize("ell", [2, 20, 40, 264, 512])
-@pytest.mark.parametrize("m", [1, 64, 256, 1000])
+@pytest.mark.parametrize("ell", [2, 20, 40, 264, 512, 896])
+@pytest.mark.parametrize("m", [1, 33, 64, 256, 528, 1000, 4096, 16384])
 def test_pll_kernel_matches_plain(cuda, mode, ell, m):
-    """K2 bit-exact against its plain version over two chained blocks,
-    with the real +-0.5% bounds and with bounds widened to 0.5-2x omega0
-    (where a nudge rounded twice would show); one block length is not a
-    multiple of 16 (the kernel's byte-at-a-time loop)."""
-    from libsdr_tpu_torch.ops.pll import pll, pll_plain
+    """K2 bit-exact against its plain version over chained blocks, with the
+    real +-0.5% bounds and with bounds widened to 0.5-2x omega0 (where a
+    nudge rounded twice would show); block lengths 2048, 2056, 1, 31 and 33
+    (whole and part mask words), then a block with no emit (omega started
+    at 2% of omega0, bounds 1-200%) and one with omega started at 3x
+    omega0, above its bound (the clamp of the block's first step).  M on both sides of the lane cut
+    (csrc/bitsync.cu's lanes per warp: 1 up to 1,056 lanes, 4 at 4,096, 16
+    at 16,384); one launch a call, counted under its layout."""
+    from libsdr_tpu_torch.ops.pll import lanes_per_warp, pll, pll_plain
 
     rng = np.random.default_rng(ell * 1000 + m)
     om0 = 1.0 / ell
-    for lo, hi, t in ((0.995, 1.005, 2048), (0.5, 2.0, 2056)):
+    lanes = lanes_per_warp(m)
+    for lo, hi, ts, start in ((0.995, 1.005, (2048, 1, 31, 33), 1.0),
+                              (0.5, 2.0, (2056, 2056), 1.0),
+                              (0.01, 2.0, (33,), 0.02),
+                              (0.995, 1.005, (96,), 3.0)):
         kw = dict(omega_min=om0 * lo, omega_max=om0 * hi, gain=0.0005,
                   transition=mode == "transition")
         st = [torch.zeros(m, ell - 1, dtype=torch.int32),
               torch.zeros(m, dtype=torch.int32), torch.zeros(m),
-              torch.full((m,), om0), torch.zeros(m, dtype=torch.int32)]
+              torch.full((m,), om0 * start),
+              torch.from_numpy(rng.integers(0, 1 << 16, m, dtype=np.int32))]
         sg = [v.to(cuda) for v in st]
-        for _ in range(2):
+        for t in ts:
             sym = torch.from_numpy(_pll_inputs(rng, m, t, max(1, ell)))
-            n0 = pll.launches
+            n0, r0 = pll.launches, pll.routes[lanes]
             got = pll(sym.to(cuda), *sg, **kw)
-            assert pll.launches == n0 + 1
+            assert pll.launches == n0 + 1 and pll.routes[lanes] == r0 + 1
             ref = pll_plain(sym, *st, **kw)
             torch.cuda.synchronize()
             for a, r in zip(got, ref):
                 assert torch.equal(a.cpu(), r), (lo, t)
+            if start < 1:
+                assert int((ref[0] >> 1).sum()) == 0, "a block with no emit"
             st, sg = list(ref[1:]), list(got[1:])
 
 
-def test_pll_bank_mixes_three_configurations(cuda):
+@pytest.mark.parametrize("lanes", [1, 2, 8, 32])
+def test_pll_bank_mixes_three_configurations(cuda, lanes):
     """K3 bit-exact against its plain version on a bank of the mode bank's
     three BitStream configurations (L = 20 normal, 20 transition, 264
     normal) over two chained blocks, and lane by lane equal to K2 run with
-    each configuration."""
-    from libsdr_tpu_torch.ops.pll import pll, pll_bank, pll_bank_plain
+    each configuration; the bank's size (128, 2,000, 8,000 and 17,000
+    lanes) puts the serial pass at 1, 2, 8 and 32 lanes a warp."""
+    from libsdr_tpu_torch.ops.pll import (lanes_per_warp, pll, pll_bank,
+                                          pll_bank_plain)
 
     rng = np.random.default_rng(3)
-    cfg = [(20, 0, 48), (20, 1, 40), (264, 0, 40)]   # (L, transition, lanes)
+    n = {1: 40, 2: 664, 8: 2664, 32: 5664}[lanes]    # lanes of the last two
+    cfg = [(20, 0, n + 8), (20, 1, n), (264, 0, n)]   # (L, transition, lanes)
     ells = np.concatenate([np.full(n, e, np.int32) for e, _, n in cfg])
     trans = np.concatenate([np.full(n, tr, np.int32) for _, tr, n in cfg])
     om0 = (1.0 / ells).astype(np.float32)
@@ -429,10 +444,13 @@ def test_pll_bank_mixes_three_configurations(cuda):
           torch.from_numpy(om0), torch.zeros(m, dtype=torch.int32)]
     sg = [v.to(cuda) for v in st]
     syms = [torch.from_numpy(_pll_inputs(rng, m, t, 20)) for _ in range(2)]
+    want = lanes_per_warp(m)
+    assert want == lanes, (m, want)
     for sym in syms:
-        n0 = pll_bank.launches
+        n0, r0 = pll_bank.launches, pll_bank.routes[want]
         got = pll_bank(sym.to(cuda), *sg, **kw)
         assert pll_bank.launches == n0 + 1
+        assert pll_bank.routes[want] == r0 + 1
         ref = pll_bank_plain(sym, *st, **kw)
         torch.cuda.synchronize()
         for a, b_ in zip(got, ref):
