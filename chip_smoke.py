@@ -23,7 +23,9 @@ its own line; the first failure exits non-zero:
    emit; K4 (the
    polyphase channelizer, ``csrc/pfb.cu``) against ``pfb_plain`` over M
    8-4096 (the FFT and, at M = 1000, the direct DFT), P 1/8/32, F 1-4096,
-   C 1/3, both variants and plane dtypes, and three chained blocks; K5 and
+   C 1/3, both variants and plane dtypes, on both routes (the stream
+   route at M 16-1024 with P = 8, each launch's route checked), and three
+   chained blocks; K5 and
    K6 (the v1 FIR with any window start, ``ops/fir_mxu.py``, and its fm /
    am epilogues) against their plain versions over strides 2-200, taps
    17-263, window starts 0, 1, D-2, D-1, D and 2D+1, C 1/3/64, both plane
@@ -83,7 +85,10 @@ its own line; the first failure exits non-zero:
    ``--device cpu`` (the same decodes, the same peaks).
 
 The last three lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+limit, and ``{"ok": true, "device": {...}}``.  In the record every ``ms``
+is CUDA events around the calls; K4's rows add ``device_ms`` (the same
+calls replayed in a CUDA graph, no host time) and ``kernel_route`` (the
+route of ``csrc/pfb.cu`` the path's launches took).
 """
 
 from __future__ import annotations
@@ -1399,14 +1404,19 @@ def pfb_errs(torch, got, ref, demod, gain):
 def phase_k4_parity(torch, gen):
     """K4 against pfb_plain on the card: M 8-4096 (the FFT and the direct
     DFT at M = 1000), P 1/8/32, F 1, P-1, P, 33 and 4096, C 1 and 3, both
-    variants and plane dtypes; then three carry-chained blocks against one
-    block.  Returns the worst errors."""
-    from libsdr_tpu_torch.ops.pfb import pfb_mxu, pfb_plain
+    variants and plane dtypes, over both routes (the stream route at M 16,
+    64, 256 and 1024 with P = 8, the generic one for the rest; each launch
+    checked against the route its shape gives); then three carry-chained
+    blocks against one block.  Returns the worst errors and the cases by
+    route."""
+    from libsdr_tpu_torch.ops.pfb import (pfb_mxu, pfb_plain, reset_counts,
+                                          stream_route)
 
     worst = dict(y=0.0, med=0.0, p99=0.0, max=0.0)
-    cases = 0
+    cases = dict(generic=0, stream=0)
+    reset_counts()
     for dtype in (torch.float32, torch.bfloat16):
-        for m in (8, 16, 64, 128, 384, 1000, 1024, 4096):
+        for m in (8, 16, 64, 128, 256, 384, 1000, 1024, 4096):
             line = dict(y=0.0, med=0.0, p99=0.0, max=0.0)
             for p in (1, 8, 32):
                 for f in sorted({1, max(1, p - 1), p, 33, 4096}):
@@ -1425,7 +1435,12 @@ def phase_k4_parity(torch, gen):
                                   f"pfb_mxu vs plain {name}: {e}")
                             for k, v in zip(("y", "med", "p99", "max"), e):
                                 line[k] = max(line[k], v)
-                            cases += 1
+                            route = ("stream" if stream_route(m, p)
+                                     else "generic")
+                            cases[route] += 1
+                            check(pfb_mxu.routes == cases,
+                                  f"pfb_mxu {name}: routes {pfb_mxu.routes}"
+                                  f", expected {cases}")
             print(f"parity K4 {str(dtype)[6:]} M={m} P=1,8,32 F=1..4096 "
                   f"C=1,3: Y/exports {line['y']:.3e} of max |Y|, demod "
                   f"median {line['med']:.2e} p99 {line['p99']:.2e} max "
@@ -1434,7 +1449,7 @@ def phase_k4_parity(torch, gen):
                 worst[k] = max(worst[k], line[k])
     # three chained blocks (hist = the last P frames, prev = y_last) give
     # what one block of all their frames gives
-    for m in (16, 384, 1024):
+    for m in (16, 256, 384, 1024):
         x, hist, prev, taps = pfb_inputs(torch, gen, 2, 3 * 48, m, 8,
                                          torch.float32)
         one = pfb_mxu(x, hist, taps, m, prev=prev, demod=True)[0]
@@ -1446,30 +1461,30 @@ def phase_k4_parity(torch, gen):
             h = blk[:, 40:, :]
         err = float((torch.cat(outs, 1) - one).abs().max())
         check(err < 1e-6, f"pfb_mxu chained vs one block M={m}: {err}")
-    print(f"parity K4: {cases} cases, worst Y/exports {worst['y']:.3e} of "
+    check(min(cases.values()) > 0, f"parity K4 misses a route: {cases}")
+    print(f"parity K4: {sum(cases.values())} cases ({cases['stream']} on the "
+          f"stream route, {cases['generic']} generic), worst Y/exports "
+          f"{worst['y']:.3e} of "
           f"max |Y| (bound {PFB_REL:g}), demod median {worst['med']:.2e} "
           f"(bound {PFB_MEDIAN:g}) p99 {worst['p99']:.2e} (bound "
           f"{PFB_P99:g}) max {worst['max']:.2e} rad; 3 chained blocks == "
-          "one block at M = 16, 384, 1024")
+          "one block at M = 16, 256, 384, 1024")
     return worst, cases
-
-
-def k4_bound(b, m, p, isz, demod):
-    """K4's bound for one (B,) block: the planes read once and the outputs
-    written once (demod: the float32 audio; channel: two float32 planes);
-    operations a sample: the MAC's 4 (P+1), an FFT's 5 log2 M and the
-    discriminator's ~50."""
-    ops = b * (4 * (p + 1) + 5 * np.log2(m) + (50 if demod else 0))
-    return bound(b * (2 * isz + (4 if demod else 8)), ops)
 
 
 def k4_at(torch, args, kw, label, smi):
     """K4 on one call's arguments (``pfb_mxu(*args, **kw)``) against its
-    plain version, then K4, the plain version and the library path (the
-    MAC plus torch.fft on cuFFT: several calls) timed with CUDA events;
-    returns (err tuple, ms, plain_ms, library_ms, (bound_ms, bound_by))."""
+    plain version, then K4 timed with CUDA events around the calls (the
+    wrapper's host time in it), as the plain version and the library path
+    (the MAC plus torch.fft on cuFFT: several calls) are, and on the device
+    alone (``tools/pfb_times.py``'s kernel_ms: a CUDA graph cycling through
+    copies of the frames that make >= 200 MB, so that they come from HBM
+    and not from L2, as a path's block does); returns (err tuple, ms,
+    plain_ms, library_ms, (bound_ms, bound_by), device_ms)."""
     from libsdr_tpu_torch.ops.pfb import (pfb_frames_plain, pfb_mxu,
                                           pfb_plain)
+    from libsdr_tpu_torch.tools.pfb_times import bound as k4_bound
+    from libsdr_tpu_torch.tools.pfb_times import kernel_ms, n_sets
 
     demod, gain = kw.get("demod", False), kw.get("gain", 1.0)
     got, ref = pfb_mxu(*args, **kw), pfb_plain(*args, **kw)
@@ -1479,7 +1494,12 @@ def k4_at(torch, args, kw, label, smi):
           f"{label}: pfb_mxu vs plain {e}")
     del got, ref
     x, hist, taps, m = args[:4]
+    n = n_sets(2 * x.re.numel() * x.re.element_size())
+    sets = [args] + [(x.map(torch.clone),) + tuple(args[1:])
+                     for _ in range(n - 1)]
+    device_ms = kernel_ms([lambda a=a: pfb_mxu(*a, **kw) for a in sets], 10)
     ms = cuda_ms(torch, lambda: pfb_mxu(*args, **kw), 5)
+    del sets
     plain_ms = cuda_ms(torch, lambda: pfb_plain(*args, **kw), 2)
     lib_ms = cuda_ms(torch, lambda: pfb_frames_plain(x, hist, taps), 2)
     b_ms, b_by = k4_bound(x.re.numel(), m, hist.re.shape[-2],
@@ -1487,11 +1507,12 @@ def k4_at(torch, args, kw, label, smi):
     print(f"{label}: max_err {e[0]:.3e} of max |Y|"
           + (f", demod median {e[1]:.2e} p99 {e[2]:.2e} rad" if demod
              else "")
-          + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+          + f"; kernel {ms:.4f} ms a call with the host's ({device_ms:.4f} "
+          f"ms on the device), plain {plain_ms:.3f} ms, library "
           f"(MAC + torch.fft, several calls) {lib_ms:.3f} ms, bound "
           f"{b_ms:.3f} ms ({b_by}) | {smi}")
     torch.cuda.empty_cache()
-    return e, ms, plain_ms, lib_ms, (b_ms, b_by)
+    return e, ms, plain_ms, lib_ms, (b_ms, b_by), device_ms
 
 
 def phase_w1(torch, gen, smi):
@@ -1510,6 +1531,7 @@ def phase_w1(torch, gen, smi):
     from libsdr_tpu_torch.apps.scanner import scan_blocks
     from libsdr_tpu_torch.core.ragged import min_valid_gap, pick_window
     from libsdr_tpu_torch.ops import bitsync, wideband_rx
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu
     from libsdr_tpu_torch.ops.pll import pll, pll_plain
     from libsdr_tpu_torch.parallel.wideband import build_scanner_step
     from libsdr_tpu_torch.tools import wideband_signals as W
@@ -1533,9 +1555,12 @@ def phase_w1(torch, gen, smi):
         scan_s = time.perf_counter() - t0
         counts = counts_now(entries)
         layouts = pll_layouts(pll)
+        k4_routes = dict(pfb_mxu.routes)
         check(counts["pfb_mxu"] == 2 and counts["pll"] == 2 and all(
             v == 0 for k, v in counts.items() if k not in ("pfb_mxu", "pll")),
             f"W1 {plane} launches {counts}")
+        check(k4_routes == {"generic": 0, "stream": 2},
+              f"W1 {plane}: K4 routes {k4_routes}")
         where = {ch: sorted(c for c, msgs in found.items()
                             if any(x.address == addr for x in msgs))
                  for ch, (addr, _) in pages.items()}
@@ -1588,8 +1613,8 @@ def phase_w1(torch, gen, smi):
               f"Msamples/s), scan_blocks with host decode {scan_s:.1f} s; "
               f"pages decoded {len(ok)}/{len(pages)} on their own channel "
               f"and nowhere else ({len(edge)} across the block edge; "
-              f"{other} decodes of other addresses); launches {counts} "
-              f"| {smi}")
+              f"{other} decodes of other addresses); launches {counts}, "
+              f"K4 by route {k4_routes} | {smi}")
         print(f"phase W1 {plane} K2 on the path's {tuple(a2[0].shape)} "
               f"ASKDetector symbols: kernel {k2_ms:.3f} ms "
               f"({k2_ms * 1e6 / t2:.2f} ns a step, layouts {layouts} lanes "
@@ -1603,7 +1628,8 @@ def phase_w1(torch, gen, smi):
               f"{sorted(set(pages) - set(ok) - set(astray))}, decoded off "
               f"their channel {astray}")
         res[plane] = dict(ms_block=ms_block, counts=counts, k4=k4d, k4c=k4c,
-                          k2_ms=k2_ms, decoded=len(ok), sent=len(pages))
+                          k4_routes=k4_routes, k2_ms=k2_ms,
+                          decoded=len(ok), sent=len(pages))
         del blocks, c, y, k4, k2, a4, a2, got, ref
         torch.cuda.empty_cache()
     return res
@@ -1614,7 +1640,7 @@ def phase_wfm(torch, gen, smi):
     planes: best of 3 runs of 5 carry-chained steps, one K4 launch each."""
     import libsdr_tpu_torch as L
     from libsdr_tpu_torch.ops import WidebandFM
-    from libsdr_tpu_torch.ops.pfb import pfb_mxu
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu, reset_counts
 
     m, b = W1_M, W1_BLOCK
     x32 = noise(torch, gen, 1, b)
@@ -1625,7 +1651,7 @@ def phase_wfm(torch, gen, smi):
         op.bind(L.StreamSpec(np.complex64, W1_FS, b, plane_dtype=dtype))
         x = x32 if dtype is None else x32.to(dtype)
         carry = op.init_carry("cuda")
-        pfb_mxu.launches = 0
+        reset_counts()
         carry, y = op.apply(carry, x)
         torch.cuda.synchronize()
         check(tuple(y.shape) == (b // m, m) and bool(torch.isfinite(y).all()),
@@ -1640,10 +1666,13 @@ def phase_wfm(torch, gen, smi):
             best = min(best, time.perf_counter() - t0)
         check(pfb_mxu.launches == 16, f"WidebandFM launches "
                                       f"{pfb_mxu.launches}")
+        check(pfb_mxu.routes["stream"] == 16,
+              f"WidebandFM K4 routes {pfb_mxu.routes}")
         res[plane] = best / 5 * 1e3
         print(f"phase WidebandFM {plane} planes ({m} x {b:,}, lane layout): "
               f"{res[plane]:.3f} ms/step ({b / res[plane] / 1e3:.1f} "
-              f"Msamples/s), 16 K4 launches | {smi}")
+              f"Msamples/s), 16 K4 launches, all on the stream route | "
+              f"{smi}")
         del x, carry, c, y
     del x32
     torch.cuda.empty_cache()
@@ -1665,6 +1694,7 @@ def phase_w2(torch, gen, smi):
     from libsdr_tpu_torch.apps import multimode
     from libsdr_tpu_torch.ops import bitsync
     from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu
     from libsdr_tpu_torch.ops.pll import pll_bank, pll_bank_plain
     from libsdr_tpu_torch.ops.psk31 import BPSK31
     from libsdr_tpu_torch.parallel import wideband as pwb
@@ -1701,6 +1731,7 @@ def phase_w2(torch, gen, smi):
         total = time.perf_counter() - t0
         counts = counts_now(entries)
         layouts = pll_layouts(pll_bank)
+        k4_routes = dict(pfb_mxu.routes)
     finally:
         BPSK31.apply = apply
     check(all(counts[k] == n_blocks for k in ("pfb_mxu", "pll_bank",
@@ -1708,6 +1739,8 @@ def phase_w2(torch, gen, smi):
           and all(v == 0 for k, v in counts.items()
                   if k not in ("pfb_mxu", "pll_bank", "fir_exact")),
           f"W2 launches {counts}")
+    check(k4_routes == {"generic": 0, "stream": n_blocks},
+          f"W2: K4 routes {k4_routes}")
     marks = {ch: W.mixed_marks(mo, dec) for ch, (mo, dec) in found.items()}
     ok = {mo: sum(1 for ch, v in active.items() if v == mo
                   and found.get(ch, (None,))[0] == mo and marks[ch] == {ch})
@@ -1730,7 +1763,7 @@ def phase_w2(torch, gen, smi):
           f"loop {spent[0] / total:.1%} of scan_multimode's "
           f"{total:.1f} s; channels decoded (their own message) {ok} of "
           f"{want}, messages off their channel {astray}; launches "
-          f"{counts} | {smi}")
+          f"{counts}, K4 by route {k4_routes} | {smi}")
     check(ok == want and not astray,
           f"W2: decoded {ok} of {want}, off their channel {astray}")
     # K4, K1b and K3 on the path's own calls for the second block
@@ -1757,7 +1790,8 @@ def phase_w2(torch, gen, smi):
     del x, blocks, c, k4, k1b, k3, a4, a1, a3, got, ref
     torch.cuda.empty_cache()
     return dict(ms_block=ms_block, counts=counts, decoded=ok, k4c=k4c,
-                bpsk31_share=spent[0] / total, k3_ms=k3_ms)
+                k4_routes=k4_routes, bpsk31_share=spent[0] / total,
+                k3_ms=k3_ms)
 
 
 # -- slice 5: the v1 FIR (K5) and its FM/AM epilogues (K6) -----------------
@@ -2548,17 +2582,22 @@ def main() -> int:
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
     # K4, each variant on the path that runs it: the demod variant at W1
     # (1024 x 65,536 frames, float32 planes), the channel variant at W2
-    # (256 x 12,288 frames), each with that run's launches; library: the
-    # MAC plus torch.fft (cuFFT), several calls
-    for name, res, launches in (
-            ("pfb_mxu", w1["f32"]["k4"], w1["f32"]["counts"]["pfb_mxu"]),
-            ("pfb_mxu:channel", w2["k4c"], w2["counts"]["pfb_mxu"])):
-        e, ms, plain_ms, lib_ms, (b_ms, b_by) = res
+    # (256 x 12,288 frames), each with that run's launches; ms with CUDA
+    # events as every row's, device_ms from a CUDA graph (no host time);
+    # kernel_route, the route of csrc/pfb.cu the path's launches took;
+    # library: the MAC plus torch.fft (cuFFT), several calls
+    for name, res, launches, routes in (
+            ("pfb_mxu", w1["f32"]["k4"], w1["f32"]["counts"]["pfb_mxu"],
+             w1["f32"]["k4_routes"]),
+            ("pfb_mxu:channel", w2["k4c"], w2["counts"]["pfb_mxu"],
+             w2["k4_routes"])):
+        e, ms, plain_ms, lib_ms, (b_ms, b_by), device_ms = res
         record.append(dict(
             name=name, route="cuda", source="libsdr_tpu_torch/csrc/pfb.cu",
             replaces="libsdr_tpu/ops/pallas_pfb.py:135", launches=launches,
             max_abs_err=e[0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms))
+            bound_by=b_by, library_ms=lib_ms, device_ms=device_ms,
+            kernel_route="+".join(r for r, n in routes.items() if n)))
     # K5 at F1 (offset 0, float32 planes; library: the strided conv1d over
     # concat(tail, x)); K6 at full width in fm with de-emphasis
     for name, line, res, launches, lib_ms, src in (
@@ -2588,7 +2627,8 @@ def main() -> int:
           + " ms/step; K6 " + ", ".join(f"{m} {p} {r['ms']:.3f}"
                                         for (m, p), r in k6.items())
           + " ms a call")
-    print(f"wideband: K4 parity {k4_cases} cases (worst {k4_worst['y']:.2e}"
+    print(f"wideband: K4 parity {sum(k4_cases.values())} cases {k4_cases} "
+          f"(worst {k4_worst['y']:.2e}"
           f" of max |Y|); W1 {w1['f32']['ms_block']:.2f} / "
           f"{w1['bf16']['ms_block']:.2f} ms/block (f32 / bf16 planes), "
           f"{w1['f32']['decoded']}/{w1['f32']['sent']} pages; WidebandFM "

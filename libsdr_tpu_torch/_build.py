@@ -151,8 +151,11 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         p, p,                # out_r, out_i
         p, p, p, p,          # y_last r, i, y_first r, i (demod)
         i64, i64, i32, i32,  # C, F, M, P
-        f32, i32, i32, p]    # gain, demod, bf16 planes, stream
+        f32, i32, i32, p,    # gain, demod, bf16 planes, stream
+        ctypes.POINTER(ctypes.c_int)]  # the route taken (out)
     lib.sdr_pfb.restype = i32
+    lib.sdr_pfb_route.argtypes = [i32, i32]           # M, P
+    lib.sdr_pfb_route.restype = i32
     # mode, tensor-core mode of the entry, C, n_out, T, D, L, bf16 planes,
     # fast, the route (out)
     lib.sdr_fir_chunks.argtypes = [i32, i32, i64, i64, i32, i32, i32, i32,

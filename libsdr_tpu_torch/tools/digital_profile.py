@@ -2,6 +2,7 @@
 card.
 
     python -m libsdr_tpu_torch.tools.digital_profile [--out profile.json]
+        [--paths P1 P2 P3 W1 W2]
 
 Needs one CUDA card and nvcc.  For each path it drives a few carry-chained
 steps under ``torch.profiler``, on the message traffic that
@@ -27,12 +28,15 @@ step time):
   host loop, whose share of the step is printed apart), on the traffic of
   ``tools/wideband_signals.mixed_band``.
 
-Then it profiles the PLL kernel alone at 2^16 steps for 64 to 65,536
-lanes (a recurrence per lane: the time per step stays flat while it is
-latency-bound) and writes the SASS of its kernels (``cuobjdump``;
-``pll_serial``, the serial loop, first, then ``pll_majority``, ``pll_sums``,
-``pll_scan`` and ``pll_bits``) to ``--sass`` for reading the dependent chain
-of one step.
+With every path (the default), it then profiles the PLL kernel alone at
+2^16 steps for 64 to 65,536 lanes (a recurrence per lane: the time per
+step stays flat while it is latency-bound) and writes the SASS of its
+kernels (``cuobjdump``; ``pll_serial``, the serial loop, first, then
+``pll_majority``, ``pll_sums``, ``pll_scan`` and ``pll_bits``) to
+``--sass`` for reading the dependent chain of one step.  ``--paths``
+profiles only the paths named; run as a script with ``PYTHONPATH`` set to
+a tree's root, it times that tree's package, so one call can take two
+trees in turns.
 """
 
 from __future__ import annotations
@@ -236,10 +240,15 @@ def sass(path: Path) -> None:
           f"{len(lines)} lines -> {path}")
 
 
+PATHS = {"P1": p1, "P2": p2, "P3": p3, "W1": w1, "W2": w2}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="digital_profile.json")
     ap.add_argument("--sass", default="pll.sass")
+    ap.add_argument("--paths", nargs="+", default=list(PATHS),
+                    choices=list(PATHS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -250,14 +259,13 @@ def main(argv=None) -> int:
     _build.library()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    res = {"device": smi, "P1": p1(gen), "P2": p2(gen), "P3": p3(gen)}
-    torch.cuda.empty_cache()
-    res["W1"] = w1(gen)
-    torch.cuda.empty_cache()
-    res["W2"] = w2(gen)
-    torch.cuda.empty_cache()
-    res["pll_scaling"] = pll_scaling(gen)
-    sass(Path(args.sass))
+    res = {"device": smi}
+    for name in args.paths:
+        res[name] = PATHS[name](gen)
+        torch.cuda.empty_cache()
+    if len(args.paths) == len(PATHS):
+        res["pll_scaling"] = pll_scaling(gen)
+        sass(Path(args.sass))
     Path(args.out).write_text(json.dumps(res, indent=1))
     return 0
 

@@ -577,7 +577,9 @@ def test_digital_kernels_refuse_what_they_do_not_take(cuda):
 # percentile < 1e-3 rad (the angle of z = Y[t] conj(Y[t-1]) is amplified
 # where |z| is near 0 on random data), the exports within 2e-5 of max |Y|.
 
-PFB_MS = (8, 16, 64, 128, 384, 1000, 1024, 4096)
+# M 16, 64, 256 and 1024 at P = 8 take the stream route, every other case
+# the generic one (ops/pfb.py::stream_route)
+PFB_MS = (8, 16, 64, 128, 256, 384, 1000, 1024, 4096)
 
 
 def _pfb_inputs(gen, c, f, m, p, dtype, dev):
@@ -618,8 +620,11 @@ def _pfb_errs(got, ref, demod, gain):
 @pytest.mark.parametrize("p", [1, 8, 32])
 @pytest.mark.parametrize("m", PFB_MS)
 def test_pfb_kernel_matches_plain(cuda, m, p, dtype):
-    """Both variants over F in {1, P-1, P, 33, 4096} and C in {1, 3}."""
-    from libsdr_tpu_torch.ops.pfb import pfb_mxu, pfb_plain
+    """Both variants over F in {1, P-1, P, 33, 4096} and C in {1, 3}, each
+    launch on the route its shape gives."""
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu, pfb_plain, stream_route
+
+    route = "stream" if stream_route(m, p) else "generic"
 
     gen = torch.Generator(device=cuda)
     gen.manual_seed(m * 100 + p)
@@ -627,10 +632,11 @@ def test_pfb_kernel_matches_plain(cuda, m, p, dtype):
         for c in (1, 3):
             x, hist, prev, taps = _pfb_inputs(gen, c, f, m, p, dtype, cuda)
             for demod in (False, True):
-                n0 = pfb_mxu.launches
+                n0, r0 = pfb_mxu.launches, pfb_mxu.routes[route]
                 got = pfb_mxu(x, hist, taps, m, gain=1.7, prev=prev,
                               demod=demod)
                 assert pfb_mxu.launches == n0 + 1
+                assert pfb_mxu.routes[route] == r0 + 1
                 ref = pfb_plain(x, hist, taps, m, gain=1.7, prev=prev,
                                 demod=demod)
                 torch.cuda.synchronize()
@@ -640,7 +646,7 @@ def test_pfb_kernel_matches_plain(cuda, m, p, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [16, 384, 1024])
+@pytest.mark.parametrize("m", [16, 256, 384, 1024])
 def test_pfb_kernel_chained_blocks_equal_one_block(cuda, m, dtype):
     """Three carry-chained blocks (hist = the last P frames, prev = the
     y_last export) give what one block of all their frames gives."""
@@ -663,6 +669,45 @@ def test_pfb_kernel_chained_blocks_equal_one_block(cuda, m, dtype):
     assert float((torch.cat([y.re for y in ys], 1) - y_one.re).abs().max()
                  + (torch.cat([y.im for y in ys], 1)
                     - y_one.im).abs().max()) < 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [16, 64, 256, 1024])
+def test_pfb_stream_route_matches_its_emulation(cuda, m, dtype):
+    """The stream route against pfb_split (ops/pfb.py, the route's
+    decomposition on the CPU) on the same inputs, both variants."""
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu, pfb_split
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(m)
+    for f, c in ((5, 1), (300, 2)):
+        x, hist, prev, taps = _pfb_inputs(gen, c, f, m, 8, dtype, cuda)
+        for demod in (False, True):
+            r0 = pfb_mxu.routes["stream"]
+            got = pfb_mxu(x, hist, taps, m, gain=1.7, prev=prev, demod=demod)
+            assert pfb_mxu.routes["stream"] == r0 + 1
+            cpu = [v.to("cpu") for v in (x, hist, prev)]
+            emu = pfb_split(cpu[0], cpu[1], taps.cpu(), m, gain=1.7,
+                            prev=cpu[2], demod=demod, tt=37)
+            if demod:
+                got = (got[0].cpu(), got[1].to("cpu"), got[2].to("cpu"))
+            else:
+                got = got.to("cpu")
+            e, med, p99, _ = _pfb_errs(got, emu, demod, 1.7)
+            assert e < 2e-5, (m, f, c, demod, e)
+            assert med < 5e-5 and p99 < 1e-3, (m, f, c, med, p99)
+
+
+def test_pfb_route_is_the_shape_gate(cuda):
+    """The C gate (sdr_pfb_route) and its Python mirror agree."""
+    from libsdr_tpu_torch import _build
+    from libsdr_tpu_torch.ops.pfb import stream_route
+
+    lib = _build.library()
+    for m in (1, 4, 8, 16, 32, 64, 128, 256, 384, 512, 1000, 1024, 2048,
+              4096, 8192):
+        for p in (1, 7, 8, 9, 32):
+            assert bool(lib.sdr_pfb_route(m, p)) == stream_route(m, p), (m, p)
 
 
 def test_pfb_kernel_refuses_what_it_does_not_take(cuda):
