@@ -15,8 +15,8 @@ its own line; the first failure exits non-zero:
    K1b (FIR), K1c (AM) and K1d (USB) across plane dtypes, strides 2 to 200
    (the rx app's 40, 80, 100 and 200 among them),
    tap counts, channel counts and AGC on/off, three carry-chained blocks,
-   with the AGC's chunk count K > 1; K1e (AFSK) across strides 2-100 and
-   windows 2-128; K2/K3 (the bit-clock PLL) bit-exact across windows
+   with the AGC's chunk count K > 1; K1e (AFSK) across strides 2-100 (the
+   tensor-core, staged and warp kernels) and windows 2-128; K2/K3 (the bit-clock PLL) bit-exact across windows
    2-896, 1-1000 lanes, both bit mappings and widened bounds, blocks of
    1-2056 steps, every lanes-per-warp layout of the serial pass, 4,096 to
    65,536 lanes at the layout the lane cut gives them, and a block with no
@@ -799,17 +799,26 @@ def afsk_errs(torch, got, ref):
 
 
 def phase_afsk_parity(torch, L, gen):
-    """K1e against its plain version: both plane dtypes, strides 2-100 (the
-    warp kernel above 40), windows 2-128, channels 1, 3 and 64 in turn,
-    n0 != 0 and nonzero carried products, a warm block and three
-    carry-chained blocks of several chunks each."""
+    """K1e against its plain version: both plane dtypes, strides 2-100 on
+    all three routes (the tensor-core kernel at 2-16, 2-40 with bf16
+    planes; the staged kernel above 16 up to 40 with f32 planes; the warp
+    kernel above 40), windows 2-128, channels 1, 3 and 64 in turn, n0 != 0
+    and nonzero carried products, a warm block and three carry-chained
+    blocks of several chunks each."""
     from libsdr_tpu_torch.core.cplx import Complex
     from libsdr_tpu_torch.ops import fir_fm as F
 
     worst = 0.0
     n_out = 3 * 4096 + 333
+    before = dict(F.fir_afsk_exact.routes)
+    # D = 24 (the staged kernel with float32 planes, the tc route with
+    # bfloat16) draws from a generator of its own, so that the traffic of
+    # the phases after this one does not depend on it
+    own = torch.Generator(device="cuda")
+    own.manual_seed(24)
+    sweep = [(d, gen) for d in (2, 4, 5, 10, 40, 100)] + [(24, own)]
     for dtype in (torch.float32, torch.bfloat16):
-        for i, d in enumerate((2, 4, 5, 10, 40, 100)):
+        for i, (d, g) in enumerate(sweep):
             for j, ell in enumerate((2, 20, 40, 128)):
                 c = (1, 3, 64)[(i + j) % 3]
                 b = d * n_out
@@ -818,11 +827,11 @@ def phase_afsk_parity(torch, L, gen):
                 carry = (tail, prev,
                          torch.tensor(7 % ell, dtype=torch.int32,
                                       device="cuda"),
-                         noise(torch, gen, c, ell - 1),
-                         noise(torch, gen, c, ell - 1))
+                         noise(torch, g, c, ell - 1),
+                         noise(torch, g, c, ell - 1))
                 errs = [0.0, 0.0, 0.0]
                 for k in range(4):
-                    xr, xi = fm_signal(torch, gen, c, b, d, "cuda", k * b)
+                    xr, xi = fm_signal(torch, g, c, b, d, "cuda", k * b)
                     x = Complex(xr.to(dtype), xi.to(dtype))
                     args = afsk_args(op, x, carry)
                     ref = F.fir_afsk_exact_plain(*args)
@@ -841,6 +850,9 @@ def phase_afsk_parity(torch, L, gen):
                       and errs[2] < ERR_BOUND,
                       f"fir_afsk_exact vs plain {name}: {errs}")
                 worst = max(worst, errs[0])
+    taken = {r: n - before[r] for r, n in F.fir_afsk_exact.routes.items()}
+    print(f"parity K1e launches by route: {taken}")
+    check(all(taken.values()), f"K1e parity missed a route: {taken}")
     return worst
 
 
@@ -1066,6 +1078,9 @@ def phase_p1(torch, L, gen, smi):
               and all(v == 0 for k, v in counts.items()
                       if k not in ("fir_afsk_exact", "pll")),
               f"P1 {plane} launches {counts}")
+        k1e_routes = dict(F.fir_afsk_exact.routes)
+        check(k1e_routes["tc"] == n_steps,
+              f"P1 {plane} K1e off the tc route: {k1e_routes}")
         ms_step = best / iters * 1e3
         # The kernels at the path's shapes, timed with CUDA events, on the
         # second block's inputs (the carry after the first block).
@@ -1099,13 +1114,18 @@ def phase_p1(torch, L, gen, smi):
               f"P1 {plane} K2 vs plain on {held.shape[1]} steps")
         n_out = b // 4
         isz = x.re.element_size()
-        # operations a K1e output: the FIR's 8T, the discriminator's ~50,
-        # and ~20 for the tone products, an O(1) update of each sliding
-        # window sum and the two squared magnitudes
-        k1e_bound = bound(c * (2 * isz * b + 4 * n_out),
-                          c * n_out * (8 * op._t + 50 + 20))
+        # K1e on the tc route: on the tensor cores the FIR's 8T operations
+        # an output in its bf16 passes (3 for float32 planes, 2 for
+        # bfloat16); on the CUDA cores the discriminator's ~50 and ~30 for
+        # the tone products, their prefix sums, the window sums from the
+        # blocks' sums (csrc/fir_tc.cu::afsk_sums) and the squares
+        passes = 3 if isz == 4 else 2
+        k1e_bound = bound_tc(c * (2 * isz * b + 4 * n_out),
+                             c * n_out * passes * 8 * op._t,
+                             c * n_out * (50 + 30))
         k2_bound = bound(2 * c * n_out, 30 * c * n_out)
         res[plane] = dict(decoded=decoded, ms_step=ms_step, counts=counts,
+                          k1e_routes=k1e_routes,
                           k1e=(e_afsk[0], k1e_ms, k1e_plain, k1e_bound),
                           k2=(k2_ms, k2_plain, k2_held, held.shape[1],
                               k2_bound))
@@ -1114,8 +1134,9 @@ def phase_p1(torch, L, gen, smi):
               f"({c * b / ms_step / 1e3:.1f} Msps), frames decoded "
               f"{decoded}/{8 * c}, launches {counts} | {smi}")
         print(f"phase P1 {plane} K1e: max_err={e_afsk[0]:.3e} (of max "
-              f"|disc|) kernel {k1e_ms:.3f} ms, plain {k1e_plain:.3f} ms, "
-              f"bound {k1e_bound[0]:.3f} ms ({k1e_bound[1]})")
+              f"|disc|) kernel {k1e_ms:.3f} ms (routes {k1e_routes}), "
+              f"plain {k1e_plain:.3f} ms, bound {k1e_bound[0]:.3f} ms "
+              f"({k1e_bound[1]})")
         print(f"phase P1 {plane} K2: kernel {k2_ms:.3f} ms ({n_out} steps x "
               f"{c} lanes, {k2_ms * 1e6 / n_out:.2f} ns a step, layouts "
               f"{layouts} lanes a warp: launches); on {held.shape[1]} steps "
@@ -2556,14 +2577,17 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by,
             library_ms=banks["library_fir_exact"] if name == "fir_exact"
             else None))
+    # K1e at P1 on the tc route (kernel_route: the routes its launches took)
     err, ms, plain_ms, (b_ms, b_by) = p1["f32"]["k1e"]
     record.append(dict(
         name="fir_afsk_exact", route="cuda",
-        source="libsdr_tpu_torch/csrc/fir_fm_exact.cu",
+        source="libsdr_tpu_torch/csrc/fir_tc.cu",
         replaces="libsdr_tpu/ops/pallas_fir_mxu.py:777",
         launches=p1["f32"]["counts"]["fir_afsk_exact"], max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None))
+        library_ms=None,
+        kernel_route="+".join(r for r, n in p1["f32"]["k1e_routes"].items()
+                              if n)))
     # K2 and K3: kernel and plain version timed on the same whole block
     # (the floor of the recurrence's chain, a latency and not a bound of
     # bytes or operations, is in the phases' lines)

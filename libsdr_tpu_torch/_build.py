@@ -161,8 +161,9 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.sdr_fir_chunks.argtypes = [i32, i32, i64, i64, i32, i32, i32, i32,
                                    i32, p]
     lib.sdr_fir_chunks.restype = i32
-    # T, D, bf16 planes, fast, the plan (out, 8 ints)
-    lib.sdr_fir_tc_plan.argtypes = [i32, i32, i32, i32, p]
+    # T, D, L (mode afsk's window, else 0), bf16 planes, fast, the plan
+    # (out, 8 ints)
+    lib.sdr_fir_tc_plan.argtypes = [i32, i32, i32, i32, i32, p]
     lib.sdr_fir_tc_plan.restype = i32
     lib.sdr_agc_chunks.argtypes = [i64, i64]
     lib.sdr_agc_chunks.restype = i32

@@ -72,6 +72,28 @@ enum Mode { kFm = 0, kFir = 1, kAm = 2, kUsb = 3, kAfsk = 4 };
 // the warp kernel (a power of two, at least L).
 constexpr int kAfskMaxL = 256;
 
+// Knockouts of kAfsk's epilogue in the staged and tensor-core kernels, for
+// measurement only (tools/fir_times.py --knockouts builds with them; the
+// outputs are then wrong): SDR_AFSK_KO_SUM writes u_m's real part in place
+// of the window sums, SDR_AFSK_KO_TONE the audio in place of the tone
+// products and their sums, SDR_AFSK_KO_DISC takes Re y for the
+// discriminator's audio.
+#ifdef SDR_AFSK_KO_SUM
+constexpr bool kAfskKoSum = true;
+#else
+constexpr bool kAfskKoSum = false;
+#endif
+#ifdef SDR_AFSK_KO_TONE
+constexpr bool kAfskKoTone = true;
+#else
+constexpr bool kAfskKoTone = false;
+#endif
+#ifdef SDR_AFSK_KO_DISC
+constexpr bool kAfskKoDisc = true;
+#else
+constexpr bool kAfskKoDisc = false;
+#endif
+
 // The largest stride that takes the staged kernel (fir_fm_exact.cu); larger
 // ones take the warp kernel (fir_warp.cu).  Set from both kernels timed in
 // every mode at D = 5..80 on an H100 (libsdr_tpu_torch/tools/fir_paths.py,
@@ -91,20 +113,27 @@ inline int staged_max_d(int mode) {
 }
 
 // The strides that take the tensor-core kernel (fir_tc.cu) in the modes
-// and entries that have it (kFm of K1 and K6, kAm of K6): tc_min_d() up to
-// tc_max_d(bf16), by plane dtype.  Set from the three kernels timed in
-// mode fm at D = 2..40 on an H100 (libsdr_tpu_torch/tools/fir_paths.py,
-// PERF.md): with bfloat16 planes it is the fastest at every stride from 4
-// to 40; with float32 planes, whose three passes and hi/lo conversion cost
-// it more, it ties or wins from 4 to 16 and loses above; below 4 the
-// staged kernel's outputs are cheaper than its per-output epilogue and
-// MMAs.  The comparison builds set SDR_TC_MAX_D for both dtypes (0: no
-// stride on it; a large value: every stride from 1 whose plan fits).
-inline int tc_min_d() {
+// and entries that have it (kFm of K1 and K6, kAm of K6, kAfsk of K1):
+// tc_min_d(mode) up to tc_max_d(bf16), by plane dtype.  kFm's (and
+// K6's kAm's) were set from the three kernels timed in mode fm at
+// D = 2..40 on an H100 (libsdr_tpu_torch/tools/fir_paths.py, PERF.md):
+// with bfloat16 planes it is the fastest at every stride from 4 to 40;
+// with float32 planes, whose three passes and hi/lo conversion cost it
+// more, it ties or wins from 4 to 16 and loses above; below 4 the staged
+// kernel's outputs are cheaper than its per-output epilogue and MMAs.
+// kAfsk's from the same comparison in mode afsk (fir_paths.py --modes
+// afsk, D = 2..40, the AX.25 bank's 64 ch x 2^21 and L = 40): with
+// bfloat16 planes the tensor-core kernel is the fastest at every stride;
+// with float32 planes it wins from 2 to 16 and loses at 24 and 32 (frames
+// of one output), one range each.  The comparison builds set SDR_TC_MAX_D for
+// every mode and both dtypes (0: no stride on it; a large value: every
+// stride from 1 whose plan fits).
+inline int tc_min_d(int mode) {
 #ifdef SDR_TC_MAX_D
+  (void)mode;
   return 1;
 #else
-  return 4;
+  return mode == kAfsk ? 2 : 4;
 #endif
 }
 
@@ -404,13 +433,15 @@ int warp_launch(int mode, const Params& p, long long C, int bf16,
 // p.ends holds each chunk's last output.
 int deemph_chunks_launch(const Params& p, long long C, cudaStream_t stream);
 
-// The tensor-core kernel (fir_tc.cu) for kFm and K6's kAm: whether a plan
-// of it fits the card's shared memory at this shape (passes: 1 for 'fast',
-// else 3 for float32 planes and 2 for bfloat16), the chunks per channel
-// for C channels (-2 - cudaError_t on a failed query), and the launch.
-bool tc_fits(int T, int D, int bf16, int fast, int smem_max, int smem_sm);
-int tc_chunks(int mode, long long C, long long n_out, int T, int D, int bf16,
-              int fast, int smem_max, int smem_sm, int sms);
+// The tensor-core kernel (fir_tc.cu) for kFm, K6's kAm and kAfsk: whether
+// a plan of it fits the card's shared memory at this shape (passes: 1 for
+// 'fast', else 3 for float32 planes and 2 for bfloat16; L: kAfsk's window,
+// 0 in the other modes), the chunks per channel for C channels (-2 -
+// cudaError_t on a failed query), and the launch (L from p.L in kAfsk).
+bool tc_fits(int T, int D, int L, int bf16, int fast, int smem_max,
+             int smem_sm);
+int tc_chunks(int mode, long long C, long long n_out, int T, int D, int L,
+              int bf16, int fast, int smem_max, int smem_sm, int sms);
 int tc_launch(int mode, const Params& p, long long C, int bf16, int fast,
               cudaStream_t stream, int smem_max, int smem_sm);
 

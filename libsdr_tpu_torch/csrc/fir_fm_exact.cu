@@ -34,12 +34,12 @@
 // 67 TFLOP/s f32 the two bounds are close at D = 4, so neither can be
 // ignored; at the rx app's strides (D >= 40, T/D < 2) HBM bounds it.
 //
-// Three kernels share the work by shape (route_of below): mode kFm of K1
-// and K6, and kAm of K6, take the tensor-core kernel of fir_tc.cu at the
-// strides of its cut (fir_common.cuh: tc_min_d, tc_max_d); every other
-// launch takes the staged kernel below at strides up to staged_max_d(mode)
-// and the warp kernel of fir_warp.cu above, which stages a few windows per
-// warp instead of D polyphase rows per block.
+// Three kernels share the work by shape (route_of below): modes kFm and
+// kAfsk of K1, kFm and kAm of K6, take the tensor-core kernel of fir_tc.cu
+// at the strides of its cut (fir_common.cuh: tc_min_d, tc_max_d); every
+// other launch takes the staged kernel below at strides up to
+// staged_max_d(mode) and the warp kernel of fir_warp.cu above, which
+// stages a few windows per warp instead of D polyphase rows per block.
 //
 // Design of the staged kernel:
 // * Each channel's B/D outputs are cut into K chunks, K from the occupancy
@@ -386,17 +386,21 @@ fir_fm_exact_kernel(const Params p) {
     float loc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      loc[r] = fm_audio(yr[r], yi[r], pr, pi, p);
+      loc[r] = MODE == kAfsk && kAfskKoDisc
+                   ? yr[r]
+                   : fm_audio(yr[r], yi[r], pr, pi, p);
       pr = yr[r];
       pi = yi[r];
     }
 
-    if constexpr (MODE == kAfsk) {
+    if constexpr (MODE == kAfsk && !kAfskKoTone) {
       // Tone products of this thread's outputs into the history, then each
       // output's window sum over the L products ending at it.
       int tix = (int)((*p.n0 + j0 + jb) % ell);
+      float um_x[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
+        um_x[r] = loc[r] * p.tpl[0][tix];
         if (jb + r < nv) {
           const float a = loc[r];
           s_u[skew<R>(ell - 1 + jb + r)] =
@@ -406,6 +410,10 @@ fir_fm_exact_kernel(const Params p) {
         tix = tix + 1 == ell ? 0 : tix + 1;
       }
       __syncthreads();
+      if constexpr (kAfskKoSum) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) loc[r] = um_x[r];
+      } else {
       float4 acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -428,6 +436,7 @@ fir_fm_exact_kernel(const Params p) {
         loc[r] = (acc[r].x * acc[r].x + acc[r].y * acc[r].y) -
                  (acc[r].z * acc[r].z + acc[r].w * acc[r].w);
       }
+      }
     }
 
     if (p.deemph) {  // uniform across the block: the barriers are safe
@@ -441,7 +450,7 @@ fir_fm_exact_kernel(const Params p) {
       }
     }
     __syncthreads();  // every read of s_x, s_wy, s_state and s_u is done
-    if constexpr (MODE == kAfsk) {
+    if constexpr (MODE == kAfsk && !kAfskKoTone) {
       // The last L-1 products move to the front of the history; after the
       // block's last segment they are the carry.
       float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -611,14 +620,15 @@ bool bad_iir(int mode, int iir, long long n_out, long long C, int K,
 }
 
 // The kernel that runs a launch, by shape alone.  tc says whether the
-// entry's mode has the tensor-core kernel (K1's kFm, K6's kFm and kAm):
-// then strides from tc_min_d() to tc_max_d(bf16) take it where its plan
-// fits in shared memory; every other launch takes the staged kernel up to
-// staged_max_d and the warp kernel above.
-int route_of(int mode, int tc, int T, int D, int bf16, int fast, int smem_max,
-             int smem_sm) {
-  if (tc && D >= tc_min_d() && D <= tc_max_d(bf16) &&
-      tc_fits(T, D, bf16, fast, smem_max, smem_sm)) {
+// entry's mode has the tensor-core kernel (K1's kFm and kAfsk, K6's kFm and
+// kAm): then strides from tc_min_d(mode) to tc_max_d(bf16) take it
+// where its plan fits in shared memory (kAfsk's with its window L); every
+// other launch takes the staged kernel up to staged_max_d and the warp
+// kernel above.
+int route_of(int mode, int tc, int T, int D, int L, int bf16, int fast,
+             int smem_max, int smem_sm) {
+  if (tc && D >= tc_min_d(mode) && D <= tc_max_d(bf16) &&
+      tc_fits(T, D, mode == kAfsk ? L : 0, bf16, fast, smem_max, smem_sm)) {
     return kRouteTc;
   }
   return D > staged_max_d(mode) ? kRouteWarp : kRouteStaged;
@@ -627,7 +637,8 @@ int route_of(int mode, int tc, int T, int D, int bf16, int fast, int smem_max,
 // Launches the FIR kernel of the shape's route for one mode.
 int launch(int mode, int tc, const Params& p, long long C, int bf16,
            int fast, cudaStream_t stream, int smem_max, int smem_sm) {
-  switch (route_of(mode, tc, p.T, p.D, bf16, fast, smem_max, smem_sm)) {
+  switch (route_of(mode, tc, p.T, p.D, p.L, bf16, fast, smem_max,
+                   smem_sm)) {
     case kRouteTc:
       return tc_launch(mode, p, C, bf16, fast, stream, smem_max, smem_sm);
     case kRouteWarp:
@@ -697,11 +708,11 @@ int sdr_fir_chunks(int mode, int tc, long long C, long long n_out, int T,
   int smem_max = 0, smem_sm = 0, sms = 0, per_sm = 0;
   int e = device_limits(&smem_max, &smem_sm, &sms);
   if (e != 0) return -2 - e;
-  const int r = route_of(mode, tc, T, D, bf16, fast, smem_max, smem_sm);
+  const int r = route_of(mode, tc, T, D, L, bf16, fast, smem_max, smem_sm);
   if (route) *route = r;
   if (r == kRouteTc) {
-    return tc_chunks(mode, C, n_out, T, D, bf16, fast, smem_max, smem_sm,
-                     sms);
+    return tc_chunks(mode, C, n_out, T, D, mode == kAfsk ? L : 0, bf16, fast,
+                     smem_max, smem_sm, sms);
   }
   if (r == kRouteWarp) {
     return warp_chunks(mode, C, n_out, T, D, L, bf16, smem_max, sms);
@@ -804,8 +815,8 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
   }
   // the AGC of K1 is lam's own: b = 1 - lam
   const bool agc = mode == kAm || mode == kUsb;
-  return run(mode, mode == kFm, p, C, K, K_agc, gain, s_in, s_out, ends, a,
-             agc ? 1.0 - a : b, iir, fast, bf16, stream);
+  return run(mode, mode == kFm || mode == kAfsk, p, C, K, K_agc, gain, s_in,
+             s_out, ends, a, agc ? 1.0 - a : b, iir, fast, bf16, stream);
 }
 
 // K5: the complex FIR alone (out, out_i: the planes of y, (C, n_out)) with

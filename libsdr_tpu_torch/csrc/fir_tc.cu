@@ -1,15 +1,17 @@
 // Tensor-core decimating complex FIR with the FM discriminator (+ the
-// de-emphasis) or the AM envelope: the route of mode kFm (K1a, entry
-// sdr_fir_exact; K6 fm, entry sdr_fir_fm_mxu) and of K6's kAm at strides
-// tc_min_d() to tc_max_d() (fir_common.cuh).  It computes what the staged
-// kernel of fir_fm_exact.cu computes in those modes, with the same window
-// form (Params: K1's start D - T with the tail, K6's s0 >= 0 and its wrap
-// of 128*D) and the same epilogues.
+// de-emphasis, or + the dual-tone FSK correlator) or the AM envelope: the
+// route of mode kFm (K1a, entry sdr_fir_exact; K6 fm, entry
+// sdr_fir_fm_mxu), of K1's kAfsk (K1e) and of K6's kAm at strides
+// tc_min_d(mode) to tc_max_d(bf16) (fir_common.cuh).  It computes what the
+// staged kernel of fir_fm_exact.cu computes in those modes, with the same
+// window form (Params: K1's start D - T with the tail, K6's s0 >= 0 and
+// its wrap of 128*D) and the same epilogues.
 //
 // Replaces the TPU kernels libsdr_tpu/ops/pallas_fir_mxu.py::_kernel_fm2
-// (:777, mode 'fm') and ::_kernel_fm (:410, modes 'fm' and 'am'), and does
-// their arithmetic: the FIR as block-Toeplitz frame matmuls, f32-accurate
-// from a manual split into bf16 passes (_make_mm, :161):
+// (:777, modes 'fm' and 'afsk') and ::_kernel_fm (:410, modes 'fm' and
+// 'am'), and does their arithmetic: the FIR as block-Toeplitz frame
+// matmuls, f32-accurate from a manual split into bf16 passes (_make_mm,
+// :161):
 //
 //   float32 planes  x_hi*g_hi + x_hi*g_lo + x_lo*g_hi    (3 passes)
 //   bfloat16 planes x*g_hi + x*g_lo                      (2 passes: x exact)
@@ -65,10 +67,25 @@
 //   chunks and K6's AGC are the same follow-up kernels as the staged
 //   route's.  A later chunk's y[j_begin - 1] is recomputed in the same
 //   passes (warp_y_at<P>).
+// * kAfsk (K1e): the discriminator's audio times the tone templates
+//   (float4 in shared memory, the template index stepped a tile at a time)
+//   gives each thread's four products of each tone; their prefix sums go
+//   to shared memory over the converted span, behind the epilogue's slots,
+//   with the last (L-1)/4 + 1 blocks of the tile before in front of them
+//   (kept across tiles in a small history), and after a barrier each
+//   thread sums its outputs' windows from the blocks' sums (afsk_sums, 13
+//   float4 loads for four outputs at L = 40) and writes disc 16 bytes at a
+//   time.  A later chunk starts L outputs early from y[-1] = 0 and zero
+//   products, and writes none of them; the first starts from the carried
+//   y[-1] and products, the last exports both.  The TPU kernel sums the
+//   windows as a 0/1 band product on its matrix unit; on the tensor cores
+//   (runs of 16 outputs against the band, f32-accurate in three bf16
+//   parts) that measured 1.07 ms at the AX.25 bank's shape against these
+//   sums' 0.82 (PERF.md), so the CUDA cores keep them.
 // * The plan (S, frames a tile, buffer sizes) depends on T, D, the plane
-//   dtype and the pass count only (tc_plan); where none fits in shared
-//   memory, route_of sends the launch to the staged or warp kernel.  The
-//   kernel allocates nothing and does not synchronise.
+//   dtype, the pass count and kAfsk's L only (tc_plan); where none fits in
+//   shared memory, route_of sends the launch to the staged or warp kernel.
+//   The kernel allocates nothing and does not synchronise.
 
 #include <stdint.h>
 
@@ -95,6 +112,10 @@ struct TcPlan {
   int CAP;  // samples of a raw stage buffer of one plane
   int na;   // converted arrays: re hi, im hi (+ re lo, im lo when 3 passes)
   int raw_off, a_off, b_off, bytes;
+  // kAfsk (L > 0; zeros in the other modes): the correlator's blocked sums
+  int L;    // the window
+  int HB;   // blocks of 4 products of history before a tile: (L-1)/4 + 1
+  int p_off, h_off, t_off;  // prefix sums, their history, the templates
 };
 
 // The epilogue's slot of output j: one pad slot after every 4, so that the
@@ -129,7 +150,7 @@ int ldsm_ways(int stride) {
   return ways;
 }
 
-TcPlan make_plan(int T, int D, int isz, int passes, int S, int F) {
+TcPlan make_plan(int T, int D, int isz, int passes, int S, int F, int L) {
   TcPlan g{};
   g.S = S;
   g.F = F;
@@ -159,14 +180,34 @@ TcPlan make_plan(int T, int D, int isz, int passes, int S, int F) {
   const long long arr = (long long)g.na * g.LA * 2 > ys
                             ? (long long)g.na * g.LA * 2 : ys;
   const long long taps = 2LL * g.NTL * g.KBW * 512;
-  const long long total = kTcHeader + raw + (arr + 15) / 16 * 16 + taps;
+  const long long a_off = kTcHeader + raw;
+  long long span = arr;  // bytes over the converted arrays
+  long long extra = 0;   // kAfsk's history and templates
+  if (L > 0) {
+    // the prefix sums of a tile's products, 4 arrays of HB + kThreads
+    // float4 over the converted span behind the epilogue's slots; their
+    // history, and the templates, after the taps
+    g.L = L;
+    g.HB = (L - 1) / 4 + 1;
+    const long long p_rel = (a_off + ys + 15) / 16 * 16 - a_off;
+    const long long pb = 4LL * (g.HB + kThreads) * 16;
+    if (p_rel + pb > span) span = p_rel + pb;
+    g.p_off = (int)(a_off + p_rel);
+    extra = 4LL * g.HB * 16 + 16LL * L;
+  }
+  const long long b_off = a_off + (span + 15) / 16 * 16;
+  const long long total = b_off + taps + extra;
   if (total > 0x7fffffffLL) {
     g.bytes = 0x7fffffff;
     return g;
   }
   g.raw_off = kTcHeader;
-  g.a_off = (int)(kTcHeader + raw);
-  g.b_off = g.a_off + (int)((arr + 15) / 16 * 16);
+  g.a_off = (int)a_off;
+  g.b_off = (int)b_off;
+  if (L > 0) {
+    g.h_off = (int)(b_off + taps);
+    g.t_off = g.h_off + 4 * g.HB * 16;
+  }
   g.bytes = (int)total;
   return g;
 }
@@ -174,9 +215,10 @@ TcPlan make_plan(int T, int D, int isz, int passes, int S, int F) {
 // The plan of a shape: frames of S <= 16 outputs with S*D a multiple of 8,
 // fewest bank conflicts first and then the largest S, 64 frames a tile
 // where that fits (then 32, 16); first within two blocks an SM, then
-// within one.  False when nothing fits.
-bool tc_plan(int T, int D, int bf16, int fast, int smem_max, int smem_sm,
-             TcPlan* out) {
+// within one.  L: kAfsk's window (its correlator's shared memory), else 0.
+// False when nothing fits.
+bool tc_plan(int T, int D, int L, int bf16, int fast, int smem_max,
+             int smem_sm, TcPlan* out) {
   if (T < 1 || D < 1) return false;
   const int isz = bf16 ? 2 : 4;
   const int passes = fast ? 1 : (bf16 ? 2 : 3);
@@ -190,7 +232,7 @@ bool tc_plan(int T, int D, int bf16, int fast, int smem_max, int smem_sm,
   for (int limit : limits) {
     for (int mw = 4; mw >= 1; mw /= 2) {
       for (int i = 0; i < nc; ++i) {
-        const TcPlan g = make_plan(T, D, isz, passes, cand[i], 16 * mw);
+        const TcPlan g = make_plan(T, D, isz, passes, cand[i], 16 * mw, L);
         if (g.bytes <= limit) {
           *out = g;
           return true;
@@ -470,6 +512,164 @@ __device__ __forceinline__ void store4(float* o, const float (&v)[kTcR],
   }
 }
 
+// v[0 .. 3], the outputs j .. j + 3 of a tile starting at output j0, to
+// orow: those with j + r < nv and j0 + j + r >= j_lo (a later chunk's
+// outputs before its own start are not written).
+__device__ __forceinline__ void store4_at(float* orow, long long j0, int j,
+                                          int nv, long long j_lo,
+                                          const float (&v)[kTcR]) {
+  const long long jg = j0 + j;
+  if (jg >= j_lo) {
+    store4(orow + jg, v, nv - j);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kTcR; ++r) {
+    if (j + r < nv && jg + r >= j_lo) orow[jg + r] = v[r];
+  }
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+// kAfsk's prefix sums of a tile's products, array r: element HB + t holds
+// u[4t] + .. + u[4t + r] of the tile's block t of 4 outputs (thread t's),
+// float4 over the 4 planes (u_m re, u_m im, u_s re, u_s im); elements
+// 0 .. HB - 1 the last HB blocks before the tile.
+__device__ __forceinline__ float4* prefix(const TcPlan& g,
+                                          unsigned char* smem, int r) {
+  return reinterpret_cast<float4*>(smem + g.p_off) + r * (g.HB + kThreads);
+}
+
+// kAfsk's shared memory, once a block: the templates as float4 (mark re,
+// mark im, space re, space im) and the history of prefix sums (as prefix()
+// holds them, array after array): the blocks of the L - 1 carried products
+// (zeros before them) in the first chunk, zeros in a later one.  When the
+// block has fewer than L - 1 outputs, the first of the exported products
+// are carried ones (the last chunk's block copies them).
+__device__ void afsk_setup(const TcPlan& g, const Params& p,
+                           unsigned char* smem, long long c, int k,
+                           long long n_out, int tid) {
+  const int L = g.L, HB = g.HB;
+  float4* tpl = reinterpret_cast<float4*>(smem + g.t_off);
+  for (int i = tid; i < L; i += kThreads) {
+    tpl[i] = make_float4(p.tpl[0][i], p.tpl[1][i], p.tpl[2][i], p.tpl[3][i]);
+  }
+  float4* hist = reinterpret_cast<float4*>(smem + g.h_off);
+  const long long o = c * (L - 1);
+  for (int b = tid; b < HB; b += kThreads) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < 4; ++r) {
+      const int e = 4 * (b - HB) + r + (L - 1);  // index of the carried
+      if (k == 0 && e >= 0) {
+        acc = add4(acc, make_float4(p.u_in[0][o + e], p.u_in[1][o + e],
+                                    p.u_in[2][o + e], p.u_in[3][o + e]));
+      }
+      hist[r * HB + b] = acc;
+    }
+  }
+  if (k == p.K - 1 && n_out < L - 1) {
+    for (int idx = tid; idx < 4 * (L - 1 - n_out); idx += kThreads) {
+      const int q = idx / (L - 1 - n_out), e = idx % (L - 1 - n_out);
+      p.u_out[q][o + e] = p.u_in[q][o + e + n_out];
+    }
+  }
+}
+
+// kAfsk's tone products of this thread's outputs jb .. jb + 3 of the tile
+// (audio a[r], template index tix of output jb): their prefix sums into
+// prefix(), and those among the channel's last L - 1 outputs into the
+// carry export.  Returns u_m's real parts in a (the sums' knockout).
+__device__ __forceinline__ void afsk_products(const TcPlan& g,
+                                              const Params& p,
+                                              unsigned char* smem,
+                                              float (&a)[kTcR], int tix,
+                                              int jb, int nv, long long jg,
+                                              long long c, bool last,
+                                              int tid) {
+  const int L = g.L;
+  const float4* tpl = reinterpret_cast<const float4*>(smem + g.t_off);
+  float4 u[kTcR];
+#pragma unroll
+  for (int r = 0; r < kTcR; ++r) {
+    const float4 t = tpl[tix];
+    u[r] = make_float4(a[r] * t.x, a[r] * t.y, a[r] * t.z, a[r] * t.w);
+    tix = tix + 1 == L ? 0 : tix + 1;
+  }
+  if (last) {
+    const long long first = p.n_out - (L - 1);  // the first exported output
+#pragma unroll
+    for (int r = 0; r < kTcR; ++r) {
+      if (jb + r < nv && jg + r >= first) {
+        const long long o = c * (L - 1) + (jg + r - first);
+        p.u_out[0][o] = u[r].x;
+        p.u_out[1][o] = u[r].y;
+        p.u_out[2][o] = u[r].z;
+        p.u_out[3][o] = u[r].w;
+      }
+    }
+  }
+  float4 acc = u[0];
+#pragma unroll
+  for (int r = 0; r < kTcR; ++r) {
+    if (r) acc = add4(acc, u[r]);
+    prefix(g, smem, r)[g.HB + tid] = acc;
+    a[r] = u[r].x;
+  }
+}
+
+// kAfsk: the history's HB blocks in front of the prefix sums (from), or
+// the tile's last HB blocks into the history (to).
+__device__ __forceinline__ void afsk_history(const TcPlan& g,
+                                             unsigned char* smem, int NT,
+                                             bool from, int tid) {
+  float4* hist = reinterpret_cast<float4*>(smem + g.h_off);
+  for (int i = tid; i < 4 * g.HB; i += kThreads) {
+    float4* pr = prefix(g, smem, i / g.HB);
+    if (from) {
+      pr[i % g.HB] = hist[i];
+    } else {
+      hist[i] = pr[NT / 4 + i % g.HB];
+    }
+  }
+}
+
+// kAfsk's window sums of this thread's outputs jb + r (block t = tid), and
+// the output.  With L - 1 = 4m + e, output r's window starts in block
+// t - m at offset r - e (r >= e) or in block t - m - 1 at r - e + 4, so
+//   s[r] = P_r[t] + (B[t-m] + .. + B[t-1]) (+ B[t-m-1] when r < e)
+//          - P_{off-1}[the start block]       (when the offset off > 0),
+// B = P_3 a block's sum: m + 4 float4 loads for the thread's four outputs
+// (13 at L = 40), and disc = |s_m|^2 - |s_s|^2 stored 16 bytes at a time.
+__device__ __forceinline__ void afsk_sums(const TcPlan& g,
+                                          unsigned char* smem, float* orow,
+                                          long long j0, int jb, int nv,
+                                          long long j_lo, int tid) {
+  const int m = (g.L - 1) / 4, e = (g.L - 1) % 4;
+  const int b0 = g.HB + tid;
+  const float4* B = prefix(g, smem, 3);
+  float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = m; i >= 1; --i) w = add4(w, B[b0 - i]);
+  float d[kTcR];
+#pragma unroll
+  for (int r = 0; r < kTcR; ++r) {
+    float4 sv = add4(prefix(g, smem, r)[b0], w);
+    if (r < e) {
+      sv = add4(sv, B[b0 - m - 1]);
+      sv = sub4(sv, prefix(g, smem, r - e + 3)[b0 - m - 1]);
+    } else if (r > e) {
+      sv = sub4(sv, prefix(g, smem, r - e - 1)[b0 - m]);
+    }
+    d[r] = (sv.x * sv.x + sv.y * sv.y) - (sv.z * sv.z + sv.w * sv.w);
+  }
+  store4_at(orow, j0, jb, nv, j_lo, d);
+}
+
 template <int MODE, typename Tin, int P>
 __global__ void __launch_bounds__(kThreads, 2)
 fir_tc_kernel(const Params p, const TcPlan g) {
@@ -490,6 +690,10 @@ fir_tc_kernel(const Params p, const TcPlan g) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long j_begin = k * p.chunk;
   const long long j_end = min(p.n_out, j_begin + p.chunk);
+  // kAfsk: a later chunk starts L outputs early to fill its history (the
+  // first of them has no true y[j-1]); those outputs are not written.
+  const long long j_start =
+      MODE == kAfsk && k > 0 ? j_begin - p.L : j_begin;
   const Tin* xr = static_cast<const Tin*>(p.xr) + c * p.B;
   const Tin* xi = static_cast<const Tin*>(p.xi) + c * p.B;
   const Tin* tr = p.s0 < 0 ? static_cast<const Tin*>(p.tail_r) + c * (T - 1)
@@ -526,12 +730,21 @@ fir_tc_kernel(const Params p, const TcPlan g) {
       }
     }
   }
+  if constexpr (MODE == kAfsk) {
+    // the first chunk from the carried y[-1] and products, a later one
+    // from zeros, which reach only outputs it does not write
+    if (tid == 0) {
+      s_state[0] = k == 0 ? p.prev_r[c] : 0.f;
+      s_state[1] = k == 0 ? p.prev_i[c] : 0.f;
+    }
+    afsk_setup(g, p, smem, c, k, p.n_out, tid);
+  }
   __syncthreads();
 
-  const long long n_tiles = (j_end - j_begin + NT - 1) / NT;
+  const long long n_tiles = (j_end - j_start + NT - 1) / NT;
   // Tile t's span: window start base, Ls samples, nv outputs.
   auto span = [&](long long t, long long* base, int* Ls, int* nv) {
-    const long long j0 = j_begin + t * NT;
+    const long long j0 = j_start + t * NT;
     *nv = (int)min((long long)NT, j_end - j0);
     *Ls = (*nv - 1) * D + T;
     *base = j0 * D + p.s0;
@@ -582,12 +795,20 @@ fir_tc_kernel(const Params p, const TcPlan g) {
   const int mt = warp % n_mt, nt0 = (warp / n_mt) * per_group;
   const int nnt = max(0, min(per_group, g.NTL - nt0));
   uint32_t phase = 0;  // bit s: the parity stage s completes next
+  // kAfsk: the template index of the tile's first output, stepped a tile at
+  // a time, and this thread's first output's offset from it
+  int ph = 0, ph_step = 0, jbm = 0;
+  if constexpr (MODE == kAfsk) {
+    ph = (int)(((long long)*p.n0 + j_start) % p.L);
+    ph_step = NT % p.L;
+    jbm = (tid * kTcR) % p.L;
+  }
 
   for (long long t = 0; t < n_tiles; ++t) {
     long long base;
     int Ls, nv;
     span(t, &base, &Ls, &nv);
-    const long long j0 = j_begin + t * NT;
+    const long long j0 = j_start + t * NT;
     if (inner_run(base, Ls, p)) {
       const int st = (int)(t & 1);
       bar_wait(smem_addr(&bar[st]), (phase >> st) & 1u);
@@ -664,17 +885,51 @@ fir_tc_kernel(const Params p, const TcPlan g) {
       }
 #pragma unroll
       for (int r = 0; r < kTcR; ++r) {
-        loc[r] = fm_audio<true>(yr[r], yi[r], pr, pi, p);
+        loc[r] = MODE == kAfsk && kAfskKoDisc
+                     ? yr[r]
+                     : fm_audio<true>(yr[r], yi[r], pr, pi, p);
         pr = yr[r];
         pi = yi[r];
       }
-      if (p.deemph) {  // uniform across the block: the barriers are safe
-        deemph.template run<true>(loc, s_wtot, s_wpre, s_state + 2, lane,
-                                  warp);
+      if constexpr (MODE == kAfsk) {
+        if constexpr (!kAfskKoTone) {
+          if (jb < NT) {
+            const int tix = ph + jbm < p.L ? ph + jbm : ph + jbm - p.L;
+            afsk_products(g, p, smem, loc, tix, jb, nv, j0 + jb, c,
+                          k == p.K - 1, tid);
+          }
+          afsk_history(g, smem, NT, true, tid);
+        }
+        if constexpr (kAfskKoTone || kAfskKoSum) {
+          store4_at(orow, j0, jb, nv, j_begin, loc);
+        }
+      } else {
+        if (p.deemph) {  // uniform across the block: the barriers are safe
+          deemph.template run<true>(loc, s_wtot, s_wpre, s_state + 2, lane,
+                                    warp);
+        }
+        store4(orow + j0 + jb, loc, nv - jb);
       }
-      store4(orow + j0 + jb, loc, nv - jb);
     }
     __syncthreads();  // every read of ys and of the carried state is done
+    if constexpr (MODE == kAfsk) {
+      // the tile's last y carries into the next tile; the window sums of
+      // the tile's outputs, and its last HB blocks into the history
+#pragma unroll
+      for (int r = 0; r < kTcR; ++r) {
+        if (jb + r == nv - 1) {
+          s_state[0] = yr[r];
+          s_state[1] = yi[r];
+        }
+      }
+      if constexpr (!kAfskKoTone && !kAfskKoSum) {
+        if (jb < NT) afsk_sums(g, smem, orow, j0, jb, nv, j_begin, tid);
+      }
+      if constexpr (!kAfskKoTone) afsk_history(g, smem, NT, false, tid);
+      ph += ph_step;
+      if (ph >= p.L) ph -= p.L;
+      __syncthreads();  // every read of the products is done
+    }
     if constexpr (MODE == kFm) {
       // the tile's last output carries into the next tile
 #pragma unroll
@@ -688,7 +943,7 @@ fir_tc_kernel(const Params p, const TcPlan g) {
       }
     }
   }
-  if constexpr (MODE == kFm) {
+  if constexpr (MODE == kFm || MODE == kAfsk) {
     __syncthreads();
     if (tid == 0 && k == p.K - 1) {
       p.ylast_r[c] = s_state[0];
@@ -714,31 +969,45 @@ TcKernel tc_kernel(int mode, int bf16, int fast) {
     }
     return fast ? fir_tc_kernel<kAm, float, 1> : fir_tc_kernel<kAm, float, 3>;
   }
+  if (mode == kAfsk) {
+    if (bf16) {
+      return fast ? fir_tc_kernel<kAfsk, __nv_bfloat16, 1>
+                  : fir_tc_kernel<kAfsk, __nv_bfloat16, 2>;
+    }
+    return fast ? fir_tc_kernel<kAfsk, float, 1>
+                : fir_tc_kernel<kAfsk, float, 3>;
+  }
   return nullptr;
 }
 
-// The kernel of (mode, bf16, fast) with its plan's shared memory allowed;
-// 0, -1 (no kernel or no plan), or a cudaError_t.
-int tc_prepare(int mode, int T, int D, int bf16, int fast, int smem_max,
-               int smem_sm, TcKernel* kernel, TcPlan* g) {
+// The kernel of (mode, bf16, fast) with its plan's shared memory allowed
+// (L: kAfsk's window, else 0); 0, -1 (no kernel or no plan), or a
+// cudaError_t.
+int tc_prepare(int mode, int T, int D, int L, int bf16, int fast,
+               int smem_max, int smem_sm, TcKernel* kernel, TcPlan* g) {
   *kernel = tc_kernel(mode, bf16, fast);
-  if (!*kernel || !tc_plan(T, D, bf16, fast, smem_max, smem_sm, g)) return -1;
+  if (!*kernel ||
+      !tc_plan(T, D, L, bf16, fast, smem_max, smem_sm, g)) {
+    return -1;
+  }
   return (int)cudaFuncSetAttribute(
       *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g->bytes);
 }
 
 }  // namespace
 
-bool tc_fits(int T, int D, int bf16, int fast, int smem_max, int smem_sm) {
+bool tc_fits(int T, int D, int L, int bf16, int fast, int smem_max,
+             int smem_sm) {
   TcPlan g;
-  return tc_plan(T, D, bf16, fast, smem_max, smem_sm, &g);
+  return tc_plan(T, D, L, bf16, fast, smem_max, smem_sm, &g);
 }
 
-int tc_chunks(int mode, long long C, long long n_out, int T, int D, int bf16,
-              int fast, int smem_max, int smem_sm, int sms) {
+int tc_chunks(int mode, long long C, long long n_out, int T, int D, int L,
+              int bf16, int fast, int smem_max, int smem_sm, int sms) {
   TcKernel kernel;
   TcPlan g;
-  int e = tc_prepare(mode, T, D, bf16, fast, smem_max, smem_sm, &kernel, &g);
+  int e = tc_prepare(mode, T, D, L, bf16, fast, smem_max, smem_sm, &kernel,
+                     &g);
   if (e != 0) return e == -1 ? -1 : -2 - e;
   int per_sm = 0;
   e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
@@ -753,8 +1022,8 @@ int tc_launch(int mode, const Params& p, long long C, int bf16, int fast,
               cudaStream_t stream, int smem_max, int smem_sm) {
   TcKernel kernel;
   TcPlan g;
-  const int e =
-      tc_prepare(mode, p.T, p.D, bf16, fast, smem_max, smem_sm, &kernel, &g);
+  const int e = tc_prepare(mode, p.T, p.D, mode == kAfsk ? p.L : 0, bf16,
+                          fast, smem_max, smem_sm, &kernel, &g);
   if (e != 0) return e;
   kernel<<<(unsigned)(C * p.K), kThreads, g.bytes, stream>>>(p, g);
   return (int)cudaGetLastError();
@@ -764,11 +1033,12 @@ int tc_launch(int mode, const Params& p, long long C, int bf16, int fast,
 
 extern "C" {
 
-// The tensor-core kernel's plan for a shape (tc_plan), for the tests that
-// hold ops/fir_tc.py's layout to it: out gets S, frames a tile, Kp, the
-// n-tiles, the widest band's k-tiles, LA, CAP and the shared-memory bytes.
-// Returns 0, -1 when no plan fits, or -2 - cudaError_t.
-int sdr_fir_tc_plan(int T, int D, int bf16, int fast, int* out) {
+// The tensor-core kernel's plan for a shape (tc_plan; L: kAfsk's window,
+// else 0), for the tests that hold ops/fir_tc.py's layout to it: out gets
+// S, frames a tile, Kp, the n-tiles, the widest band's k-tiles, LA, CAP
+// and the shared-memory bytes.  Returns 0, -1 when no plan fits, or -2 -
+// cudaError_t.
+int sdr_fir_tc_plan(int T, int D, int L, int bf16, int fast, int* out) {
   int dev = 0, smem_max = 0, smem_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) {
@@ -781,7 +1051,7 @@ int sdr_fir_tc_plan(int T, int D, int bf16, int fast, int* out) {
   }
   if (e != cudaSuccess) return -2 - (int)e;
   sdr::TcPlan g;
-  if (!sdr::tc_plan(T, D, bf16, fast, smem_max, smem_sm, &g)) return -1;
+  if (!sdr::tc_plan(T, D, L, bf16, fast, smem_max, smem_sm, &g)) return -1;
   const int v[8] = {g.S, g.F, g.Kp, g.NTL, g.KBW, g.LA, g.CAP, g.bytes};
   for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;

@@ -35,18 +35,22 @@ launches in ``<entry>.launches`` and, by the kernel that ran, in
 
 Three kernels, by shape (``csrc/fir_common.cuh::route_of``).  Mode fm
 (:func:`fir_fm_exact`) takes the tensor-core kernel (``csrc/fir_tc.cu``) at
-strides 4 to 16 with float32 planes and 4 to 40 with bfloat16 planes,
-where its plan fits in shared memory: the FIR as the TPU kernel's frame
-matmul on bf16 tensor cores, f32-accurate in three passes (two for
-bfloat16 planes; one after ``set_mxu_precision('fast')``,
-``ops/fir_tc.py``).  Every other launch takes the staged kernel at strides
-up to 40 in modes fm, usb and afsk and up to 16 in modes fir and am, and
-the warp-per-output kernel above.  The cuts are where the kernels' times on
-an H100 cross (``tools/fir_paths.py``, mode fm at D = 2..40, 64 ch x 2^24,
-T = 32 + D - 1; PERF.md): at D = 4 the tensor-core kernel takes 4.5 ms
-against the staged kernel's 5.9 with float32 planes and 3.5 against 5.5
-with bfloat16; it loses at D = 3, and with float32 planes at D = 24 and
-32 (7.9 against 6.6 ms at 24).
+strides 4 to 16 with float32 planes and 4 to 40 with bfloat16 planes, mode
+afsk (:func:`fir_afsk_exact`) at strides 2 to 16 and 2 to 40, where its
+plan fits in shared memory: the FIR as the TPU kernel's frame matmul on
+bf16 tensor cores, f32-accurate in three passes (two for bfloat16 planes;
+one after ``set_mxu_precision('fast')``, ``ops/fir_tc.py``), mode afsk's
+window sums in float32 on the CUDA cores.  Every other launch takes the
+staged kernel at strides up to 40 in modes fm, usb and afsk and up to 16
+in modes fir and am, and the warp-per-output kernel above.  The cuts are
+where the kernels' times on an H100 cross (``tools/fir_paths.py``; PERF.md):
+mode fm at D = 2..40, 64 ch x 2^24, T = 32 + D - 1: at D = 4 the
+tensor-core kernel takes 4.5 ms against the staged kernel's 5.9 with
+float32 planes and 3.5 against 5.5 with bfloat16; it loses at D = 3, and
+with float32 planes at D = 24 and 32 (7.9 against 6.6 ms at 24).  Mode
+afsk at D = 2..40, 64 ch x 2^21, T = 48 + D - 1, L = 40: at D = 4 0.83
+against 1.20 ms with float32 planes and 0.70 against 1.25 with bfloat16;
+with float32 planes it loses at D = 24 and 32.
 
 Chunks.  Each channel's B/D outputs are cut into K chunks, K as large as the
 card's resident slots allow in one wave, and each chunk is one block of the
@@ -63,7 +67,9 @@ D >= 1 and any B that is a multiple of D, with one limit on shared memory
 * the tensor-core kernel: two raw stages and the converted span of a tile
   of 16-64 frames, and the band of the tap matrix (``ops/fir_tc.tc_plan``);
   the main path (T = 67, D = 4) plans frames of 14 outputs, 64 a tile, in
-  106 KB with float32 planes (two blocks an SM).  Where no plan fits (T in
+  106 KB with float32 planes (two blocks an SM); mode afsk adds the
+  templates and 64*((L-1)//4 + 1) bytes of history (the AX.25 bank, T =
+  51, D = 4, L = 40: 103 KB, two blocks an SM).  Where no plan fits (T in
   the thousands) the launch takes the staged kernel;
 * the staged kernel: a block of 256 threads stages one segment of 256*R
   outputs (R = 4, 2 or 1, the largest that fits) polyphase with one pad
@@ -499,7 +505,7 @@ def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
             tpl + [n0] + u_in + u_out)])
     lib = _build.library()
     k, route = _chunks(name, lib, mode, c, n, t, d, ell, xr,
-                       tc=mode == _MODE_FM)
+                       tc=mode in (_MODE_FM, _MODE_AFSK))
     out = empty(c, n)
     out_i = empty(c, n) if mode == _MODE_FIR else None
     a, bc, s_in, s_out, ends, k_agc = _iir_operands(

@@ -3,8 +3,9 @@ and a plain emulation of its arithmetic.
 
 K1a (``ops/fir_fm.fir_fm_exact``) and K6 (``ops/fir_mxu.fir_fm_mxu``, modes
 'fm' and 'am') launch the tensor-core kernel at strides 4 to 16 with
-float32 planes and 4 to 40 with bfloat16 planes, where its plan fits in
-shared memory (``csrc/fir_common.cuh::route_of``); this module
+float32 planes and 4 to 40 with bfloat16 planes, K1e
+(``ops/fir_fm.fir_afsk_exact``) at strides 2 to 16 and 2 to 40, where its
+plan fits in shared memory (``csrc/fir_common.cuh::route_of``); this module
 holds what that kernel's arithmetic and layout are, in plain PyTorch, so
 that the CPU tests reach them:
 
@@ -21,7 +22,14 @@ that the CPU tests reach them:
 * :func:`fir_y_split`: y as the kernel computes it, the frame GEMM in 3, 2
   or 1 bf16 passes with float32 sums (``passes=None``: one float32 GEMM),
   and :func:`fm_exact_split` / :func:`fm_mxu_split`, K1a's and K6's
-  results with it.
+  results with it;
+* mode afsk's correlator: :func:`blocked_sums` (the window sums in
+  float32, blocked by the epilogue's four outputs a thread) and
+  :func:`afsk_exact_split`, K1e's results, chunk by chunk from each
+  chunk's L-early start.  The JAX kernel sums the windows as a 0/1 band
+  product on its matrix unit (``pallas_fir_mxu.py::wmm``); on the tensor
+  cores that band product, f32-accurate in three bf16 parts, measured
+  slower than these sums (PERF.md).
 
 The passes are the TPU kernel's (``libsdr_tpu/ops/pallas_fir_mxu.py::
 _make_mm``): float32 planes ``x_hi*g_hi + x_hi*g_lo + x_lo*g_hi``, bfloat16
@@ -85,7 +93,7 @@ def ldsm_ways(stride: int) -> int:
 
 
 def make_plan(t: int, d: int, itemsize: int, passes: int, s: int,
-              f: int) -> TcPlan:
+              f: int, ell: int = 0) -> TcPlan:
     kp = _round_up((s - 1) * d + t, 16)
     kt = kp // 16
     ntl = -(-s // 4)
@@ -94,19 +102,27 @@ def make_plan(t: int, d: int, itemsize: int, passes: int, s: int,
     per = 16 // itemsize
     la = _round_up((f - 1) * s * d + kp, 8)
     cap = _round_up(max((f * s - 1) * d + t, la) + 2 * per, per)
-    arrays = max((4 if passes == 3 else 2) * la * 2,
-                 8 * (SLOTS - 1 + (SLOTS - 1) // 4 + 1))
-    total = (HEADER + 4 * cap * itemsize + _round_up(arrays, 16)
-             + 2 * ntl * kbw * 512)
+    ys = 8 * (SLOTS - 1 + (SLOTS - 1) // 4 + 1)
+    span = max((4 if passes == 3 else 2) * la * 2, ys)
+    a_off = HEADER + 4 * cap * itemsize
+    extra = 0
+    if ell:
+        # mode afsk: the prefix sums over the converted span behind the
+        # epilogue's slots; their history and the templates after the taps
+        hb = history_blocks(ell)
+        p_rel = _round_up(a_off + ys, 16) - a_off
+        span = max(span, p_rel + 4 * (hb + THREADS) * 16)
+        extra = 4 * hb * 16 + 16 * ell
+    total = a_off + _round_up(span, 16) + 2 * ntl * kbw * 512 + extra
     return TcPlan(s, f, kp, ntl, kbw, la, cap, total)
 
 
 def tc_plan(t: int, d: int, itemsize: int, passes: int,
-            smem_block: int = SMEM_BLOCK,
-            smem_sm: int = SMEM_SM) -> Optional[TcPlan]:
-    """The kernel's plan of a shape (``fir_tc.cu::tc_plan``), or None when
-    none fits in shared memory (the launch then takes the staged or warp
-    kernel)."""
+            smem_block: int = SMEM_BLOCK, smem_sm: int = SMEM_SM,
+            ell: int = 0) -> Optional[TcPlan]:
+    """The kernel's plan of a shape (``fir_tc.cu::tc_plan``; ell: mode
+    afsk's window, 0 in the other modes), or None when none fits in shared
+    memory (the launch then takes the staged or warp kernel)."""
     if t < 1 or d < 1:
         return None
     cands = sorted((s for s in range(4 * MAX_NT, 0, -1) if s * d % 8 == 0),
@@ -114,7 +130,7 @@ def tc_plan(t: int, d: int, itemsize: int, passes: int,
     for limit in (smem_sm // 2 - 1024, smem_block):
         for mw in (4, 2, 1):
             for s in cands:
-                plan = make_plan(t, d, itemsize, passes, s, 16 * mw)
+                plan = make_plan(t, d, itemsize, passes, s, 16 * mw, ell)
                 if plan.bytes <= limit:
                     return plan
     return None
@@ -288,3 +304,109 @@ def fm_mxu_split(x: Complex, taps, stride: int, offset: int,
         return audio, sd[:, None], _NSP
     return _fm_plain(y, lead_last.reshape(c), rot, gain, deemph_ab,
                      state), _NSP
+
+
+# -- mode afsk: the correlator's window sums, blocked ------------------------
+
+def history_blocks(ell: int) -> int:
+    """Blocks of 4 products of history the kernel keeps before a tile:
+    every window start of the tile's outputs lies in them or after."""
+    return (ell - 1) // 4 + 1
+
+
+def blocked_sums(u: torch.Tensor, ell: int) -> torch.Tensor:
+    """The window sums of products u (..., L-1 + n), the L-1 history ones
+    first, as the kernel adds them in float32: in blocks of 4 outputs from
+    the first (the epilogue's 4 a thread), P_r the prefix sums of a block
+    (u[4t] + .. + u[4t + r]) and B = P_3, with L - 1 = 4m + e,
+
+        s[4t + r] = P_r[t] + (B[t-m] + .. + B[t-1])  (+ B[t-m-1] if r < e)
+                    - P_{off-1}[start block]            (if off > 0),
+
+    the window starting at offset off = r - e of block t - m, or r - e + 4
+    of block t - m - 1; blocks before the history are zeros.  Returns
+    (..., n)."""
+    hb = history_blocks(ell)
+    n = u.shape[-1] - (ell - 1)
+    nb = -(-n // 4)
+    full = torch.nn.functional.pad(
+        u.float(), (4 * hb - (ell - 1), 4 * nb - n))
+    blocks = full.reshape(full.shape[:-1] + (hb + nb, 4))
+    pre = [blocks[..., 0]]
+    for r in range(1, 4):
+        pre.append(pre[-1] + blocks[..., r])
+    b = pre[3]
+    m, e = (ell - 1) // 4, (ell - 1) % 4
+    t = torch.arange(hb, hb + nb, device=u.device)
+    w = torch.zeros_like(b[..., t])
+    for i in range(m, 0, -1):
+        w = w + b[..., t - i]
+    out = []
+    for r in range(4):
+        sv = pre[r][..., t] + w
+        if r < e:
+            sv = sv + b[..., t - m - 1]
+            sv = sv - pre[r - e + 3][..., t - m - 1]
+        elif r > e:
+            sv = sv - pre[r - e - 1][..., t - m]
+        out.append(sv)
+    s_all = torch.stack(out, -1).reshape(b.shape[:-1] + (4 * nb,))
+    return s_all[..., :n]
+
+
+def afsk_exact_split(x: Complex, taps, stride: int, tail: Complex,
+                     prev: Complex, rot: complex, gain: float,
+                     mark: Complex, space: Complex, n0, um_tail: Complex,
+                     us_tail: Complex, passes: int = 3, chunks: int = 1,
+                     with_power: bool = False):
+    """K1e (``fir_afsk_exact``) as the tensor-core kernel computes it, with
+    the same arguments and results: each of ``chunks`` chunks of the
+    block's outputs (the kernel's cut, ceil(n/chunks) each) from its own
+    start, a later one L outputs early from y[-1] = 0 and zero products;
+    in each, y from :func:`fir_y_split` (frames from the chunk's start, in
+    ``passes`` bf16 passes), kFm's discriminator, the tone products and
+    :func:`blocked_sums` in float32 (blocks from the chunk's start).  The
+    first chunk starts from the carried y[-1] and products; the last
+    exports y_last and the last L-1 products in float32.  with_power: the
+    results end with |s_m|^2 + |s_s|^2, the scale of disc's round-off."""
+    from libsdr_tpu_torch.ops.fir_fm import _fm_plain
+
+    d = int(stride)
+    n = x.re.shape[-1] // d
+    ell = mark.re.shape[-1]
+    t = _n_taps(taps)
+    isz = x.re.element_size()
+    plan = tc_plan(t, d, isz, passes, ell=ell)
+    s = plan.S if plan is not None else 8
+    span = span_k1(x, tail, d)
+    dev = x.re.device
+    n0 = int(torch.as_tensor(n0))
+    tones = [v.to(dev, torch.float32) for v in (mark.re, mark.im, space.re,
+                                                space.im)]
+    carried = [v.to(dev, torch.float32) for v in (um_tail.re, um_tail.im,
+                                                  us_tail.re, us_tail.im)]
+    chunk = -(-n // chunks)
+    disc = torch.empty(x.re.shape[:-1] + (n,), dtype=torch.float32,
+                       device=dev)
+    power = torch.empty_like(disc)
+    for k in range(0, n, chunk):
+        j_start = k - ell if k else 0
+        j_end = min(n, k + chunk)
+        y = fir_y_split(span[..., j_start * d:], taps, d, j_end - j_start,
+                        passes, s=s)
+        p0 = prev if k == 0 else cplx.zeros(prev.re.shape, torch.float32,
+                                            dev)
+        audio = _fm_plain(y, p0, rot, gain)
+        idx = (n0 + j_start + torch.arange(j_end - j_start, device=dev)) % ell
+        hist = [c if k == 0 else torch.zeros_like(c) for c in carried]
+        us = [torch.cat([h, tone[idx] * audio], -1)
+              for h, tone in zip(hist, tones)]
+        sums = [blocked_sums(u, ell) for u in us]
+        dk = (sums[0] * sums[0] + sums[1] * sums[1]) - \
+            (sums[2] * sums[2] + sums[3] * sums[3])
+        disc[..., k:j_end] = dk[..., k - j_start:]
+        power[..., k:j_end] = sum(v * v for v in sums)[..., k - j_start:]
+    tails = [u[..., u.shape[-1] - (ell - 1):].clone() for u in us]
+    res = (disc, y[..., -1], Complex(tails[0], tails[1]),
+           Complex(tails[2], tails[3]))
+    return res + (power,) if with_power else res

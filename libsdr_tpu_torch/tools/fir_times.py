@@ -1,21 +1,30 @@
 """Time the decimating-FIR kernels at the main path's shapes on the card.
 
     python libsdr_tpu_torch/tools/fir_times.py [--planes f32 bf16]
-        [--reps 10] [--variants default staged]
+        [--reps 10] [--variants default staged] [--calls K1a K1e ...]
+        [--knockouts]
 
 64 channels x 2^24 samples, T = 67 random complex taps, D = 4: K1a
 (``fir_fm_exact`` with de-emphasis), K1b (``fir_exact``) and, where the
 package has them, K5 (``fir_offset`` at offset 0, F1's call) and K6
 (``fir_fm_mxu`` at window start 1 in fm with de-emphasis and am with the
-AGC).  Each kernel is timed with CUDA events over ``--reps`` launches after
-one warm-up; one JSON line per plane dtype and build variant, with the
-card's name and power limit and, where the entries count them, the routes
-the timed launches took.
+AGC); and K1e (``fir_afsk_exact``) at the AX.25 bank P1's shape: 64
+channels x 2^21 at 192 kHz, the bank's taps (T = 51), D = 4 and its
+L = 40 tone templates, from a template phase of 7 and nonzero carried
+products.  Each kernel is timed with CUDA events over ``--reps`` launches
+after one warm-up; one JSON line per plane dtype and build variant, with
+the card's name and power limit and, where the entries count them, the
+routes the timed launches took.  ``--calls`` keeps the calls whose names
+start with one of the prefixes given.
 
 Build variants: ``default`` is the library as the package builds it;
 ``staged`` is built with ``SDR_TC_MAX_D=0``, so that every launch takes the
 staged or warp kernel (the tensor-core route's comparison, in turns with
-``default`` in one call).
+``default`` in one call).  ``--knockouts`` adds, for both, the builds
+without parts of K1e's epilogue (``csrc/fir_common.cuh``:
+``SDR_AFSK_KO_SUM``, ``_TONE``, ``_DISC`` and all three), named
+``<variant> -sum`` and so on; their outputs are wrong, and only K1e's
+time is of interest in them.
 
 The script imports ``libsdr_tpu_torch`` from the path, so one call can time
 two trees in turns (say parent, change, change, parent) by running it with
@@ -26,6 +35,7 @@ route ignores the ``staged`` variant's define.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import subprocess
 from unittest import mock
@@ -34,7 +44,12 @@ import numpy as np
 import torch
 
 C, B, T, D = 64, 1 << 24, 67, 4
+B_P1 = 1 << 21   # K1e: the AX.25 bank's block at 192 kHz
 VARIANTS = {"default": (), "staged": ("SDR_TC_MAX_D=0",)}
+KNOCKOUTS = {"-sum": ("SDR_AFSK_KO_SUM=1",), "-tone": ("SDR_AFSK_KO_TONE=1",),
+             "-disc": ("SDR_AFSK_KO_DISC=1",),
+             "-all": ("SDR_AFSK_KO_SUM=1", "SDR_AFSK_KO_TONE=1",
+                      "SDR_AFSK_KO_DISC=1")}
 
 
 def _ms(fn, reps: int) -> float:
@@ -61,7 +76,14 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--variants", nargs="+", default=["default"],
                     choices=list(VARIANTS))
+    ap.add_argument("--calls", nargs="+", default=None)
+    ap.add_argument("--knockouts", action="store_true")
     args = ap.parse_args(argv)
+    variants = {v: VARIANTS[v] for v in args.variants}
+    if args.knockouts:
+        variants.update({f"{v} {k}": VARIANTS[v] + d
+                         for v in args.variants
+                         for k, d in KNOCKOUTS.items()})
 
     from libsdr_tpu_torch import _build
     from libsdr_tpu_torch.core.cplx import Complex
@@ -71,6 +93,8 @@ def main(argv=None) -> int:
     except ImportError:   # a tree from before K5/K6
         M = None
 
+    with concurrent.futures.ThreadPoolExecutor(len(variants)) as pool:
+        list(pool.map(_build.build, variants.values()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -86,11 +110,22 @@ def main(argv=None) -> int:
     x32 = cn(C, B)
     prev = cn(C)
     state = torch.full((C,), 0.5, device="cuda")
-    entries = [F.fir_fm_exact, F.fir_exact] + (
+    entries = [F.fir_fm_exact, F.fir_exact, F.fir_afsk_exact] + (
         [M.fir_mxu, M.fir_fm_mxu] if M is not None else [])
+    op = _p1_op()
+    ell = op.corr_len
+    p1_x32 = cn(C, B_P1)
+    p1_carry = (cn(C, op._t - 1), cn(C),
+                torch.tensor(7, dtype=torch.int32, device="cuda"),
+                cn(C, ell - 1), cn(C, ell - 1))
     for plane in args.planes:
         x = x32 if plane == "f32" else x32.to(torch.bfloat16)
         tail = cn(C, T - 1).to(x.re.dtype)
+        p1_x = p1_x32 if plane == "f32" else p1_x32.to(torch.bfloat16)
+        p1_args = (p1_x, op._taps("cuda"), op._decim,
+                   p1_carry[0].to(p1_x.re.dtype), p1_carry[1], op._rot,
+                   op._gain, op._on("mark", op._tones[0], "cuda"),
+                   op._on("space", op._tones[1], "cuda")) + p1_carry[2:]
         calls = {
             "K1a fir_fm_exact": lambda: F.fir_fm_exact(
                 x, taps, D, tail, prev, -1j, 1.0, (0.95, 0.05), state),
@@ -106,8 +141,12 @@ def main(argv=None) -> int:
             calls["K6 fir_fm_mxu am"] = lambda: M.fir_fm_mxu(
                 x, taps, D, 1, lead, 1.0, 0.125, (lam, 1 - lam),
                 state[:, None], mode="am")
-        for variant in args.variants:
-            lib = _build.library(VARIANTS[variant])
+        calls["K1e fir_afsk_exact"] = lambda: F.fir_afsk_exact(*p1_args)
+        if args.calls:
+            calls = {n: fn for n, fn in calls.items()
+                     if any(n.startswith(c) for c in args.calls)}
+        for variant, defines in variants.items():
+            lib = _build.library(defines)
             with mock.patch.object(_build, "library", lambda *a: lib):
                 before = _routes(entries)
                 times = {name: _ms(fn, args.reps)
@@ -117,11 +156,27 @@ def main(argv=None) -> int:
                             if n > before[name][r]}
                      for name, rs in after.items()}
             print(json.dumps({"planes": plane, "variant": variant,
-                              "shape": [C, B, T, D], "ms": times,
-                              "routes": taken, "card": smi}), flush=True)
-        del x, tail
+                              "shape": [C, B, T, D],
+                              "shape_k1e": [C, B_P1, op._t, op._decim, ell],
+                              "ms": times, "routes": taken, "card": smi}),
+                  flush=True)
+        del x, tail, p1_x, p1_args
         torch.cuda.empty_cache()
     return 0
+
+
+def _p1_op():
+    """P1's fused AFSK op (chip_smoke.py's phase P1): IQBaseBand(fc=24e3,
+    order=48, out_rate=48e3) -> FMDemod -> FSKDetector(1200, 1200, 2200)
+    at 192 kHz, fused into one AFSKFrontendFused."""
+    import libsdr_tpu_torch as L
+    from libsdr_tpu_torch.ops import FMDemod, FSKDetector, IQBaseBand
+
+    p = L.Pipeline([IQBaseBand(fc=24e3, width=12.5e3, order=48,
+                               out_rate=48e3, design="textbook"),
+                    FMDemod(), FSKDetector(1200.0, 1200.0, 2200.0)])
+    p.bind(L.StreamSpec(np.complex64, 192_000.0, B_P1, channels=(C,)))
+    return p.stages[0]
 
 
 if __name__ == "__main__":

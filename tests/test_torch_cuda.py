@@ -335,10 +335,14 @@ def _afsk_args(op, x, carry):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,ell,c", [(4, 40, 64), (2, 2, 3), (5, 20, 1),
                                      (10, 20, 3), (40, 128, 3),
-                                     (100, 40, 3), (4, 256, 2)])
+                                     (100, 40, 3), (4, 256, 2), (1, 20, 2),
+                                     (16, 40, 3), (24, 40, 3)])
 def test_afsk_kernel_matches_plain(cuda, dtype, d, ell, c):
     """K1e over a warm block and three carry-chained blocks, each long
-    enough for several chunks per channel."""
+    enough for several chunks per channel, on each side of the
+    tensor-core route's cut (csrc/fir_common.cuh: strides 2-16, 2-40 with
+    bfloat16 planes; D = 1, 24 and 40 with float32 planes on the staged
+    kernel, 100 on the warp kernel)."""
     n_out = 3 * 4096 + 333
     b = d * n_out
     op = _afsk_op(d, ell, c, b, dtype)
@@ -1112,11 +1116,12 @@ def test_tc_k6_matches_split_and_plain(cuda, dtype, fast, d, t, s0, c):
         _precision(False)
 
 
-@pytest.mark.parametrize("t", [1, 17, 41, 67, 143, 263, 12001])
+@pytest.mark.parametrize("t", [1, 17, 41, 51, 67, 143, 263, 12001])
 def test_tc_plan_is_the_python_rule(cuda, t):
     """The kernel's plan (sdr_fir_tc_plan) is ops/fir_tc.tc_plan's on this
     card's shared memory, at every stride up to 40, both plane dtypes and
-    both precisions; both say when no plan fits."""
+    both precisions, without mode afsk's correlator and with its windows
+    2, 40 and 256; both say when no plan fits."""
     import ctypes
 
     from libsdr_tpu_torch import _build
@@ -1130,17 +1135,19 @@ def test_tc_plan_is_the_python_rule(cuda, t):
     for d in range(1, 41):
         for bf16 in (0, 1):
             for fast in (0, 1):
-                out = (ctypes.c_int * 8)()
-                rc = lib.sdr_fir_tc_plan(t, d, bf16, fast, out)
-                want = TC.tc_plan(t, d, 2 if bf16 else 4,
-                                  TC.passes_for(torch.bfloat16 if bf16
-                                                else torch.float32, fast),
-                                  smem_block, smem_sm)
-                if want is None:
-                    assert rc == -1, (t, d, bf16, fast)
-                    continue
-                assert rc == 0 and list(out) == list(want), (t, d, bf16,
-                                                            fast)
+                for ell in (0, 2, 40, 256):
+                    out = (ctypes.c_int * 8)()
+                    rc = lib.sdr_fir_tc_plan(t, d, ell, bf16, fast, out)
+                    want = TC.tc_plan(t, d, 2 if bf16 else 4,
+                                      TC.passes_for(torch.bfloat16 if bf16
+                                                    else torch.float32,
+                                                    fast),
+                                      smem_block, smem_sm, ell=ell)
+                    if want is None:
+                        assert rc == -1, (t, d, ell, bf16, fast)
+                        continue
+                    assert rc == 0 and list(out) == list(want), (
+                        t, d, ell, bf16, fast)
 
 
 def test_paths_take_their_routes(cuda):
@@ -1186,6 +1193,151 @@ def test_paths_take_their_routes(cuda):
         n0 = dict(F.fir_fm_exact.routes)
         fir_fm_exact(x, op._taps(cuda), d, carry[0], carry[1], op._rot, 1.0)
         assert F.fir_fm_exact.routes[route] == n0[route] + 1, (d, dtype)
+
+
+# K1e (mode afsk) on the tensor-core route: against the split emulation
+# (ops/fir_tc.afsk_exact_split, cut into the kernel's chunks) within
+# SPLIT_AFSK of each channel's largest |s_m|^2 + |s_s|^2 at 'high' and
+# 'fast' (the same bf16 FIR products and the same float32 window sums, in
+# another order: ~1e-7 of the powers, which disc, their difference, can
+# cancel to 1% of at a window of 2), the exported products within
+# SPLIT_FM; at 'high' also against the plain version under K1e's own
+# bound.
+SPLIT_AFSK = 1e-5
+# (dtype, D, L, C) on the route: P1's shape, the shortest and longest
+# windows, strides at both ends of the route (2-16, 2-40 with bfloat16
+# planes) and windows longer than a tile's outputs at D = 40
+TC_AFSK = [(dt, d, ell, c) for dt in (torch.float32, torch.bfloat16)
+           for d, ell, c in ((4, 40, 64), (2, 2, 3), (5, 20, 1),
+                             (8, 256, 3), (16, 40, 3))] + [
+    (torch.bfloat16, 24, 40, 3), (torch.bfloat16, 40, 128, 3),
+    (torch.bfloat16, 40, 256, 2)]
+
+
+def _afsk_chunks(x, d, t, ell):
+    """The chunks per channel of the kernel's launch (sdr_fir_chunks) and
+    its route."""
+    import ctypes
+
+    from libsdr_tpu_torch import _build
+    from libsdr_tpu_torch.ops.fir import mxu_precision
+
+    route = ctypes.c_int(-1)
+    c, b = x.re.shape
+    k = _build.library().sdr_fir_chunks(
+        4, 1, c, b // d, t, d, ell, int(x.re.dtype == torch.bfloat16),
+        int(mxu_precision() == "fast"), ctypes.byref(route))
+    return k, route.value
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("dtype,d,ell,c", TC_AFSK)
+def test_tc_afsk_matches_split_and_plain(cuda, dtype, fast, d, ell, c):
+    """K1e on the tensor-core route over a warm block and three
+    carry-chained blocks of 12,621 outputs a channel (chunks K > 1, a
+    ragged last tile), from a template phase of 7 and nonzero carried
+    products: disc, y_last and the exported products against the split
+    emulation, and at 'high' against the plain version."""
+    from libsdr_tpu_torch.ops import fir_tc as TC
+
+    n_out = 3 * 4096 + 333
+    b = d * n_out
+    op = _afsk_op(d, ell, c, b, dtype)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11 * d + ell)
+    tail, prev, _, _, _ = op.init_carry(cuda)
+    carry = (tail, prev, torch.tensor(7 % ell, dtype=torch.int32,
+                                      device=cuda),
+             _noise(gen, (c, ell - 1), torch.float32, cuda),
+             _noise(gen, (c, ell - 1), torch.float32, cuda))
+    passes = TC.passes_for(dtype, fast)
+    t = op._t
+    try:
+        _precision(fast)
+        for k in range(4):
+            x = _fm(c, b, d, k)
+            x = Complex(torch.tensor(x.real, device=cuda).to(dtype),
+                        torch.tensor(x.imag, device=cuda).to(dtype))
+            args = _afsk_args(op, x, carry)
+            kk, route = _afsk_chunks(x, d, t, ell)
+            assert route == 2, (d, ell, dtype)
+            emu = TC.afsk_exact_split(*args, passes=passes, chunks=kk,
+                                      with_power=True)
+            n0 = F.fir_afsk_exact.routes["tc"]
+            got = F.fir_afsk_exact(*args)
+            torch.cuda.synchronize()
+            assert F.fir_afsk_exact.routes["tc"] == n0 + 1
+            disc, y_last, um, us = got
+            assert disc.shape == (c, n_out) and bool(
+                torch.isfinite(disc).all())
+            if k:  # block 0 warms the carry up
+                scale = emu[4].amax(dim=1, keepdim=True)
+                assert bool(((disc - emu[0]).abs()
+                             <= SPLIT_AFSK * scale).all()), k
+                for a, r in ((um, emu[2]), (us, emu[3])):
+                    for pa, pr in ((a.re, r.re), (a.im, r.im)):
+                        assert float((pa - pr).abs().max()) < SPLIT_FM
+                assert float((y_last.re - emu[1].re).abs().max()) < \
+                    SPLIT_REL * float(emu[1].abs().max()) + 1e-6
+                if not fast:
+                    ref = F.fir_afsk_exact_plain(*args)
+                    rscale = ref[0].abs().amax(dim=1, keepdim=True)
+                    assert bool(((disc - ref[0]).abs()
+                                 <= 1e-4 * rscale).all()), k
+                    for a, r in ((um, ref[2]), (us, ref[3])):
+                        for pa, pr in ((a.re, r.re), (a.im, r.im)):
+                            assert float((pa - pr).abs().max()) < ERR_BOUND
+            carry = (x[..., b - (t - 1):].map(torch.clone), emu[1],
+                     (carry[2] + n_out) % ell, emu[2], emu[3])
+    finally:
+        _precision(False)
+
+
+def test_tc_afsk_short_block_exports_carried_products(cuda):
+    """A block of fewer than L - 1 outputs (one chunk): the exported
+    products are the last L - 1 of the carried ones and the block's, as
+    the plain version's."""
+    d, ell, c = 4, 128, 3
+    b = d * 100
+    op = _afsk_op(d, ell, c, b)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    tail, prev, _, _, _ = op.init_carry(cuda)
+    carry = (tail, prev, torch.tensor(3, dtype=torch.int32, device=cuda),
+             _noise(gen, (c, ell - 1), torch.float32, cuda),
+             _noise(gen, (c, ell - 1), torch.float32, cuda))
+    x = _noise(gen, (c, b), torch.float32, cuda)
+    args = _afsk_args(op, x, carry)
+    n0 = F.fir_afsk_exact.routes["tc"]
+    got = F.fir_afsk_exact(*args)
+    ref = F.fir_afsk_exact_plain(*args)
+    torch.cuda.synchronize()
+    assert F.fir_afsk_exact.routes["tc"] == n0 + 1
+    for a, r in ((got[2], ref[2]), (got[3], ref[3])):
+        assert torch.equal(a.re[:, :ell - 1 - 100], r.re[:, :ell - 1 - 100])
+        assert float((a.re - r.re).abs().max()) < 1e-3
+        assert float((a.im - r.im).abs().max()) < 1e-3
+
+
+def test_p1_afsk_takes_the_tc_route(cuda):
+    """P1's K1e launch (64 ch x 2^21 at 192 kHz, T = 51, D = 4, L = 40)
+    takes the tensor-core route in both plane dtypes."""
+    from libsdr_tpu_torch.ops import FSKDetector
+
+    for dtype in (torch.float32, torch.bfloat16):
+        p = P.Pipeline([IQBaseBand(fc=24e3, width=12.5e3, order=48,
+                                   out_rate=48e3, design="textbook"),
+                        FMDemod(), FSKDetector(1200.0, 1200.0, 2200.0)])
+        p.bind(P.StreamSpec(np.complex64, 192_000.0, 1 << 21,
+                            channels=(64,), plane_dtype=dtype))
+        op = p.stages[0]
+        assert (op._t, op._decim, op.corr_len) == (51, 4, 40)
+        x = Complex(torch.randn(64, 1 << 21, device=cuda),
+                    torch.randn(64, 1 << 21, device=cuda)).to(dtype)
+        n0 = dict(F.fir_afsk_exact.routes)
+        op.apply(op.init_carry(cuda), x)
+        torch.cuda.synchronize()
+        assert F.fir_afsk_exact.routes["tc"] == n0["tc"] + 1, dtype
 
 
 def test_fast_precision_keeps_70_db(cuda):

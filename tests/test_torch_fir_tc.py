@@ -16,6 +16,18 @@ and arithmetic of ``csrc/fir_tc.cu``) on the CPU.
    the 'fast' case is also held against the 'high' JAX kernel, from which
    it must differ (one pass keeps ~8 bits of each tap).
 
+3. Mode afsk (K1e): the kernel's blocked window sums against the direct
+   ones, the plan's room for them, and ``afsk_exact_split`` at 'high' and
+   'fast' against the JAX kernel in interpret mode
+   (``pallas_fir_mxu.fir_afsk_exact``) under the JAX test's bounds (disc
+   within 2e-3 of each channel's max(1, max |disc|), tails within 1e-3;
+   after 'fast' disc within 1e-2, the JAX kernel's one-pass band product
+   rounding each product to bf16 where the port sums in float32),
+   at 'high' against ``fir_afsk_exact_plain`` (disc within 1e-4 of each
+   channel's largest; the tails and y_last, of this noise input whose |y|
+   comes near 0, within the JAX bound 1e-3), and cut into K > 1 chunks,
+   each from its L-early start, against K = 1.
+
 The CUDA kernel is held to this emulation on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -28,11 +40,13 @@ import torch
 from libsdr_tpu.core import cplx as jcplx
 from libsdr_tpu.ops import pallas_fir_mxu as pfm
 from libsdr_tpu.ops.fir import set_mxu_precision as jax_set_precision
+from libsdr_tpu_torch.core import cplx
 from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.core.stream import ConfigError
 from libsdr_tpu_torch.ops import fir_tc as TC
+from libsdr_tpu_torch.ops import fsk
 from libsdr_tpu_torch.ops.fir import mxu_precision, set_mxu_precision
-from libsdr_tpu_torch.ops.fir_fm import _fir_y
+from libsdr_tpu_torch.ops.fir_fm import _fir_y, fir_afsk_exact_plain
 from libsdr_tpu_torch.ops.fir_mxu import _y_plain
 
 Y_REL = 1e-6        # frame GEMM in float32 against the plain y
@@ -299,3 +313,142 @@ def test_passes_and_the_precision_switch():
         set_mxu_precision("high")
     assert [TC.passes_for(dt, f) for dt in (torch.float32, torch.bfloat16)
             for f in (False, True)] == [3, 1, 2, 1]
+
+
+# -- mode afsk (K1e): the correlator's band product -------------------------
+
+AFSK_JAX_DISC = 2e-3   # tests/test_torch_digital.py's K1e case: of max
+AFSK_JAX_TAIL = 1e-3   # |disc| (at least 1), and the tails absolute
+AFSK_PLAIN = 1e-4      # chip_smoke.py's K1e bound against the plain version
+# after 'fast' the JAX kernel's band product rounds each product to bf16
+# (2^-9 of it; one pass of wmm), the port's sums are float32: 3.5e-3 of
+# max |disc| apart on this case
+AFSK_JAX_FAST_DISC = 1e-2
+
+
+@pytest.mark.parametrize("ell", [2, 3, 4, 5, 9, 40, 42, 128, 255, 256])
+def test_afsk_blocked_sums(ell):
+    """The kernel's blocked window sums (each window start e = (L-1) % 4
+    places it, and the history of (L-1)//4 + 1 blocks reaches every start)
+    equal the direct sums: exactly on integer products, to float32
+    round-off on others; and the plan of mode afsk holds its prefix sums
+    over the converted span without costing the main path's P1 shape its
+    two blocks an SM."""
+    rng = np.random.default_rng(ell)
+    hb = TC.history_blocks(ell)
+    assert 4 * hb >= ell and 4 * (hb - 1) <= ell - 1
+    for n in (1, 4, 37, 4 * 64 + 3):
+        ui = torch.from_numpy(rng.integers(-50, 50, size=(3, ell - 1 + n))
+                              .astype(np.float32))
+        assert torch.equal(TC.blocked_sums(ui, ell), fsk.window_sum(ui, ell))
+        u = torch.from_numpy(rng.normal(size=(3, ell - 1 + n)).astype(
+            np.float32))
+        want = fsk.window_sum(u.double(), ell)
+        got = TC.blocked_sums(u, ell)
+        assert got.shape == (3, n)
+        assert float((got - want).abs().max()) < 1e-6 * ell * float(
+            u.abs().max())
+    for isz, passes in ((4, 3), (2, 2)):
+        base = TC.tc_plan(51, 4, isz, passes)
+        plan = TC.tc_plan(51, 4, isz, passes, ell=ell)
+        assert plan is not None and plan[:7] == base[:7]
+        assert plan.bytes - base.bytes >= 4 * hb * 16 + 16 * ell
+    p1 = TC.tc_plan(51, 4, 4, 3, ell=40)
+    assert p1.bytes <= TC.SMEM_SM // 2 - 1024
+
+
+def _afsk_case(dtype):
+    """tests/test_torch_digital.py's K1e case: C = 8, D = 4, T = 49,
+    L = 40, B = 16384, template phase 16, nonzero carried products."""
+    rng = np.random.default_rng(497)
+    c, d, t, ell, b, n0 = 8, 4, 49, 40, 16384, 16
+    x = _cn(rng, c, b)
+    g = rng.normal(size=t) + 1j * rng.normal(size=t)
+    tm, ts = fsk.tone_tables(1200.0, 2200.0, 48000.0, ell)
+    um = rng.normal(size=(c, 2, ell - 1)).astype(np.float32)
+    us = rng.normal(size=(c, 2, ell - 1)).astype(np.float32)
+    lead = _cn(rng, c)
+    tail = _cn(rng, c, t - 1)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    args = (_t(x, tdt), _taps(g), d, _t(tail, tdt), _t(lead), np.exp(-0.37j),
+            0.8, cplx.constant(tm), cplx.constant(ts), n0,
+            Complex(torch.from_numpy(um[:, 0]), torch.from_numpy(um[:, 1])),
+            Complex(torch.from_numpy(us[:, 0]), torch.from_numpy(us[:, 1])))
+    return args, (g, tm, ts, um, us)
+
+
+def _afsk_jax(args, extra, dtype):
+    """The JAX kernel (interpret mode) on the case: disc, y_last and the
+    two tails as numpy."""
+    x, _, d, tail, lead, rot, gain, _, _, n0, _, _ = args
+    g, tm, ts, um, us = extra
+    s, ell = pfm._S, tm.shape[0]
+    n_audio = x.re.shape[-1] // d
+    reps = -(-(n_audio + n0 + ell) // ell)
+    tpl = np.zeros((8, reps * ell), np.float32)
+    tpl[0], tpl[1] = np.tile(tm.real, reps), np.tile(tm.imag, reps)
+    tpl[2], tpl[3] = np.tile(ts.real, reps), np.tile(ts.imag, reps)
+    c = x.re.shape[0]
+    up = np.zeros((c, 4 * s), np.float32)
+    lo = s - (ell - 1)
+    up[:, lo:s], up[:, s + lo:2 * s] = um[:, 0], um[:, 1]
+    up[:, 2 * s + lo:3 * s], up[:, 3 * s + lo:] = us[:, 0], us[:, 1]
+    jd, jy, jul = pfm.fir_afsk_exact(
+        _j(x, dtype), g, d, _j(tail, dtype),
+        jcplx.as_block(_np(lead)[:, None]), rot, gain, ell,
+        jnp.asarray(tpl[:, n0:n0 + n_audio]), jnp.asarray(up),
+        interpret=True)
+    jul = np.asarray(jul)
+    tails = [jul[:, (k + 1) * s - (ell - 1):(k + 1) * s] for k in range(4)]
+    return np.asarray(jd), jcplx.to_numpy(jy)[:, 0], tails
+
+
+def _tails(res):
+    return [v.numpy() for v in (res[2].re, res[2].im, res[3].re, res[3].im)]
+
+
+@pytest.mark.parametrize("precision", ["high", "fast"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_afsk_split_matches_jax(dtype, precision, jax_precision):
+    """K1e's split (the FIR in 3, 2 or 1 bf16 passes, the window sums in
+    float32; the JAX kernel's band product in 2 or 1) against the JAX
+    kernel in interpret mode at the same precision, under the JAX test's
+    bounds (disc after 'fast' under AFSK_JAX_FAST_DISC): disc, y_last and
+    the exported products."""
+    args, extra = _afsk_case(dtype)
+    fast = precision == "fast"
+    jax_precision(precision)
+    jd, jy, jt = _afsk_jax(args, extra, dtype)
+    passes = TC.passes_for(args[0].re.dtype, fast)
+    got = TC.afsk_exact_split(*args, passes=passes)
+    disc = got[0].numpy()
+    assert disc.shape == jd.shape == (8, 4096)
+    scale = np.maximum(1.0, np.abs(jd).max(axis=1, keepdims=True))
+    bound = AFSK_JAX_FAST_DISC if fast else AFSK_JAX_DISC
+    assert (np.abs(disc - jd) / scale).max() < bound
+    for a, b in zip(_tails(got), jt):
+        np.testing.assert_allclose(a, b, atol=AFSK_JAX_TAIL)
+    np.testing.assert_allclose(_np(got[1]), jy, atol=AFSK_JAX_TAIL)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_afsk_split_matches_plain_and_chunks(dtype, chunks):
+    """At 'high', the split against fir_afsk_exact_plain: disc within 1e-4
+    of each channel's largest |disc|, the tails and y_last within 1e-3;
+    cut into K chunks, each from its L-early start with zero history, it
+    gives what K = 1 gives, to float32 round-off of the frame grid."""
+    args, _ = _afsk_case(dtype)
+    passes = TC.passes_for(args[0].re.dtype, False)
+    got = TC.afsk_exact_split(*args, passes=passes, chunks=chunks)
+    ref = fir_afsk_exact_plain(*args)
+    scale = ref[0].abs().amax(dim=1, keepdim=True)
+    assert float(((got[0] - ref[0]).abs() / scale).max()) < AFSK_PLAIN
+    for a, b in zip(_tails(got), _tails(ref)):
+        assert np.abs(a - b).max() < AFSK_JAX_TAIL
+    assert np.abs(_np(got[1]) - _np(ref[1])).max() < AFSK_JAX_TAIL
+    if chunks > 1:
+        one = TC.afsk_exact_split(*args, passes=passes, chunks=1)
+        assert float(((got[0] - one[0]).abs() / scale).max()) < 1e-6
+        for a, b in zip(_tails(got), _tails(one)):
+            assert np.abs(a - b).max() < 1e-6
