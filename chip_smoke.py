@@ -16,7 +16,8 @@ its own line; the first failure exits non-zero:
    (the rx app's 40, 80, 100 and 200 among them),
    tap counts, channel counts and AGC on/off, three carry-chained blocks,
    with the AGC's chunk count K > 1; K1e (AFSK) across strides 2-100 (the
-   tensor-core, staged and warp kernels) and windows 2-128; K2/K3 (the bit-clock PLL) bit-exact across windows
+   tensor-core, staged and warp kernels) and windows 2-128, and at D = 1,
+   L = 2 also against the function in float64; K2/K3 (the bit-clock PLL) bit-exact across windows
    2-896, 1-1000 lanes, both bit mappings and widened bounds, blocks of
    1-2056 steps, every lanes-per-warp layout of the serial pass, 4,096 to
    65,536 lanes at the layout the lane cut gives them, and a block with no
@@ -72,7 +73,15 @@ its own line; the first failure exits non-zero:
    one K5 launch a block, K5 held against its plain version on the path's
    own call and timed beside the strided ``conv1d`` the port used before;
    and K6 at the same width (D = 4, window start 1) in fm with
-   de-emphasis and am with the AGC;
+   de-emphasis and am with the AGC; then slice 11: the streaming config
+   (``tools/stream_times.py``: the main path on 128 ch x 2^19 and 2^16 at
+   960 kHz, f32 and bf16 planes) through ``run_pipeline`` at K = 1, 2, 4
+   and 8 blocks a dispatch (one CUDA graph a K blocks), each K bit for
+   bit equal to K = 1 with K1a launched once a block; P2 and P1 through
+   ``Pipeline.compile_chunked`` (whether they capture, and bit for bit
+   their eager steps); checkpoint after block 4 of 8 and resume, bit for
+   bit; the Q14 chain at 64 channels bit for bit against the CPU; the
+   resamplers within 1e-6 of the CPU;
 5. demodulate a 1 kHz FM tone through ``run_pipeline`` on the card and check
    the FFT peak and its height over the median bin;
 6. run the apps on the card on synthesized WAV captures with the tone checks
@@ -798,60 +807,99 @@ def afsk_errs(torch, got, ref):
     return err, terr, yerr
 
 
+def afsk_case(torch, L, d, ell, c, dtype, g, f64=False):
+    """K1e against its plain version at (D, L, C): n0 != 0 and nonzero
+    carried products, a warm block and three carry-chained blocks of
+    several chunks each, the signal from ``g``.  Returns the worst (disc,
+    tails, y_last) errors and, with ``f64``, the kernel's and the plain
+    version's largest disc error against the function in float64
+    (``tools/afsk_accuracy.exact_f64``), over each channel's largest
+    |disc|."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.tools.afsk_accuracy import exact_f64
+
+    n_out = 3 * 4096 + 333
+    b = d * n_out
+    op = afsk_op(L, d, ell, c, b, dtype)
+    tail, prev, _, _, _ = op.init_carry("cuda")
+    carry = (tail, prev,
+             torch.tensor(7 % ell, dtype=torch.int32, device="cuda"),
+             noise(torch, g, c, ell - 1), noise(torch, g, c, ell - 1))
+    errs, e64 = [0.0, 0.0, 0.0], [0.0, 0.0]
+    for k in range(4):
+        xr, xi = fm_signal(torch, g, c, b, d, "cuda", k * b)
+        x = Complex(xr.to(dtype), xi.to(dtype))
+        args = afsk_args(op, x, carry)
+        ref = F.fir_afsk_exact_plain(*args)
+        got = F.fir_afsk_exact(*args)
+        torch.cuda.synchronize()
+        if k:  # block 0 warms the discriminator up
+            errs = [max(a, b_) for a, b_ in
+                    zip(errs, afsk_errs(torch, got, ref))]
+            if f64:
+                d64 = exact_f64(*args)[2]
+                scale = d64.abs().amax(dim=1, keepdim=True)
+                e64 = [max(e, float(((v.double() - d64).abs()
+                                     / scale).max()))
+                       for e, v in zip(e64, (got[0], ref[0]))]
+        carry = (x[..., b - (op._t - 1):].map(torch.clone), ref[1],
+                 (carry[2] + n_out) % ell, ref[2], ref[3])
+    return errs, e64
+
+
 def phase_afsk_parity(torch, L, gen):
     """K1e against its plain version: both plane dtypes, strides 2-100 on
     all three routes (the tensor-core kernel at 2-16, 2-40 with bf16
     planes; the staged kernel above 16 up to 40 with f32 planes; the warp
     kernel above 40), windows 2-128, channels 1, 3 and 64 in turn, n0 != 0
     and nonzero carried products, a warm block and three carry-chained
-    blocks of several chunks each."""
-    from libsdr_tpu_torch.core.cplx import Complex
+    blocks of several chunks each; then D = 1, L = 2 (the staged kernel)
+    on 1, 3 and 64 channels, with the kernel and the plain version each
+    held against the function in float64."""
     from libsdr_tpu_torch.ops import fir_fm as F
 
     worst = 0.0
-    n_out = 3 * 4096 + 333
     before = dict(F.fir_afsk_exact.routes)
     # D = 24 (the staged kernel with float32 planes, the tc route with
-    # bfloat16) draws from a generator of its own, so that the traffic of
-    # the phases after this one does not depend on it
+    # bfloat16) and D = 1 draw from generators of their own, so that the
+    # traffic of the phases after this one does not depend on them
     own = torch.Generator(device="cuda")
     own.manual_seed(24)
-    sweep = [(d, gen) for d in (2, 4, 5, 10, 40, 100)] + [(24, own)]
+    sweep = [(d, ell, gen) for d in (2, 4, 5, 10, 40, 100)
+             for ell in (2, 20, 40, 128)]
+    sweep += [(24, ell, own) for ell in (2, 20, 40, 128)]
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (d, g) in enumerate(sweep):
-            for j, ell in enumerate((2, 20, 40, 128)):
-                c = (1, 3, 64)[(i + j) % 3]
-                b = d * n_out
-                op = afsk_op(L, d, ell, c, b, dtype)
-                tail, prev, _, _, _ = op.init_carry("cuda")
-                carry = (tail, prev,
-                         torch.tensor(7 % ell, dtype=torch.int32,
-                                      device="cuda"),
-                         noise(torch, g, c, ell - 1),
-                         noise(torch, g, c, ell - 1))
-                errs = [0.0, 0.0, 0.0]
-                for k in range(4):
-                    xr, xi = fm_signal(torch, g, c, b, d, "cuda", k * b)
-                    x = Complex(xr.to(dtype), xi.to(dtype))
-                    args = afsk_args(op, x, carry)
-                    ref = F.fir_afsk_exact_plain(*args)
-                    got = F.fir_afsk_exact(*args)
-                    torch.cuda.synchronize()
-                    if k:  # block 0 warms the discriminator up
-                        errs = [max(a, b_) for a, b_ in
-                                zip(errs, afsk_errs(torch, got, ref))]
-                    carry = (x[..., b - (op._t - 1):].map(torch.clone),
-                             ref[1], (carry[2] + n_out) % ell, ref[2],
-                             ref[3])
-                name = f"{str(dtype)[6:]} D={d} L={ell} C={c}"
-                print(f"parity K1e {name}: disc {errs[0]:.3e} (of max), "
-                      f"tails {errs[1]:.3e} (abs), y_last {errs[2]:.3e}")
-                check(errs[0] < AFSK_BOUND and errs[1] < ERR_BOUND
-                      and errs[2] < ERR_BOUND,
-                      f"fir_afsk_exact vs plain {name}: {errs}")
-                worst = max(worst, errs[0])
+        for i, (d, ell, g) in enumerate(sweep):
+            c = (1, 3, 64)[(i // 4 + i % 4) % 3]
+            errs, _ = afsk_case(torch, L, d, ell, c, dtype, g)
+            name = f"{str(dtype)[6:]} D={d} L={ell} C={c}"
+            print(f"parity K1e {name}: disc {errs[0]:.3e} (of max), "
+                  f"tails {errs[1]:.3e} (abs), y_last {errs[2]:.3e}")
+            check(errs[0] < AFSK_BOUND and errs[1] < ERR_BOUND
+                  and errs[2] < ERR_BOUND,
+                  f"fir_afsk_exact vs plain {name}: {errs}")
+            worst = max(worst, errs[0])
+    d24 = own.get_offset()
+    one = torch.Generator(device="cuda")
+    one.manual_seed(1)
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (1, 3, 64):
+            errs, e64 = afsk_case(torch, L, 1, 2, c, dtype, one, f64=True)
+            name = f"{str(dtype)[6:]} D=1 L=2 C={c}"
+            print(f"parity K1e {name}: disc {errs[0]:.3e} (of max), "
+                  f"tails {errs[1]:.3e} (abs), y_last {errs[2]:.3e}; "
+                  f"against float64: kernel {e64[0]:.3e}, plain "
+                  f"{e64[1]:.3e}")
+            check(errs[0] < AFSK_BOUND and errs[1] < ERR_BOUND
+                  and errs[2] < ERR_BOUND,
+                  f"fir_afsk_exact vs plain {name}: {errs}")
+            check(e64[0] < AFSK_BOUND and e64[1] < AFSK_BOUND,
+                  f"fir_afsk_exact {name} against float64: {e64}")
+            worst = max(worst, errs[0])
     taken = {r: n - before[r] for r, n in F.fir_afsk_exact.routes.items()}
-    print(f"parity K1e launches by route: {taken}")
+    print(f"parity K1e launches by route: {taken}; the D = 24 cases drew "
+          f"{d24} of their generator's Philox offset")
     check(all(taken.values()), f"K1e parity missed a route: {taken}")
     return worst
 
@@ -1559,6 +1607,8 @@ def phase_w1(torch, gen, smi):
 
     m, b = W1_M, W1_BLOCK
     entries = all_entries()
+    print(f"phase W1 traffic from the run's generator at Philox offset "
+          f"{gen.get_offset()}")
     plan = W.pager_plan(m, 2 * b // m)
     edge = W.crosses_edge(plan, b // m)
     res = {}
@@ -2359,6 +2409,213 @@ def phase_wide_apps(tmp: Path):
         lambda text: text if "cq de tpu" in text else "")
 
 
+# -- slice 11: chunked dispatch, checkpoint, the Q14 chain, resamplers -----
+
+def ragged_equal(torch, a, b):
+    return torch.equal(a.data, b.data) and torch.equal(a.valid, b.valid)
+
+
+def try_capture(torch, L, label, pipe, blocks, k):
+    """compile_chunked("unroll") of a digital path over its first k
+    blocks: whether its step captures into a CUDA graph and, where it does,
+    the graph's outputs bit for bit against k eager steps.  Returns (True,
+    launches per capture) or (False, the ConfigError's reason)."""
+    from libsdr_tpu_torch.core import ConfigError
+    from libsdr_tpu_torch.core.graph import _leaves
+
+    step = pipe.compile()
+    carry = pipe.init_carry("cuda")
+    ys = []
+    for x in blocks[:k]:
+        carry, y = step(carry, x)
+        ys.append(y)
+    chunked = pipe.compile_chunked("unroll")
+    try:
+        c2, ys2 = chunked(pipe.init_carry("cuda"), tuple(blocks[:k]))
+    except ConfigError as e:
+        return False, str(e).splitlines()[0][:300]
+    torch.cuda.synchronize()
+    check(all(ragged_equal(torch, a, b) for a, b in zip(ys2, ys)),
+          f"{label}: the graph's bits differ from {k} eager steps")
+    check(all(torch.equal(a, b) for a, b in zip(_leaves(c2)[0],
+                                                _leaves(carry)[0])),
+          f"{label}: the graph's carry differs from {k} eager steps")
+    (g,) = chunked.graphs.values()
+    return True, dict(g.launches)
+
+
+def phase_slice11(torch, L, smi):
+    """Slice 11 on the card: the streaming config (tools/stream_times.py:
+    the main path on 128 ch x 2^19 at 960 kHz and its small-block section
+    at 2^16, f32 and bf16 planes) through run_pipeline at K = 1, 2, 4 and
+    8, each K's output bit for bit equal to K = 1's and K1a launched once a
+    block at every K (graph launches per capture times replays); whether
+    P2 and P1 capture into a CUDA graph (and then equal their eager steps);
+    checkpoint after block 4 of 8 and resume into a fresh pipeline, bit for
+    bit, f32 and bf16; the Q14 chain at 64 channels, bit for bit against
+    the CPU, with FMDeemphInt's share of its time; the resamplers on 64
+    channels within 1e-6 of the CPU.  Every generator here is its own."""
+    import tempfile
+
+    from libsdr_tpu_torch.apps.chains import pocsag_front_end
+    from libsdr_tpu_torch.core import cplx
+    from libsdr_tpu_torch.core.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import (BitStream, FMDeemphInt, FMDemod,
+                                      FMDemodInt, FSKDetector, InpolSubSampler,
+                                      IQBaseBand, IQBaseBandInt, Resampler)
+    from libsdr_tpu_torch.tools.digital_signals import (ax25_bank,
+                                                        pocsag_blocks)
+    from libsdr_tpu_torch.tools.stream_times import (CHANNELS as SC,
+                                                     stream_blocks_on_card,
+                                                     stream_pipeline,
+                                                     time_config)
+
+    res = {}
+    # 1. the streaming config at K = 1, 2, 4, 8
+    for block in (1 << 19, 1 << 16):
+        for planes, dtype in (("f32", torch.float32),
+                              ("bf16", torch.bfloat16)):
+            lines = time_config(block, dtype, (1, 2, 4, 8), 8, 3,
+                                keep_outputs=True)
+            base = lines[0]["out"]
+            for line in lines:
+                same = np.array_equal(line.pop("out"), base)
+                print(f"phase slice 11 streaming {SC} ch x {block:,} "
+                      f"{planes} K={line['K']}: run_pipeline "
+                      f"{line['run_ms']:.3f} ms a block "
+                      f"({line['run_msps']:.1f} Msamples/s), steps alone "
+                      f"{line['device_ms']:.3f} ms a block "
+                      f"({line['device_msps']:.1f} Msamples/s), K1a "
+                      f"launches a block {line['launches']:g}, "
+                      f"{'bit-identical to K=1' if same else 'DIFFERS'} "
+                      f"| {smi}")
+                check(same, f"streaming {block} {planes} K={line['K']}: "
+                      "output differs from K=1")
+                check(line["launches"] == 1, f"streaming {block} {planes} "
+                      f"K={line['K']}: K1a launches a block "
+                      f"{line['launches']}")
+                res[(block, planes, line["K"])] = line
+            del lines, base
+            torch.cuda.empty_cache()
+
+    # 2. captures on the digital paths
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(111)
+    fs2, c2, blk2 = 240e3, 256, 117_760
+    p2_blocks = pocsag_blocks(c2, blk2, 2, gen, fs2)
+    captured = {"P2": try_capture(torch, L, "P2", pocsag_front_end(
+        fs2, blk2, channels=(c2,)), p2_blocks, 2)}
+    del p2_blocks
+    fs1, c1, b1 = 192_000.0, CHANNELS, 1 << 21
+    p1 = L.Pipeline([IQBaseBand(fc=24e3, width=12.5e3, order=48,
+                                out_rate=48e3, design="textbook"),
+                     FMDemod(), FSKDetector(1200.0, 1200.0, 2200.0),
+                     BitStream(1200.0, mode="transition")])
+    p1.bind(L.StreamSpec(np.complex64, fs1, b1, channels=(c1,)))
+    x1 = ax25_bank(c1, 2 * b1, gen, fs1)
+    captured["P1"] = try_capture(torch, L, "P1", p1,
+                                 [x1[..., :b1].map(torch.clone),
+                                  x1[..., b1:].map(torch.clone)], 2)
+    del x1
+    torch.cuda.empty_cache()
+    for name, (ok, what) in captured.items():
+        print(f"phase slice 11 capture {name}: "
+              + (f"captures, bit-identical to 2 eager steps, launches per "
+                 f"capture {what}" if ok else f"does not capture: {what}"))
+    res["captured"] = {k: v[0] for k, v in captured.items()}
+
+    # 3. checkpoint after block 4 of 8 and resume, the streaming config
+    block = 1 << 19
+    with tempfile.TemporaryDirectory() as tmp:
+        for planes, dtype in (("f32", torch.float32),
+                              ("bf16", torch.bfloat16)):
+            xs = stream_blocks_on_card(block, 8, dtype, seed=4)
+            p = stream_pipeline(block, dtype)
+            carry, outs = p.init_carry("cuda"), []
+            for i, x in enumerate(xs):
+                carry, y = p.apply(carry, x)
+                outs.append(y)
+                if i == 3:
+                    save_checkpoint(f"{tmp}/ck.npz", carry, i + 1)
+            p2 = stream_pipeline(block, dtype)
+            c, pos, _ = load_checkpoint(f"{tmp}/ck.npz", p2.init_carry())
+            same = pos == 4
+            for i in range(pos, 8):
+                c, y = p2.apply(c, xs[i])
+                same = same and torch.equal(y, outs[i])
+            print(f"phase slice 11 checkpoint {planes}: resumed after block "
+                  f"4 of 8, {'bit-identical' if same else 'DIFFERS'}")
+            check(same, f"checkpoint/resume {planes} differs")
+            del xs, outs
+
+    # 4. the Q14 chain at 64 channels, card against CPU
+    rng = np.random.default_rng(14)
+    fs, b, c = 240_000.0, 24_000, CHANNELS
+    t = np.arange(3 * b) / fs
+    ph = (2 * np.pi * (3000.0 + 50.0 * np.arange(c))[:, None] * t
+          + 3.0 * np.sin(2 * np.pi * 700.0 * t))
+    iq = np.round(9000 * np.exp(1j * ph) + 300 * (
+        rng.normal(size=ph.shape) + 1j * rng.normal(size=ph.shape)))
+    outs, times = {}, {}
+    for dev in ("cpu", "cuda"):
+        stages = (IQBaseBandInt(fc=3000.0, width=12.5e3, order=21, decim=10),
+                  FMDemodInt(ref_block_quirk=True), FMDeemphInt())
+        specs = (L.StreamSpec(np.complex64, fs, b, channels=(c,)),
+                 L.StreamSpec(np.complex64, fs / 10, b // 10, channels=(c,)),
+                 L.StreamSpec(np.float32, fs / 10, b // 10, channels=(c,)))
+        for st, sp in zip(stages, specs):
+            st.bind(sp)
+        cs = [st.init_carry(dev) for st in stages]
+        ys, spent = [], [0.0, 0.0, 0.0]
+        for k in range(3):
+            blk = iq[:, k * b:(k + 1) * b]
+            y = Complex(torch.tensor(blk.real, dtype=torch.int32, device=dev),
+                        torch.tensor(blk.imag, dtype=torch.int32, device=dev))
+            for i, st in enumerate(stages):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cs[i], y = st.apply(cs[i], y)
+                torch.cuda.synchronize()
+                spent[i] += time.perf_counter() - t0
+            ys.append(y.cpu().numpy())
+        outs[dev] = np.concatenate(ys, -1)
+        times[dev] = [v / 3 * 1e3 for v in spent]
+    exact = np.array_equal(outs["cuda"], outs["cpu"])
+    tc = times["cuda"]
+    print(f"phase slice 11 Q14 chain ({c} ch x {b:,} @ 240 kHz, decim 10, "
+          f"3 blocks): card {'bit-exact' if exact else 'DIFFERS'} against "
+          f"the CPU; card {sum(tc):.1f} ms a block (IQBaseBandInt "
+          f"{tc[0]:.2f}, FMDemodInt {tc[1]:.2f}, FMDeemphInt {tc[2]:.1f}: "
+          f"{100 * tc[2] / sum(tc):.1f}%), CPU {sum(times['cpu']):.1f} ms "
+          f"| {smi}")
+    check(exact, "Q14 chain: the card differs from the CPU")
+    check(np.abs(outs["cuda"]).max() > 100, "Q14 chain: no audio")
+    res["q14_ms"], res["q14_deemph_ms"] = sum(tc), tc[2]
+
+    # 5. the resamplers on 64 channels, card against CPU
+    x = (rng.normal(size=(c, 3 * 1200)) + 1j * rng.normal(size=(c, 3 * 1200))
+         ).astype(np.complex64)
+    for name, make in (("Resampler(p=3, q=2)", lambda: Resampler(p=3, q=2)),
+                       ("InpolSubSampler(2.5)", lambda: InpolSubSampler(2.5))):
+        got = {}
+        for dev in ("cpu", "cuda"):
+            op = make()
+            op.bind(L.StreamSpec(np.complex64, 48000, 1200, channels=(c,)))
+            cc, ys = op.init_carry(dev), []
+            for k in range(3):
+                cc, y = op.apply(cc, cplx.as_block(
+                    x[:, k * 1200:(k + 1) * 1200], torch.float32, dev))
+                ys.append(cplx.to_numpy(y))
+            got[dev] = np.concatenate(ys, -1)
+        err = float(np.abs(got["cuda"] - got["cpu"]).max())
+        print(f"phase slice 11 {name} ({c} ch, 3 blocks of 1,200): card "
+              f"against CPU max_abs_err {err:.3e} (bound 1e-06)")
+        check(err < 1e-6, f"{name}: card against CPU {err}")
+    return res
+
+
 def all_entries():
     from libsdr_tpu_torch.ops import fir_fm as F
     from libsdr_tpu_torch.ops import fir_mxu as M
@@ -2505,6 +2762,9 @@ def main() -> int:
     # Slice 5: F1, the arbitrary-offset FIR bank (K5), and K6 at full width.
     f1, f1_launches = phase_f1(torch, L, gen, smi)
     k6, k6_launches = phase_k6(torch, L, gen, smi)
+    # Slice 11: chunked dispatch as one CUDA graph, the in-flight window,
+    # checkpoint/resume, the Q14 chain and the resamplers.
+    s11 = phase_slice11(torch, L, smi)
 
     # Phase 5: a real signal through run_pipeline on the card.
     audio = siggen.sine(FS, int(FS), 1000.0, amps=0.8)
@@ -2666,6 +2926,16 @@ def main() -> int:
           f"{p1['bf16']['ms_step']:.2f} ms/step (f32 / bf16 planes), P2 "
           f"{p2['ms_step']:.2f} ms/step with {p2['decoded']}/256 pages, P3 "
           f"{p3['ms_step']:.2f} ms/step")
+    big, small = 1 << 19, 1 << 16
+    print("slice 11: streaming steps alone f32 K=1 / K=8, 2^19 "
+          f"{s11[(big, 'f32', 1)]['device_ms']:.3f} / "
+          f"{s11[(big, 'f32', 8)]['device_ms']:.3f} ms, 2^16 "
+          f"{s11[(small, 'f32', 1)]['device_ms']:.3f} / "
+          f"{s11[(small, 'f32', 8)]['device_ms']:.3f} ms a block; "
+          f"run_pipeline 2^19 K=1 {s11[(big, 'f32', 1)]['run_ms']:.2f} ms a "
+          f"block; captured {s11['captured']}; Q14 chain "
+          f"{s11['q14_ms']:.1f} ms a block (FMDeemphInt "
+          f"{s11['q14_deemph_ms']:.1f})")
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

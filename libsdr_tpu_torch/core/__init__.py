@@ -2,7 +2,7 @@
 
 from libsdr_tpu_torch.core.stream import (StreamSpec, ConfigError,
                                           RuntimeSDRError, SDRError)
-from libsdr_tpu_torch.core.block import Processor
+from libsdr_tpu_torch.core.block import Lambda, Processor
 from libsdr_tpu_torch.core.graph import Pipeline
 from libsdr_tpu_torch.core.runtime import stream_blocks, run_pipeline
 
@@ -12,6 +12,7 @@ __all__ = [
     "RuntimeSDRError",
     "SDRError",
     "Processor",
+    "Lambda",
     "Pipeline",
     "stream_blocks",
     "run_pipeline",

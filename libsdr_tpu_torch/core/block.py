@@ -17,7 +17,7 @@ channel axes.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 from libsdr_tpu_torch.core.stream import ConfigError, StreamSpec
 
@@ -77,3 +77,38 @@ class Processor:
         if self._out_spec is not None:
             s += f" -> {self._out_spec}"
         return s + ">"
+
+
+class Proxy(Processor):
+    """Pass-through stage."""
+
+    def apply(self, carry, x):
+        return carry, x
+
+
+class Lambda(Processor):
+    """A stateless function of the block as a stage (the plumbing stages'
+    shape: scale, cast, real part).
+
+    Args:
+      fn: block -> block, on tensors or on Complex values, keeping the time
+        axis's length unless ``spec_fn`` says otherwise.
+      spec_fn: optional ``in_spec -> out_spec``; default passthrough.
+      name: shown in the stage's repr.
+    """
+
+    def __init__(self, fn: Callable, spec_fn: Optional[Callable] = None,
+                 name: str = "Lambda"):
+        super().__init__()
+        self._fn = fn
+        self._spec_fn = spec_fn
+        self._name = name
+
+    def _bind(self, in_spec: StreamSpec) -> StreamSpec:
+        return self._spec_fn(in_spec) if self._spec_fn else in_spec
+
+    def apply(self, carry, x):
+        return carry, self._fn(x)
+
+    def __repr__(self) -> str:
+        return f"<Lambda:{self._name}>"

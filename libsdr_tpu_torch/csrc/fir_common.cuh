@@ -280,6 +280,22 @@ __device__ __forceinline__ float fm_audio(float yr, float yi, float pr,
   return p.gain * atan2_poly<FAST>(zi2, zr2);
 }
 
+// s + lo += a*b with neither the product nor the sum rounded away: the
+// product's error by FMA (TwoProduct), the sum's by Knuth's TwoSum, both
+// gathered in lo, so s + lo carries the dot product to about twice float32's
+// precision.  The _rn intrinsics keep nvcc from contracting the steps.
+__device__ __forceinline__ void acc_exact(float& s, float& lo, float a,
+                                          float b) {
+  const float p = __fmul_rn(a, b);
+  const float pe = __fmaf_rn(a, b, -p);
+  const float t = __fadd_rn(s, p);
+  const float bp = __fsub_rn(t, s);
+  const float se = __fadd_rn(__fsub_rn(s, __fsub_rn(t, bp)),
+                             __fsub_rn(p, bp));
+  s = t;
+  lo = __fadd_rn(lo, __fadd_rn(se, pe));
+}
+
 // x*g as the FIR computes it: in float32 (P = 0, the staged and warp
 // kernels), or in the tensor-core kernel's P bf16 passes (x_hi*g_hi,
 // + x_hi*g_lo, + x_lo*g_hi; fir_tc.cu), the products its MMAs sum.

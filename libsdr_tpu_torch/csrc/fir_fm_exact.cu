@@ -306,9 +306,13 @@ fir_fm_exact_kernel(const Params p) {
     // each step loads one new sample and one tap for R complex FMAs.  The
     // window is a ring indexed (qi + r) % R, static once qi's loop is
     // unrolled by R.
-    float yr[R], yi[R];
+    // kAfsk sums each y without rounding its products and partial sums
+    // (their errors gathered in er, ei; acc_exact): the discriminator
+    // divides by |y|, so at a deep fade the FIR's float32 rounding would
+    // otherwise dominate disc (the plain version sums y in float64).
+    float yr[R], yi[R], er[R], ei[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) yr[r] = yi[r] = 0.f;
+    for (int r = 0; r < R; ++r) yr[r] = yi[r] = er[r] = ei[r] = 0.f;
     for (int ph = 0; ph < D; ++ph) {
       const int n_taps = (T - ph + D - 1) / D;
       // Window base and taps of step qb, advanced by R steps per iteration;
@@ -330,10 +334,17 @@ fir_fm_exact_kernel(const Params p) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const int w = (u + r) % R;
-          yr[r] = fmaf(g.x, wr[w], yr[r]);
-          yr[r] = fmaf(-g.y, wi[w], yr[r]);
-          yi[r] = fmaf(g.x, wi[w], yi[r]);
-          yi[r] = fmaf(g.y, wr[w], yi[r]);
+          if constexpr (MODE == kAfsk) {
+            acc_exact(yr[r], er[r], g.x, wr[w]);
+            acc_exact(yr[r], er[r], -g.y, wi[w]);
+            acc_exact(yi[r], ei[r], g.x, wi[w]);
+            acc_exact(yi[r], ei[r], g.y, wr[w]);
+          } else {
+            yr[r] = fmaf(g.x, wr[w], yr[r]);
+            yr[r] = fmaf(-g.y, wi[w], yr[r]);
+            yi[r] = fmaf(g.x, wi[w], yi[r]);
+            yi[r] = fmaf(g.y, wr[w], yi[r]);
+          }
         }
       };
       int qb = 0;
@@ -346,6 +357,14 @@ fir_fm_exact_kernel(const Params p) {
 #pragma unroll
       for (int u = 0; u < R; ++u) {
         if (qb + u < n_taps) step(u);
+      }
+    }
+
+    if constexpr (MODE == kAfsk) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        yr[r] = __fadd_rn(yr[r], er[r]);
+        yi[r] = __fadd_rn(yi[r], ei[r]);
       }
     }
 

@@ -24,6 +24,11 @@ from libsdr_tpu_torch.ops.utils import (
     Scale, Cast, AutoCast, ToComplex, RealPart, ImagPart, IQBalance,
     UnsignedToSigned, SignedToUnsigned, Interleave, Deinterleave,
 )
+from libsdr_tpu_torch.ops.resample import (SubSample, FracSubSample,
+                                           InpolSubSampler, Resampler)
+from libsdr_tpu_torch.ops.fixedpoint import (FMDemodInt, FMDeemphInt,
+                                              IQBaseBandInt, fast_atan2_i16)
+from libsdr_tpu_torch.ops.debug import BitDump, DebugStore, TextDump
 
 __all__ = [
     "firdesign", "siggen", "FIRFilter", "fir_overlap_save",
@@ -36,4 +41,7 @@ __all__ = [
     "WidebandFM", "Scale", "Cast",
     "AutoCast", "ToComplex", "RealPart", "ImagPart", "IQBalance",
     "UnsignedToSigned", "SignedToUnsigned", "Interleave", "Deinterleave",
+    "SubSample", "FracSubSample", "InpolSubSampler", "Resampler",
+    "FMDemodInt", "FMDeemphInt", "IQBaseBandInt", "fast_atan2_i16",
+    "BitDump", "DebugStore", "TextDump",
 ]

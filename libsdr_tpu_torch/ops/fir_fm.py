@@ -124,10 +124,12 @@ def atan2_poly(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def _fir_y(x: Complex, taps: Complex, d: int, tail: Complex) -> Complex:
-    """y of every mode, in float32: the decimating FIR over tail + x."""
+    """y of every mode, in float32 (in float64 for float64 planes, mode
+    afsk's): the decimating FIR over tail + x."""
     # The tail is stored in the plane dtype (it is a slice of the input).
-    xc = Complex(torch.cat([tail.re.to(x.re.dtype), x.re], -1).float(),
-                 torch.cat([tail.im.to(x.im.dtype), x.im], -1).float())
+    w = torch.float64 if x.re.dtype == torch.float64 else torch.float32
+    xc = Complex(torch.cat([tail.re.to(x.re.dtype), x.re], -1).to(w),
+                 torch.cat([tail.im.to(x.im.dtype), x.im], -1).to(w))
     return _conv1d(xc[..., d - 1:], taps, d)
 
 
@@ -276,10 +278,15 @@ def fir_afsk_exact_plain(x: Complex, taps: Complex, stride: int,
                          tail: Complex, prev: Complex, rot: complex,
                          gain: float, mark: Complex, space: Complex, n0,
                          um_tail: Complex, us_tail: Complex):
-    """Plain PyTorch version of :func:`fir_afsk_exact`, in float32; each
-    window is summed oldest first, as the kernels sum it."""
-    audio, y_last = fir_fm_exact_plain(x, taps, stride, tail, prev, rot,
-                                       gain)
+    """Plain PyTorch version of :func:`fir_afsk_exact`, in float32 except
+    y: summed in float64 and rounded once, as the staged kernel sums it
+    without rounding its products and partial sums (the discriminator
+    divides by |y|, so at a deep fade the FIR's float32 rounding would
+    dominate disc).  Each window is summed oldest first, as the kernels
+    sum it."""
+    y = _fir_y(x.to(torch.float64), taps, int(stride),
+               tail.to(torch.float64)).to(torch.float32)
+    audio, y_last = _fm_plain(y, prev, rot, gain), y[..., -1]
     L = mark.re.shape[-1]
     dev = audio.device
     n0 = torch.as_tensor(n0, device=dev)

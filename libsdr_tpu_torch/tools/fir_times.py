@@ -8,7 +8,10 @@
 (``fir_fm_exact`` with de-emphasis), K1b (``fir_exact``) and, where the
 package has them, K5 (``fir_offset`` at offset 0, F1's call) and K6
 (``fir_fm_mxu`` at window start 1 in fm with de-emphasis and am with the
-AGC); and K1e (``fir_afsk_exact``) at the AX.25 bank P1's shape: 64
+AGC); K1c (``fir_am_exact`` with the AGC) and K1d (``fir_usb_exact`` with
+the AGC and its exact NCO) at the AM and USB banks' shapes of
+``chip_smoke.py`` (``apps/chains.rx_stages`` at 960 kHz, 64 channels x
+16,777,200 samples: T = 71, D = 40 and T = 143, D = 80); and K1e (``fir_afsk_exact``) at the AX.25 bank P1's shape: 64
 channels x 2^21 at 192 kHz, the bank's taps (T = 51), D = 4 and its
 L = 40 tone templates, from a template phase of 7 and nonzero carried
 products.  Each kernel is timed with CUDA events over ``--reps`` launches
@@ -45,6 +48,7 @@ import torch
 
 C, B, T, D = 64, 1 << 24, 67, 4
 B_P1 = 1 << 21   # K1e: the AX.25 bank's block at 192 kHz
+B_BANK = 80 * (B // 80)   # K1c, K1d: the AM and USB banks' block
 VARIANTS = {"default": (), "staged": ("SDR_TC_MAX_D=0",)}
 KNOCKOUTS = {"-sum": ("SDR_AFSK_KO_SUM=1",), "-tone": ("SDR_AFSK_KO_TONE=1",),
              "-disc": ("SDR_AFSK_KO_DISC=1",),
@@ -110,10 +114,14 @@ def main(argv=None) -> int:
     x32 = cn(C, B)
     prev = cn(C)
     state = torch.full((C,), 0.5, device="cuda")
-    entries = [F.fir_fm_exact, F.fir_exact, F.fir_afsk_exact] + (
+    entries = [F.fir_fm_exact, F.fir_exact, F.fir_afsk_exact,
+               F.fir_am_exact, F.fir_usb_exact] + (
         [M.fir_mxu, M.fir_fm_mxu] if M is not None else [])
     op = _p1_op()
     ell = op.corr_len
+    banks = {name: (bop, bop.init_carry("cuda"))
+             for name, bop in (("K1c fir_am_exact", _bank_op("AM")),
+                               ("K1d fir_usb_exact", _bank_op("USB")))}
     p1_x32 = cn(C, B_P1)
     p1_carry = (cn(C, op._t - 1), cn(C),
                 torch.tensor(7, dtype=torch.int32, device="cuda"),
@@ -142,6 +150,19 @@ def main(argv=None) -> int:
                 x, taps, D, 1, lead, 1.0, 0.125, (lam, 1 - lam),
                 state[:, None], mode="am")
         calls["K1e fir_afsk_exact"] = lambda: F.fir_afsk_exact(*p1_args)
+        bank_x = Complex(x.re[:, :B_BANK].contiguous(),
+                         x.im[:, :B_BANK].contiguous())
+        for name, (bop, bcarry) in banks.items():
+            front = (bank_x, bop._taps("cuda"), bop._decim,
+                     bcarry[0].to(x.re.dtype))
+            if name.startswith("K1c"):
+                bargs = front + (bop._gain, bop._ab, bcarry[1])
+                calls[name] = lambda a=bargs: F.fir_am_exact(*a)
+            else:
+                bargs = front + (bcarry[1], bop._on("ramp", bop._ramp_np,
+                                                     "cuda"),
+                                 bop._gain, bop._ab, bcarry[2])
+                calls[name] = lambda a=bargs: F.fir_usb_exact(*a)
         if args.calls:
             calls = {n: fn for n, fn in calls.items()
                      if any(n.startswith(c) for c in args.calls)}
@@ -158,11 +179,26 @@ def main(argv=None) -> int:
             print(json.dumps({"planes": plane, "variant": variant,
                               "shape": [C, B, T, D],
                               "shape_k1e": [C, B_P1, op._t, op._decim, ell],
+                              "shape_banks": {
+                                  n: [C, B_BANK, bop._t, bop._decim]
+                                  for n, (bop, _) in banks.items()},
                               "ms": times, "routes": taken, "card": smi}),
                   flush=True)
-        del x, tail, p1_x, p1_args
+        del x, tail, p1_x, p1_args, bank_x, calls
         torch.cuda.empty_cache()
     return 0
+
+
+def _bank_op(mode: str):
+    """The AM or USB bank's fused op (chip_smoke.py's phase 4 banks):
+    ``apps/chains.rx_stages(mode, 960e3, 960e3 / 8)`` on 64 channels of
+    B_BANK samples."""
+    import libsdr_tpu_torch as L
+    from libsdr_tpu_torch.apps.chains import rx_stages
+
+    rx = L.Pipeline(rx_stages(mode, 960e3, 960e3 / 8))
+    rx.bind(L.StreamSpec(np.complex64, 960e3, B_BANK, channels=(C,)))
+    return rx.stages[0]
 
 
 def _p1_op():

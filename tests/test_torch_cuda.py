@@ -336,7 +336,7 @@ def _afsk_args(op, x, carry):
 @pytest.mark.parametrize("d,ell,c", [(4, 40, 64), (2, 2, 3), (5, 20, 1),
                                      (10, 20, 3), (40, 128, 3),
                                      (100, 40, 3), (4, 256, 2), (1, 20, 2),
-                                     (16, 40, 3), (24, 40, 3)])
+                                     (1, 2, 3), (16, 40, 3), (24, 40, 3)])
 def test_afsk_kernel_matches_plain(cuda, dtype, d, ell, c):
     """K1e over a warm block and three carry-chained blocks, each long
     enough for several chunks per channel, on each side of the
@@ -1374,3 +1374,167 @@ def test_fast_precision_keeps_70_db(cuda):
     err = y_hi - y_fast
     snr = 10 * np.log10(np.mean(y_hi[0] ** 2) / np.mean(err[0] ** 2))
     assert 70.0 < snr < 200.0, snr
+
+
+# -- slice 11: chunked dispatch as one CUDA graph, checkpoint, Q14 ----------
+
+def _main_path(c, b, plane_dtype=None):
+    rx = P.Pipeline([IQBaseBand(fc=FS / 8, width=200e3, order=64, decim=4,
+                                design="textbook"), FMDemod(), FMDeemph()])
+    rx.bind(P.StreamSpec(np.complex64, FS, b, channels=(c,),
+                         plane_dtype=plane_dtype))
+    return rx
+
+
+def _blocks(cuda, c, b, n, dtype, seed=11):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(seed)
+    return [Complex(torch.randn((c, b), generator=g, device=cuda).to(dtype),
+                    torch.randn((c, b), generator=g, device=cuda).to(dtype))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_dispatch_graph_matches_eager(cuda, dtype):
+    """run_pipeline at K = 3 over 7 blocks (two graph replays and a trailing
+    block through the single step) bit for bit equal to K = 1 on the card;
+    the kernel launched once a block in all (launches per capture times
+    replays), 'scan' equal to 'unroll', and the graph's outputs cloned
+    before the next replay."""
+    from libsdr_tpu_torch.core import run_pipeline
+    from libsdr_tpu_torch.core.graph import _leaves
+
+    c, b = 8, 4 * 4096
+    xs = _blocks(cuda, c, b, 7, dtype)
+    rx = _main_path(c, b, dtype)
+    c1, y1 = run_pipeline(rx, xs, device=cuda)
+    F.reset_counts(F.fir_fm_exact)
+    c3, y3 = run_pipeline(rx, xs, device=cuda, chunks_per_dispatch=3)
+    np.testing.assert_array_equal(y3, y1)
+    for a, r in zip(_leaves(c3)[0], _leaves(c1)[0]):
+        assert torch.equal(a, r)
+    step = rx.compile_chunked("unroll")
+    # the two groups' blocks lie at two addresses: two in-place graphs
+    assert len(step.graphs) == 2
+    for g in step.graphs.values():
+        assert g.in_place and g.launches == {"fir_fm_exact": 3}
+        assert g.replays == 1
+    assert step.graph_launches() == {"fir_fm_exact": 6}
+    # eager launches: the trailing block's
+    assert F.fir_fm_exact.launches == 3 * len(step.graphs) + 1
+    carry = rx.init_carry(cuda)
+    cu, yu = step(carry, tuple(xs[:3]))
+    cs, ys = rx.compile_chunked("scan")(
+        carry, Complex(torch.stack([x.re for x in xs[:3]]),
+                       torch.stack([x.im for x in xs[:3]])))
+    cu2, yu2 = step(cu, tuple(xs[3:6]))      # a new graph for new addresses
+    for i in range(3):
+        assert torch.equal(yu[i], ys[i])
+    np.testing.assert_array_equal(
+        torch.cat(list(yu) + list(yu2), -1).cpu().numpy(), y1[:, :6 * b // 4])
+    # host blocks are copied into one graph's own inputs; past
+    # IN_PLACE_GRAPHS addresses, device blocks are too
+    host = [Complex(x.re.cpu(), x.im.cpu()) for x in xs]
+    _, yh = run_pipeline(rx, host, device=cuda, chunks_per_dispatch=3)
+    np.testing.assert_array_equal(yh, y1)
+    copying = [g for g in step.graphs.values() if not g.in_place]
+    assert len(copying) == 1 and copying[0].replays == 2
+
+
+def test_compile_chunked_refuses_a_step_that_reads_the_host(cuda):
+    """A step that reads the host cannot be captured: compile_chunked raises
+    ConfigError naming the pipeline, runs nothing eagerly in its place,
+    and the card works afterwards."""
+    from libsdr_tpu_torch.core import ConfigError, Lambda
+
+    p = P.Pipeline([Lambda(lambda v: v * float(v.abs().max()))],
+                   name="reads-host")
+    p.bind(P.StreamSpec(np.float32, 8000, 256))
+    x = torch.ones(256, device=cuda)
+    with pytest.raises(ConfigError, match="reads-host"):
+        p.compile_chunked("unroll")(p.init_carry(cuda), (x, x))
+    assert float((x + 1).sum()) == 512.0
+
+
+def test_checkpoint_resume_on_card_bf16(cuda, tmp_path):
+    """The main path with bfloat16 planes checkpointed after block 4 of 8
+    and resumed into a fresh pipeline with load_checkpoint: the resumed
+    outputs equal the full run's bit for bit, each leaf back in its dtype
+    on the card."""
+    from libsdr_tpu_torch.core.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+    from libsdr_tpu_torch.core.graph import _leaves
+
+    c, b = 8, 4 * 4096
+    xs = _blocks(cuda, c, b, 8, torch.bfloat16, seed=12)
+    rx = _main_path(c, b, torch.bfloat16)
+    carry, outs = rx.init_carry(cuda), []
+    for i, x in enumerate(xs):
+        carry, y = rx.apply(carry, x)
+        outs.append(y)
+        if i == 3:
+            save_checkpoint(str(tmp_path / "ck.npz"), carry, i + 1)
+    rx2 = _main_path(c, b, torch.bfloat16)
+    c2, pos, _ = load_checkpoint(str(tmp_path / "ck.npz"),
+                                 rx2.init_carry(cuda))
+    assert pos == 4
+    dts = {v.dtype for v in _leaves(c2)[0]}
+    assert torch.bfloat16 in dts
+    assert all(v.device.type == "cuda" for v in _leaves(c2)[0])
+    for i in range(4, 8):
+        c2, y = rx2.apply(c2, xs[i])
+        assert torch.equal(y, outs[i])
+
+
+def test_q14_chain_card_matches_cpu(cuda):
+    """IQBaseBandInt -> FMDemodInt(ref_block_quirk) -> FMDeemphInt over
+    three blocks of 4 channels: the card's audio equals the CPU's bit for
+    bit."""
+    from libsdr_tpu_torch.ops import FMDeemphInt, FMDemodInt, IQBaseBandInt
+
+    fs, b, c = 240_000.0, 2400, 4
+    rng = np.random.default_rng(14)
+    iq = np.round(rng.normal(size=(c, 3 * b)) * 6000) + 1j * np.round(
+        rng.normal(size=(c, 3 * b)) * 6000)
+    outs = {}
+    for dev in ("cpu", cuda):
+        bb = IQBaseBandInt(fc=3000.0, width=12.5e3, order=21, decim=10)
+        dm = FMDemodInt(ref_block_quirk=True)
+        de = FMDeemphInt()
+        bb.bind(P.StreamSpec(np.complex64, fs, b, channels=(c,)))
+        dm.bind(P.StreamSpec(np.complex64, fs / 10, b // 10, channels=(c,)))
+        de.bind(P.StreamSpec(np.float32, fs / 10, b // 10, channels=(c,)))
+        cs = [s.init_carry(dev) for s in (bb, dm, de)]
+        ys = []
+        for k in range(3):
+            blk = iq[:, k * b:(k + 1) * b]
+            y = Complex(torch.tensor(blk.real, dtype=torch.int32, device=dev),
+                        torch.tensor(blk.imag, dtype=torch.int32, device=dev))
+            for i, stage in enumerate((bb, dm, de)):
+                cs[i], y = stage.apply(cs[i], y)
+            ys.append(y.cpu().numpy())
+        outs[str(dev)] = np.concatenate(ys, -1)
+    np.testing.assert_array_equal(outs["cuda"], outs["cpu"])
+
+
+def test_resamplers_card_match_cpu(cuda):
+    """Resampler(3:2) and InpolSubSampler(2.5) on a complex bank: the card
+    within 1e-6 of the CPU over three chained blocks."""
+    from libsdr_tpu_torch.core import cplx
+    from libsdr_tpu_torch.ops import InpolSubSampler, Resampler
+
+    rng = np.random.default_rng(15)
+    x = (rng.normal(size=(4, 3 * 1200)) + 1j * rng.normal(size=(4, 3 * 1200))
+         ).astype(np.complex64)
+    for make in (lambda: Resampler(p=3, q=2), lambda: InpolSubSampler(2.5)):
+        outs = {}
+        for dev in ("cpu", cuda):
+            op = make()
+            op.bind(P.StreamSpec(np.complex64, 48000, 1200, channels=(4,)))
+            c, ys = op.init_carry(dev), []
+            for k in range(3):
+                c, y = op.apply(c, cplx.as_block(x[:, k * 1200:(k + 1) * 1200],
+                                                 torch.float32, dev))
+                ys.append(cplx.to_numpy(y))
+            outs[str(dev)] = np.concatenate(ys, -1)
+        np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-6)
