@@ -31,14 +31,17 @@ its own line; the first failure exits non-zero:
    am epilogues) against their plain versions over strides 2-200, taps
    17-263, window starts 0, 1, D-2, D-1, D and 2D+1, C 1/3/64, both plane
    dtypes, every output and the AGC's state, and K5 at K1b's window start
-   against K1b bit for bit; the tensor-core route (``csrc/fir_tc.cu``, K1a
-   and K6 at strides 4-16, 4-40 with bf16 planes) against the split
+   against K1b bit for bit (within the FIR gate where K1b takes the
+   tensor-core route); the tensor-core route (``csrc/fir_tc.cu``, K1a
+   and K6 at strides 4-16, 4-40 with bf16 planes; K1b and K1c at strides
+   of their cuts, 2-40 with bf16 planes) against the split
    emulation of its bf16 passes (``ops/fir_tc.py``) and, at 'high', the
    float32 plain versions, over its strides, both plane dtypes, 'high'
    and 'fast', de-emphasis
    on/off, chunks K > 1 and three carry-chained blocks, K6 in fm and am
-   with and without the IIR; at the main path's shapes too (two channels
-   against the emulation), K1a timed in both precisions;
+   with and without the IIR, K1c with and without the AGC; at the main
+   path's shapes too (two channels against the emulation), K1a timed in
+   both precisions;
 4. drive the paths through the user's entry points, bind, compile and the
    step, on 64 channels x ~2^24 complex samples in float32 and bfloat16
    planes, with each path's kernel launches counted from 0 and checked,
@@ -47,10 +50,12 @@ its own line; the first failure exits non-zero:
    FMDeemph()])`` (K1a, on the tensor-core route; then 'fast' against
    'high' through its chain, at least 70 dB SNR on the JAX gate's FM
    tone), the AM
-   bank ``rx_stages("AM", 960e3)`` (K1c), the USB bank
-   ``rx_stages("USB", 960e3)`` (K1d) and the DDC bank
-   ``[IQBaseBand(order=64, decim=4)]`` (K1b); each bank's kernel is also
-   timed against its plain version at the bank's shapes; then the digital
+   bank ``rx_stages("AM", 960e3)`` (K1c, on the tensor-core route), the
+   USB bank ``rx_stages("USB", 960e3)`` (K1d, the warp kernel) and the DDC
+   bank ``[IQBaseBand(order=64, decim=4)]`` (K1b, on the tensor-core
+   route; BANK_ROUTES); each bank's kernel is also
+   timed against its plain version at the bank's shapes, beside its bound
+   on its route; then the digital
    receive paths on message traffic (``libsdr_tpu_torch/tools/
    digital_signals.py``), each with its launches counted from 0, every
    message decoded, and its kernels held against their plain versions on
@@ -97,7 +102,9 @@ The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  In the record every ``ms``
 is CUDA events around the calls; K4's rows add ``device_ms`` (the same
 calls replayed in a CUDA graph, no host time) and ``kernel_route`` (the
-route of ``csrc/pfb.cu`` the path's launches took).
+route of ``csrc/pfb.cu`` the path's launches took); the banks' rows (K1b,
+K1c, K1d) give float32 planes' numbers under the common keys and
+``kernel_route``, and bfloat16 planes' under ``bf16_*``.
 """
 
 from __future__ import annotations
@@ -139,6 +146,19 @@ REL_BOUND = 1e-5
 # at full precision (lam itself does not fit float32: 1 - lam is 2.1e-5 at
 # 480 kHz), so they differ by float32 round-off over the chunk (~1e-6).
 AGC_BOUND = 1e-4
+# The route each bank's kernel takes, by plane dtype (csrc/fir_common.cuh::
+# route_of at the banks' shapes): the AM bank's K1c (T = 71, D = 40), the
+# USB bank's K1d (T = 143, D = 80), the DDC bank's K1b (T = 67, D = 4)
+BANK_ROUTES = {"AM bank": {"f32": "tc", "bf16": "tc"},
+               "USB bank": {"f32": "warp", "bf16": "warp"},
+               "DDC bank": {"f32": "tc", "bf16": "tc"}}
+# The kernel source of each route
+ROUTE_SOURCES = {"tc": "fir_tc.cu", "staged": "fir_fm_exact.cu",
+                 "warp": "fir_warp.cu"}
+# float32 operations an output of the banks' epilogues on the CUDA cores:
+# K1b sums its passes' accumulators (~4); K1c |y| and the gain (~5) and the
+# AGC's two passes over the outputs (~15); K1d adds the NCO rotation
+EPILOGUE_OPS = {"fir_exact": 4, "fir_am_exact": 20, "fir_usb_exact": 30}
 # The tensor-core route (csrc/fir_tc.cu: K1a, K6) against the split
 # emulation of its arithmetic (ops/fir_tc.py, the same bf16 passes: 3 on
 # float32 planes, 2 on bfloat16, 1 after set_mxu_precision('fast')): the
@@ -404,8 +424,10 @@ def drive_path(torch, L, label, stages_fn, b, x32, out_len, entries,
     runs of 10 carry-chained steps for float32 and bfloat16 planes.  Every
     kernel's launch count is set to 0 before and read after, and must be
     the path's own: 31 launches of its kernel per plane dtype, every one on
-    ``route`` (the kernel that runs it: "tc", "staged" or "warp").  Returns
-    {plane: (Msps, ms per step)} and the launches of the path's kernel."""
+    ``route`` (the kernel that runs it: "tc", "staged" or "warp"; or
+    {"f32": route, "bf16": route} where the plane dtypes' routes differ).
+    Returns {plane: (Msps, ms per step)} and the launches of the path's
+    kernel."""
     from libsdr_tpu_torch.ops import fir_fm as F
 
     set_counts_zero(entries)
@@ -448,9 +470,13 @@ def drive_path(torch, L, label, stages_fn, b, x32, out_len, entries,
           f"{entries[0].routes}")
     check(counts[own] == 2 * (1 + 3 * 10), f"{label}: {own} launches "
           f"{counts[own]}")
-    check(entries[0].routes[route] == counts[own],
-          f"{label}: {own} launches not all on the {route} route: "
-          f"{entries[0].routes}")
+    want = {}
+    for plane in ("f32", "bf16"):
+        r = route[plane] if isinstance(route, dict) else route
+        want[r] = want.get(r, 0) + 1 + 3 * 10
+    check({r: n for r, n in entries[0].routes.items() if n} == want,
+          f"{label}: {own} launches by route {entries[0].routes}, not "
+          f"{want}")
     check(all(v == 0 for k, v in counts.items() if k != own),
           f"{label}: other kernels launched: {counts}")
     return res, counts[own]
@@ -510,17 +536,18 @@ def phase_banks(torch, L, gen, smi):
             return front + (carry[1], op._on("ramp", op._ramp_np, "cuda"),
                             op._gain, op._ab, carry[2])
 
-        # HBM bytes: the planes once, then per output the kernel's write of
-        # sig and the AGC's read, read and write (16 bytes)
+        # HBM bytes the function must move: the planes once, the audio
+        # once (4 bytes an output; bank_bound)
         res = bank_kernel(
             torch, label, entry, plain, agc_args, True, x32,
-            lambda isz, n_out=n_out: CHANNELS * (2 * isz * b + 16 * n_out),
+            lambda isz, n_out=n_out: CHANNELS * (2 * isz * b + 4 * n_out),
             smi)
         steps, launches = drive_path(
             torch, L, label, lambda mode=mode: rx_stages(mode, FS, FS / 8),
             b, x32, n_out, [entry] + [e for e in entries if e is not entry],
-            "warp")
-        out[entry.__name__] = (res, steps, launches, d, b, op._t)
+            BANK_ROUTES[label])
+        out[entry.__name__] = (res, steps, launches, d, b, op._t,
+                               BANK_ROUTES[label])
         del x32
         torch.cuda.empty_cache()
 
@@ -563,8 +590,9 @@ def phase_banks(torch, L, gen, smi):
     steps, launches = drive_path(
         torch, L, "DDC bank", ddc, BLOCK, x32, BLOCK // 4,
         [F.fir_exact] + [e for e in entries if e is not F.fir_exact],
-        "staged")
-    out["fir_exact"] = (res, steps, launches, 4, BLOCK, t)
+        BANK_ROUTES["DDC bank"])
+    out["fir_exact"] = (res, steps, launches, 4, BLOCK, t,
+                        BANK_ROUTES["DDC bank"])
     out["library_fir_exact"] = lib_ms
     del x32
     torch.cuda.empty_cache()
@@ -698,6 +726,47 @@ def bound_tc(nbytes, tc_ops, f32_ops):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = max(tc_ops / FLOPS_BF16_TC, f32_ops / FLOPS_F32) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def bank_bound(TC, name, route, isz, b, d, t):
+    """The bound of a bank's kernel (K1b fir_exact, K1c fir_am_exact, K1d
+    fir_usb_exact) on its route for one block of CHANNELS x b samples of
+    itemsize isz: (ms, what sets it, the bound line's text).  Bytes: what
+    the function must move, the planes read once and its outputs written
+    once (y's two float32 planes, K1b; the audio, 4 bytes an output, K1c
+    and K1d).  Operations: on the tc route the FIR's 8T an output a bf16
+    pass (3 for float32 planes, 2 for bfloat16) at the tensor cores' dense
+    rate and the epilogue's (EPILOGUE_OPS) at the float32 rate; on the
+    staged and warp kernels 8T + 20 float32 operations an output.  The
+    text also gives the port's own bytes (K1c, K1d: the kernel writes sig,
+    and the AGC passes of agc.cu read it twice and write the audio, 12
+    bytes an output more) and, on the tc route, the tensor cores as run
+    (the band's m16n8k16 tiles of the plan)."""
+    n = b // d
+    out_bytes = 8 * n if name == "fir_exact" else 4 * n
+    agc_bytes = 0 if name == "fir_exact" else 12 * n
+    nb = CHANNELS * (2 * isz * b + out_bytes)
+    text = f"bytes {nb / HBM_BYTES_PER_S * 1e3:.3f} ms"
+    if agc_bytes:
+        text += (f" (the port's with the AGC's round trip of sig "
+                 f"{(nb + CHANNELS * agc_bytes) / HBM_BYTES_PER_S * 1e3:.3f}"
+                 f" ms)")
+    if route != "tc":
+        b_ms, b_by = bound(nb, CHANNELS * n * (8 * t + 20))
+        return b_ms, b_by, text + (
+            f"; float32 operations "
+            f"{CHANNELS * n * (8 * t + 20) / FLOPS_F32 * 1e3:.3f} ms")
+    passes = 3 if isz == 4 else 2
+    plan = TC.tc_plan(t, d, isz, passes)
+    dense = CHANNELS * n * passes * 8 * t
+    epi = CHANNELS * n * EPILOGUE_OPS[name]
+    run_ops = CHANNELS * n * TC.mma_ops(t, d, plan, passes)
+    b_ms, b_by = bound_tc(nb, dense, epi)
+    return b_ms, b_by, text + (
+        f"; tensor cores {dense / FLOPS_BF16_TC * 1e3:.3f} ms dense "
+        f"({passes} passes of 8T), {run_ops / FLOPS_BF16_TC * 1e3:.3f} ms as "
+        f"run (S={plan.S}, {plan.F} frames a tile); epilogue "
+        f"{epi / FLOPS_F32 * 1e3:.3f} ms")
 
 
 def phase_fast_snr(torch, L, x32, smi):
@@ -1905,6 +1974,20 @@ def k6_errs(torch, got, ref, mode, agc):
                float(((got[1] - ref[1]) / ref[1]).abs().max())), AGC_BOUND
 
 
+# K5 at K1b's window start (offset D - 1): (D, T) where K1b stays off the
+# tensor-core route with either plane dtype, as K5 does (D = 1, below every
+# cut; D = 200, above; T = 3,228 at the DDC bank's D = 4, where no
+# tensor-core plan fits), and where it takes that route by dtype.  The
+# shapes of K5_AT_K1B draw from the run's generator, those of
+# K5_AT_K1B_MORE from one of their own (K5_SEED), so that the run's
+# generator reaches the later paths (W1's band among them) at the offset it
+# did before they were added.
+K5_AT_K1B_OFF_TC = ((1, 33), (4, 3228), (200, 263))
+K5_AT_K1B = ((2, 37), (4, 67), (40, 71), (200, 263))
+K5_AT_K1B_MORE = ((1, 33), (4, 3228))
+K5_SEED = 13
+
+
 def phase_mxu_parity(torch, gen):
     """K5 and K6 against their plain versions on the card: strides 2-200,
     taps 17-263, window starts 0, 1, D-2, D-1, D and 2D+1, channels 1, 3
@@ -1913,8 +1996,13 @@ def phase_mxu_parity(torch, gen):
     with and without de-emphasis and am with and without the AGC ((lam,
     1 - lam) and a b of its own), from nonzero y[-1] and IIR states, the
     AGC's exported state too.  Then K5 in its overlap-save form at K1b's
-    window start (offset D-1) against K1b: bit for bit.  Returns the worst
+    window start (offset D-1) against K1b at K5_AT_K1B and K5_AT_K1B_MORE:
+    bit for bit where K1b runs the staged or warp kernel (at
+    K5_AT_K1B_OFF_TC always); where it takes the tensor-core route, K5 and
+    K1b each within REL_BOUND of K1b's plain version and of each other
+    (K1b's bf16 passes against K5's float32 sums).  Returns the worst
     errors."""
+    from libsdr_tpu_torch import _build
     from libsdr_tpu_torch.core.cplx import Complex
     from libsdr_tpu_torch.ops import fir_fm as F
     from libsdr_tpu_torch.ops import fir_mxu as M
@@ -1973,30 +2061,79 @@ def phase_mxu_parity(torch, gen):
                   f"{line['agc']:.2e}")
             for k in worst:
                 worst[k] = max(worst[k], line[k])
+    k5_vs_tc, k5_routes = 0.0, []
+    lib = _build.library()
+    k5_gen = torch.Generator(device="cuda")
+    k5_gen.manual_seed(K5_SEED)
     for dtype in (torch.float32, torch.bfloat16):
-        for d, t in ((2, 37), (4, 67), (40, 71), (200, 263)):
-            taps = Complex(torch.randn(t, generator=gen, device="cuda"),
-                           torch.randn(t, generator=gen, device="cuda"))
-            x = noise(torch, gen, 3, d * 9000, dtype)
-            tail = noise(torch, gen, 3, t - 1, dtype)
+        for g, (d, t) in ([(gen, s) for s in K5_AT_K1B]
+                          + [(k5_gen, s) for s in K5_AT_K1B_MORE]):
+            taps = Complex(torch.randn(t, generator=g, device="cuda"),
+                           torch.randn(t, generator=g, device="cuda"))
+            x = noise(torch, g, 3, d * 9000, dtype)
+            tail = noise(torch, g, 3, t - 1, dtype)
+            name = f"{str(dtype)[6:]} D={d} T={t}"
+            _, route = F._chunks("K1b", lib, F._MODE_FIR, 3, 9000, t, d, 0,
+                                 x.re, cut_mode=F._MODE_FIR)
+            check(route != "tc" or (d, t) not in K5_AT_K1B_OFF_TC,
+                  f"K1b {name} on the tc route")
+            n0 = dict(F.fir_exact.routes)
             a = M.fir_offset(x, taps, d, d - 1, tail)
             k1b = F.fir_exact(x, taps, d, tail)
-            check(torch.equal(a.re, k1b.re) and torch.equal(a.im, k1b.im),
-                  f"K5 at offset D-1 != K1b ({dtype}, D={d}, T={t})")
+            check(F.fir_exact.routes[route] == n0[route] + 1,
+                  f"K1b {name}: not on the {route} route")
+            if route == "tc":
+                # K1b's bf16 passes against K5's float32 sums: each within
+                # the FIR gate of K1b's plain version, and of each other
+                ref = F.fir_exact_plain(x, taps, d, tail)
+                for label, got, want in (("K5", a, ref), ("K1b", k1b, ref),
+                                         ("K5 vs K1b", a, k1b)):
+                    scale = float(torch.maximum(want.re.abs().max(),
+                                                want.im.abs().max()))
+                    e = max(float((got.re - want.re).abs().max()),
+                            float((got.im - want.im).abs().max())) / scale
+                    check(e < REL_BOUND, f"{label} at K1b's window start "
+                          f"on the tc route vs plain ({name}): {e}")
+                    k5_vs_tc = max(k5_vs_tc, e)
+            else:
+                check(torch.equal(a.re, k1b.re)
+                      and torch.equal(a.im, k1b.im),
+                      f"K5 at offset D-1 != K1b ({name})")
+            k5_routes.append(f"{str(dtype)[6:]} D={d} T={t}: {route}")
     print(f"parity K5/K6: {cases} cases, worst K5 {worst['fir_mxu']:.3e} of "
           f"max |y| (bound {REL_BOUND:g}), K6 fm {worst['fm']:.3e} rad "
           f"(bound {ERR_BOUND:g}), am {worst['am']:.3e} (bound "
           f"{REL_BOUND:g}), AGC {worst['agc']:.3e} (bound {AGC_BOUND:g}); "
-          "K5 at offset D-1 == K1b bit for bit (D 2, 4, 40, 200)")
+          "K5 at offset D-1 == K1b bit for bit where K1b runs the staged or "
+          f"warp kernel (always at {K5_AT_K1B_OFF_TC}), K5 and K1b within "
+          f"{k5_vs_tc:.2e} of max |y| of K1b's plain version and of each "
+          f"other where it takes the tc route (K1b by route: "
+          f"{', '.join(k5_routes)})")
     return worst, cases
 
 
-# The tc route's strides (csrc/fir_common.cuh::tc_min_d, tc_max_d): K1a's
+# The tc route's strides (csrc/fir_common.cuh::tc_stride): K1a's
 # (D, T) with T = order + D - 1 (the P2 bank's D = 10, T = 41 among them),
 # K6's (D, T, s0, C), by plane dtype.
 TC_K1A_SHAPES = {"float32": ((4, 67), (5, 68), (8, 67), (10, 41), (16, 47)),
                  "bfloat16": ((4, 67), (5, 68), (8, 67), (10, 41), (16, 47),
                               (24, 55), (40, 71))}
+# K1b (mode fir) and K1c (mode am, +- the AGC) on the route, by mode and
+# plane dtype: (D, T, C) at both ends of their cuts and inside them (with
+# float32 planes fir 2-40 and am 13-40, each with gaps; 2-40 with
+# bfloat16), the DDC bank's D = 4, T = 67 and the AM bank's D = 40, T = 71
+# among them
+K1BC_SEED = 12
+TC_K1BC_SHAPES = {
+    ("fir", "float32"): ((2, 65, 3), (4, 67, 64), (5, 68, 3), (7, 70, 3),
+                         (10, 73, 3), (20, 83, 1), (33, 96, 1),
+                         (40, 103, 1)),
+    ("fir", "bfloat16"): ((2, 65, 3), (4, 67, 64), (24, 87, 3),
+                          (40, 103, 1)),
+    ("am", "float32"): ((13, 44, 3), (16, 47, 3), (20, 51, 1), (33, 64, 1),
+                        (40, 71, 64)),
+    ("am", "bfloat16"): ((2, 33, 3), (4, 35, 64), (40, 71, 64),
+                         (40, 71, 1))}
 TC_K6_SHAPES = {"float32": ((4, 67, 1, 64), (4, 67, 0, 3), (4, 67, 4, 1),
                             (8, 67, 9, 3), (16, 67, 9, 3)),
                 "bfloat16": ((4, 67, 1, 64), (4, 67, 0, 3), (8, 67, 9, 3),
@@ -2014,16 +2151,25 @@ def phase_tc_parity(torch, L, gen):
     at 'high' against the plain version within ERR_BOUND; every launch on
     the tc route.  Then K6 (fir_fm_mxu, TC_K6_SHAPES) at window starts 0-9
     in fm with and
-    without de-emphasis and am with and without the AGC, the same way.
-    Returns the worst errors and the case count."""
+    without de-emphasis and am with and without the AGC, the same way;
+    then K1b (fir_exact) and K1c (fir_am_exact, +- the AGC) at
+    TC_K1BC_SHAPES (tools/k1_parity.py's tc_case: against the split
+    emulation within TC_SPLIT_REL and the plain version under REL_BOUND or
+    AGC_BOUND).  Returns the worst errors and the case count."""
     from libsdr_tpu_torch.core.cplx import Complex
     from libsdr_tpu_torch.ops import fir_mxu as M
     from libsdr_tpu_torch.ops import fir_tc as TC
     from libsdr_tpu_torch.ops.fir import set_mxu_precision
+    from libsdr_tpu_torch.tools.k1_parity import tc_case as k1_tc_case
 
     worst = dict.fromkeys(("k1a split", "k1a plain", "k6 split",
-                           "k6 plain"), 0.0)
+                           "k6 plain", "k1bc split", "k1bc plain"), 0.0)
     cases = 0
+    # K1b/K1c's cases draw from a generator of their own, so that the run's
+    # generator reaches the later paths (W1's band among them: its margin,
+    # PERF.md §6) at the offset it did before they were added
+    k1bc_gen = torch.Generator(device="cuda")
+    k1bc_gen.manual_seed(K1BC_SEED)
     try:
         for fast in (False, True):
             set_mxu_precision("fast" if fast else "high")
@@ -2092,6 +2238,27 @@ def phase_tc_parity(torch, L, gen):
                           f"s0={s0} C={c} passes={passes} (vs split / vs "
                           f"plain): " + ", ".join(line))
                     del x, fm
+                for mode, agcs in (("fir", (False,)),
+                                   ("am", (False, True))):
+                    for d, t, c in TC_K1BC_SHAPES[mode, str(dtype)[6:]]:
+                        line = []
+                        for agc in agcs:
+                            try:
+                                es, ep = k1_tc_case(k1bc_gen, mode, agc,
+                                                    dtype, d, t, c)
+                            except AssertionError as e:
+                                raise SmokeFailure(f"tc K1b/K1c {e}")
+                            worst["k1bc split"] = max(worst["k1bc split"],
+                                                      es)
+                            worst["k1bc plain"] = max(worst["k1bc plain"],
+                                                      ep)
+                            line.append(f"{'agc' if agc else 'no agc'} "
+                                        f"{es:.1e}/{ep:.1e}")
+                            cases += 1
+                        print(f"parity tc K1{'b' if mode == 'fir' else 'c'}"
+                              f" {mode} {str(dtype)[6:]} D={d} T={t} C={c} "
+                              f"passes={passes} (vs split / vs plain): "
+                              + ", ".join(line))
     finally:
         set_mxu_precision("high")
     return worst, cases
@@ -2678,7 +2845,10 @@ def main() -> int:
           f"(bound {ERR_BOUND:g}); K6 {tc_worst['k6 split']:.3e} vs split "
           f"(bounds {TC_SPLIT_FM:g} rad fm, {TC_SPLIT_REL:g} am), "
           f"{tc_worst['k6 plain']:.3e} vs plain (bounds {ERR_BOUND:g} rad "
-          f"fm, {REL_BOUND:g} am, {AGC_BOUND:g} AGC)")
+          f"fm, {REL_BOUND:g} am, {AGC_BOUND:g} AGC); K1b/K1c "
+          f"{tc_worst['k1bc split']:.3e} vs split (bound {TC_SPLIT_REL:g}), "
+          f"{tc_worst['k1bc plain']:.3e} vs plain (bounds {REL_BOUND:g}, "
+          f"{AGC_BOUND:g} AGC)")
 
     # Kernel vs plain at the main path's shapes, timed with CUDA events,
     # and on two channels against the split emulation of the tc route, at
@@ -2819,24 +2989,33 @@ def main() -> int:
                    launches=launches, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=None)]
-    # at the banks' strides K1b (D = 4) runs the staged kernel, K1c (D = 40)
-    # and K1d (D = 80) the warp kernel and the AGC passes (agc.cu)
-    for name, src in (("fir_exact", "fir_fm_exact.cu"),
-                      ("fir_am_exact", "fir_warp.cu"),
-                      ("fir_usb_exact", "fir_warp.cu")):
-        res, _, n_launch, d, b, t = banks[name]
-        err, ms, plain_ms = res["f32"]
-        n = b // d
-        out_bytes = 8 * n if name == "fir_exact" else 16 * n
-        b_ms, b_by = bound(CHANNELS * (8 * b + out_bytes),
-                           CHANNELS * n * (8 * t + 20))
-        record.append(dict(
-            name=name, route="cuda", source=f"libsdr_tpu_torch/csrc/{src}",
-            replaces="libsdr_tpu/ops/pallas_fir_mxu.py:777",
-            launches=n_launch, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=banks["library_fir_exact"] if name == "fir_exact"
-            else None))
+    # The banks' kernels, each on the route its shape takes by plane dtype
+    # (BANK_ROUTES: K1b and K1c on the tc route, K1d on the warp kernel;
+    # K1c and K1d with the AGC passes of agc.cu), each bound computed once
+    # (bank_bound) for its bound line and its record: the keys of float32
+    # planes, and bf16_* those of bfloat16 planes.
+    for label, name in (("K1b DDC bank", "fir_exact"),
+                        ("K1c AM bank", "fir_am_exact"),
+                        ("K1d USB bank", "fir_usb_exact")):
+        res, _, n_launch, d, b, t, routes = banks[name]
+        row = dict(name=name, route="cuda",
+                   replaces="libsdr_tpu/ops/pallas_fir_mxu.py:777",
+                   launches=n_launch,
+                   library_ms=banks["library_fir_exact"]
+                   if name == "fir_exact" else None)
+        for plane, isz in (("f32", 4), ("bf16", 2)):
+            err, ms, plain_ms = res[plane]
+            r = routes[plane]
+            b_ms, b_by, text = bank_bound(TC, name, r, isz, b, d, t)
+            print(f"bound {label} {r} route {plane} planes: {text}; kernel "
+                  f"{ms:.3f} ms")
+            pre = "" if plane == "f32" else "bf16_"
+            row.update({
+                pre + "source": f"libsdr_tpu_torch/csrc/{ROUTE_SOURCES[r]}",
+                pre + "kernel_route": r, pre + "max_abs_err": err,
+                pre + "ms": ms, pre + "plain_ms": plain_ms,
+                pre + "bound_ms": b_ms, pre + "bound_by": b_by})
+        record.append(row)
     # K1e at P1 on the tc route (kernel_route: the routes its launches took)
     err, ms, plain_ms, (b_ms, b_by) = p1["f32"]["k1e"]
     record.append(dict(

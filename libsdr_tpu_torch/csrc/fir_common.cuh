@@ -112,37 +112,73 @@ inline int staged_max_d(int mode) {
 #endif
 }
 
-// The strides that take the tensor-core kernel (fir_tc.cu) in the modes
-// and entries that have it (kFm of K1 and K6, kAm of K6, kAfsk of K1):
-// tc_min_d(mode) up to tc_max_d(bf16), by plane dtype.  kFm's (and
-// K6's kAm's) were set from the three kernels timed in mode fm at
-// D = 2..40 on an H100 (libsdr_tpu_torch/tools/fir_paths.py, PERF.md):
-// with bfloat16 planes it is the fastest at every stride from 4 to 40;
-// with float32 planes, whose three passes and hi/lo conversion cost it
-// more, it ties or wins from 4 to 16 and loses above; below 4 the staged
-// kernel's outputs are cheaper than its per-output epilogue and MMAs.
-// kAfsk's from the same comparison in mode afsk (fir_paths.py --modes
-// afsk, D = 2..40, the AX.25 bank's 64 ch x 2^21 and L = 40): with
-// bfloat16 planes the tensor-core kernel is the fastest at every stride;
-// with float32 planes it wins from 2 to 16 and loses at 24 and 32 (frames
-// of one output), one range each.  The comparison builds set SDR_TC_MAX_D for
-// every mode and both dtypes (0: no stride on it; a large value: every
-// stride from 1 whose plan fits).
-inline int tc_min_d(int mode) {
-#ifdef SDR_TC_MAX_D
-  (void)mode;
-  return 1;
-#else
-  return mode == kAfsk ? 2 : 4;
-#endif
+// The strides lo..hi as a set: bit D for stride D (D < 64).
+constexpr unsigned long long stride_set(int lo, int hi) {
+  return (1ULL << (hi + 1)) - (1ULL << lo);
 }
 
-inline int tc_max_d(int bf16) {
+// The cuts of the tensor-core kernel (fir_tc.cu): the strides that take it,
+// by mode and plane dtype, each set from the three kernels timed in that
+// mode on an H100 (libsdr_tpu_torch/tools/fir_paths.py, PERF.md) against the
+// kernel the stride takes otherwise (the staged kernel up to staged_max_d,
+// the warp kernel above):
+// * kFm (K1a; K6's cut for both its modes), D = 2..40, 64 ch x
+//   2^24, T = 32 + D - 1: with bfloat16 planes the tensor-core kernel is
+//   the fastest at every stride from 4 to 40; with float32 planes, whose
+//   three passes and hi/lo conversion cost it more, it ties or wins from 4
+//   to 16 and loses above; below 4 the staged kernel's outputs are cheaper
+//   than its per-output epilogue and MMAs.
+// * kAfsk (K1e), D = 2..40, the AX.25 bank's 64 ch x 2^21 and L =
+//   40: with bfloat16 planes the fastest at every stride; with float32
+//   planes it wins from 2 to 16 and loses at 24 and 32 (frames of one
+//   output).
+// * kFir (K1b), 64 ch x 2^24, T = 64 + D - 1, and kAm with the AGC (K1c),
+//   the AM bank's 64 ch x 16,777,200, T = 32 + D - 1, at every stride D =
+//   2..40, each kernel timed twice: a stride is in the cut where both of
+//   the tensor-core kernel's times are below both of the other's.  With
+//   bfloat16 planes that is every stride in both modes (at the DDC bank's
+//   D = 4, 3.31 ms against the staged kernel's 7.06; at the AM bank's D =
+//   40, 2.11 against the warp kernel's 5.43).  With float32 planes its
+//   time follows its plan's tile (ops/fir_tc.py::tc_plan) more than the
+//   stride: it loses where a tile holds few outputs for the three passes
+//   and the conversion (64-128 at D = 24, 32 and 34-39) and at D = 3, 6, 8,
+//   9 and 12, where the staged kernel is cheap (kFir at D = 8: 4.25 ms
+//   against 4.10), and in mode kAm, whose staged epilogue is cheaper, at
+//   every stride up to 12; it wins at every other stride (the DDC bank's
+//   D = 4: 4.56 against 5.26 ms; the AM bank's D = 40: 4.59 against 4.92).
+constexpr unsigned long long kTcFirF32 =
+    stride_set(2, 40) & ~(stride_set(3, 3) | stride_set(6, 6) |
+                          stride_set(8, 9) | stride_set(12, 12) |
+                          stride_set(24, 24) | stride_set(32, 32) |
+                          stride_set(34, 39));
+constexpr unsigned long long kTcAmF32 =
+    stride_set(13, 40) & ~(stride_set(32, 32) | stride_set(34, 39));
+
+// Whether stride D takes the tensor-core kernel in the cut of `mode` with
+// bf16 (or float32) planes.  The comparison builds set SDR_TC_MAX_D for
+// every mode and both dtypes (0: no stride on it; a large value: every
+// stride whose plan fits).
+inline bool tc_stride(int mode, int bf16, int D) {
 #ifdef SDR_TC_MAX_D
+  (void)mode;
   (void)bf16;
-  return SDR_TC_MAX_D;
+  return D <= SDR_TC_MAX_D;
 #else
-  return bf16 ? 40 : 16;
+  unsigned long long set;
+  switch (mode) {
+    case kFir:
+      set = bf16 ? stride_set(2, 40) : kTcFirF32;
+      break;
+    case kAm:
+      set = bf16 ? stride_set(2, 40) : kTcAmF32;
+      break;
+    case kAfsk:
+      set = stride_set(2, bf16 ? 40 : 16);
+      break;
+    default:  // kFm
+      set = stride_set(4, bf16 ? 40 : 16);
+  }
+  return D >= 1 && D < 64 && (set >> D & 1);
 #endif
 }
 
@@ -449,7 +485,7 @@ int warp_launch(int mode, const Params& p, long long C, int bf16,
 // p.ends holds each chunk's last output.
 int deemph_chunks_launch(const Params& p, long long C, cudaStream_t stream);
 
-// The tensor-core kernel (fir_tc.cu) for kFm, K6's kAm and kAfsk: whether
+// The tensor-core kernel (fir_tc.cu) for kFm, kFir, kAm and kAfsk: whether
 // a plan of it fits the card's shared memory at this shape (passes: 1 for
 // 'fast', else 3 for float32 planes and 2 for bfloat16; L: kAfsk's window,
 // 0 in the other modes), the chunks per channel for C channels (-2 -

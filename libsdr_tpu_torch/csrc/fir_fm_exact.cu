@@ -34,12 +34,14 @@
 // 67 TFLOP/s f32 the two bounds are close at D = 4, so neither can be
 // ignored; at the rx app's strides (D >= 40, T/D < 2) HBM bounds it.
 //
-// Three kernels share the work by shape (route_of below): modes kFm and
-// kAfsk of K1, kFm and kAm of K6, take the tensor-core kernel of fir_tc.cu
-// at the strides of its cut (fir_common.cuh: tc_min_d, tc_max_d); every
-// other launch takes the staged kernel below at strides up to
-// staged_max_d(mode) and the warp kernel of fir_warp.cu above, which
-// stages a few windows per warp instead of D polyphase rows per block.
+// Three kernels share the work by shape (route_of below): modes kFm, kFir,
+// kAm and kAfsk of K1 (every mode but kUsb), kFm and kAm of K6, take the
+// tensor-core kernel of fir_tc.cu at the strides of its cut
+// (fir_common.cuh: tc_stride); every other launch (K1's kUsb, K5, and
+// strides or tap counts outside the cut) takes the staged kernel below at
+// strides up to staged_max_d(mode) and the warp kernel of fir_warp.cu
+// above, which stages a few windows per warp instead of D polyphase rows
+// per block.
 //
 // Design of the staged kernel:
 // * Each channel's B/D outputs are cut into K chunks, K from the occupancy
@@ -638,15 +640,15 @@ bool bad_iir(int mode, int iir, long long n_out, long long C, int K,
   return true;
 }
 
-// The kernel that runs a launch, by shape alone.  tc says whether the
-// entry's mode has the tensor-core kernel (K1's kFm and kAfsk, K6's kFm and
-// kAm): then strides from tc_min_d(mode) to tc_max_d(bf16) take it
-// where its plan fits in shared memory (kAfsk's with its window L); every
-// other launch takes the staged kernel up to staged_max_d and the warp
-// kernel above.
-int route_of(int mode, int tc, int T, int D, int L, int bf16, int fast,
+// The kernel that runs a launch, by shape alone.  cut_mode is the mode
+// whose cut of the tensor-core kernel the entry takes (K1 its own mode but
+// kUsb, K6 kFm for both its modes kFm and kAm), or -1 for none (K1's kUsb,
+// K5): strides in that cut (tc_stride) take it where its plan fits in
+// shared memory (kAfsk's with its window L); every other launch takes the
+// staged kernel up to staged_max_d and the warp kernel above.
+int route_of(int mode, int cut_mode, int T, int D, int L, int bf16, int fast,
              int smem_max, int smem_sm) {
-  if (tc && D >= tc_min_d(mode) && D <= tc_max_d(bf16) &&
+  if (cut_mode >= 0 && tc_stride(cut_mode, bf16, D) &&
       tc_fits(T, D, mode == kAfsk ? L : 0, bf16, fast, smem_max, smem_sm)) {
     return kRouteTc;
   }
@@ -654,9 +656,9 @@ int route_of(int mode, int tc, int T, int D, int L, int bf16, int fast,
 }
 
 // Launches the FIR kernel of the shape's route for one mode.
-int launch(int mode, int tc, const Params& p, long long C, int bf16,
+int launch(int mode, int cut_mode, const Params& p, long long C, int bf16,
            int fast, cudaStream_t stream, int smem_max, int smem_sm) {
-  switch (route_of(mode, tc, p.T, p.D, p.L, bf16, fast, smem_max,
+  switch (route_of(mode, cut_mode, p.T, p.D, p.L, bf16, fast, smem_max,
                    smem_sm)) {
     case kRouteTc:
       return tc_launch(mode, p, C, bf16, fast, stream, smem_max, smem_sm);
@@ -668,11 +670,11 @@ int launch(int mode, int tc, const Params& p, long long C, int bf16,
 
 // One mode on one block: the FIR kernel with its epilogue, then mode kFm's
 // de-emphasis across chunks, or the AGC of modes kAm and kUsb (lam = a, b)
-// from s_in into s_out.  p holds the operands and the window form; tc and
-// fast are route_of's.
-int run(int mode, int tc, Params p, long long C, int K, int K_agc, float gain,
-        const float* s_in, float* s_out, float* ends, double a, double b,
-        int iir, int fast, int bf16, void* stream) {
+// from s_in into s_out.  p holds the operands and the window form; cut_mode
+// and fast are route_of's.
+int run(int mode, int cut_mode, Params p, long long C, int K, int K_agc,
+        float gain, const float* s_in, float* s_out, float* ends, double a,
+        double b, int iir, int fast, int bf16, void* stream) {
   int smem_max = 0, smem_sm = 0, sms = 0;
   int e = device_limits(&smem_max, &smem_sm, &sms);
   if (e != 0) return e;
@@ -687,7 +689,7 @@ int run(int mode, int tc, Params p, long long C, int K, int K_agc, float gain,
   p.b = (float)b;
   p.deemph = mode == kFm && iir;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  e = launch(mode, tc, p, C, bf16, fast, s, smem_max, smem_sm);
+  e = launch(mode, cut_mode, p, C, bf16, fast, s, smem_max, smem_sm);
   if (e != 0 || !iir) return e;
   if (agc) {
     return agc_launch(p.out, s_in, s_out, ends, C, n_out, K_agc, a, b, gain,
@@ -715,11 +717,12 @@ extern "C" {
 
 // Chunks per channel for a launch of `mode` with n_out outputs a channel:
 // as many as fill the resident block slots of the card in one wave, with a
-// least chunk length per route.  tc and fast as for route_of; *route gets
-// the route (kRouteStaged, kRouteWarp or kRouteTc).  Returns K >= 1, -1 if
-// the shape is outside the kernel's gate, or -2 - cudaError_t.
-int sdr_fir_chunks(int mode, int tc, long long C, long long n_out, int T,
-                   int D, int L, int bf16, int fast, int* route) {
+// least chunk length per route.  cut_mode (-1: none) and fast as for
+// route_of; *route gets the route (kRouteStaged, kRouteWarp or kRouteTc).
+// Returns K >= 1, -1 if the shape is outside the kernel's gate, or
+// -2 - cudaError_t.
+int sdr_fir_chunks(int mode, int cut_mode, long long C, long long n_out,
+                   int T, int D, int L, int bf16, int fast, int* route) {
   if (bad_shape(C, n_out, T, D) || mode < kFm || mode > kAfsk ||
       (mode == kAfsk && (L < 2 || L > kAfskMaxL))) {
     return -1;
@@ -727,7 +730,8 @@ int sdr_fir_chunks(int mode, int tc, long long C, long long n_out, int T,
   int smem_max = 0, smem_sm = 0, sms = 0, per_sm = 0;
   int e = device_limits(&smem_max, &smem_sm, &sms);
   if (e != 0) return -2 - e;
-  const int r = route_of(mode, tc, T, D, L, bf16, fast, smem_max, smem_sm);
+  const int r =
+      route_of(mode, cut_mode, T, D, L, bf16, fast, smem_max, smem_sm);
   if (route) *route = r;
   if (r == kRouteTc) {
     return tc_chunks(mode, C, n_out, T, D, mode == kAfsk ? L : 0, bf16, fast,
@@ -763,9 +767,10 @@ int sdr_agc_chunks(long long C, long long n_out) {
 // mode:
 //   kFm   prev_r/prev_i (C,) is y[-1] and ylast_r/ylast_i (C,) get y[B/D-1];
 //         with iir != 0 the de-emphasis out = a*out[-1] + b*audio runs from
-//         s_in (C,), with ends (C, K) scratch when K > 1; it takes the
-//         tensor-core kernel where route_of says so, in one bf16 pass when
-//         fast != 0 (set_mxu_precision('fast')), else f32-accurate;
+//         s_in (C,), with ends (C, K) scratch when K > 1;
+//   kFm, kFir, kAm and kAfsk take the tensor-core kernel where route_of
+//         says so, in one bf16 pass when fast != 0
+//         (set_mxu_precision('fast')), else f32-accurate;
 //   kUsb  ramp_r/ramp_i are (B/D,) and ph_r/ph_i point at one float each;
 //   kAm, kUsb with iir != 0: the AGC with lam = a (and 1 - lam; b is not
 //         read) from s_in (C,) into s_out (C,), ends (C, K_agc) scratch; out
@@ -834,8 +839,9 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
   }
   // the AGC of K1 is lam's own: b = 1 - lam
   const bool agc = mode == kAm || mode == kUsb;
-  return run(mode, mode == kFm || mode == kAfsk, p, C, K, K_agc, gain, s_in,
-             s_out, ends, a, agc ? 1.0 - a : b, iir, fast, bf16, stream);
+  return run(mode, mode == kUsb ? -1 : mode, p, C, K, K_agc, gain,
+             s_in, s_out, ends, a, agc ? 1.0 - a : b, iir, fast, bf16,
+             stream);
 }
 
 // K5: the complex FIR alone (out, out_i: the planes of y, (C, n_out)) with
@@ -868,8 +874,8 @@ int sdr_fir_mxu(const void* xr, const void* xi, const void* tail_r,
   p.wrap = wrap;
   p.T = T;
   p.D = D;
-  return run(kFir, 0, p, C, K, 0, 1.f, nullptr, nullptr, nullptr, 0.0, 0.0,
-             0, 0, bf16, stream);
+  return run(kFir, -1, p, C, K, 0, 1.f, nullptr, nullptr, nullptr, 0.0,
+             0.0, 0, 0, bf16, stream);
 }
 
 // K6: the v1 FIR with windows from x[s0 + j*D], s0 >= 0, over a block of
@@ -916,7 +922,7 @@ int sdr_fir_fm_mxu(int mode, const void* xr, const void* xi,
   p.D = D;
   p.rot_r = rot_r;
   p.rot_i = rot_i;
-  return run(mode, 1, p, C, K, K_agc, gain, s_in, s_out, ends, a, b, iir,
+  return run(mode, kFm, p, C, K, K_agc, gain, s_in, s_out, ends, a, b, iir,
              fast, bf16, stream);
 }
 

@@ -1,17 +1,18 @@
-// Tensor-core decimating complex FIR with the FM discriminator (+ the
-// de-emphasis, or + the dual-tone FSK correlator) or the AM envelope: the
-// route of mode kFm (K1a, entry sdr_fir_exact; K6 fm, entry
-// sdr_fir_fm_mxu), of K1's kAfsk (K1e) and of K6's kAm at strides
-// tc_min_d(mode) to tc_max_d(bf16) (fir_common.cuh).  It computes what the
-// staged kernel of fir_fm_exact.cu computes in those modes, with the same
-// window form (Params: K1's start D - T with the tail, K6's s0 >= 0 and
-// its wrap of 128*D) and the same epilogues.
+// Tensor-core decimating complex FIR, alone or with the FM discriminator
+// (+ the de-emphasis, or + the dual-tone FSK correlator) or the AM envelope:
+// the route of K1's modes kFm (K1a, entry sdr_fir_exact), kFir (K1b), kAm
+// (K1c) and kAfsk (K1e), and of K6's kFm and kAm (entry sdr_fir_fm_mxu), at
+// the strides of its cut (fir_common.cuh: tc_stride).  It computes what
+// the staged kernel of fir_fm_exact.cu computes in those modes, with the
+// same window form (Params: K1's start D - T with the tail, K6's s0 >= 0
+// and its wrap of 128*D) and the same epilogues.  K5 (sdr_fir_mxu: mode
+// kFir from any window start) does not take it.
 //
 // Replaces the TPU kernels libsdr_tpu/ops/pallas_fir_mxu.py::_kernel_fm2
-// (:777, modes 'fm' and 'afsk') and ::_kernel_fm (:410, modes 'fm' and
-// 'am'), and does their arithmetic: the FIR as block-Toeplitz frame
-// matmuls, f32-accurate from a manual split into bf16 passes (_make_mm,
-// :161):
+// (:777, modes 'fm', 'fir', 'am' and 'afsk') and ::_kernel_fm (:410, modes
+// 'fm' and 'am'), and does their arithmetic: the FIR as block-Toeplitz
+// frame matmuls, f32-accurate from a manual split into bf16 passes
+// (_make_mm, :161):
 //
 //   float32 planes  x_hi*g_hi + x_hi*g_lo + x_lo*g_hi    (3 passes)
 //   bfloat16 planes x*g_hi + x*g_lo                      (2 passes: x exact)
@@ -22,13 +23,18 @@
 // What bounds it on an H100, at the main path's shape (64 ch x 2^24, T = 67,
 // D = 4): the bytes, 8 a complex input sample with float32 planes and 4/D
 // of audio an output, 9.66 GB or 2.885 ms at 3.35 TB/s (bf16 planes: 1.603
-// ms).  The staged kernel spends 8T + 50 float32 operations an output on
-// the CUDA cores, 2.3 ms at 67 TFLOP/s, so it cannot reach that bound;
-// here the FIR runs on the tensor cores (bf16 at 989 TFLOP/s dense), about
-// 2,200 operations an output in three passes once the Toeplitz band is
-// skipped, 0.6 ms at peak, and the CUDA cores keep only the conversion and
-// the epilogue.  Measured (PERF.md), it is the block's phases in series
-// that hold it at ~55% of the float32 bound, not the MMAs' arithmetic.
+// ms; kFir writes both planes of y, 8/D: 3.205 ms at the DDC bank's same
+// shape).  The staged kernel spends 8T + 20-50 float32 operations an output
+// on the CUDA cores, 2.2-2.3 ms at 67 TFLOP/s, so it cannot reach that
+// bound; here the FIR runs on the tensor cores (bf16 at 989 TFLOP/s dense),
+// about 2,200 operations an output in three passes once the Toeplitz band
+// is skipped, 0.6 ms at peak, and the CUDA cores keep only the conversion
+// and the epilogue.  Measured (PERF.md), it is the block's phases in series
+// that hold it at ~55% of the float32 bound, not the MMAs' arithmetic.  At
+// the AM bank's D = 40 (T = 71) a tile holds few outputs (shared memory
+// holds each output's 40 samples twice raw and once converted), so the MMAs
+// and the epilogue cost a tenth of D = 4's a sample and the copies and the
+// conversion set the pace.
 //
 // Design:
 // * GEMM rows are frames: S consecutive outputs of one channel.  Row f of a
@@ -63,10 +69,12 @@
 //   the converted span, which the MMAs no longer read), and each thread
 //   runs the staged kernel's discriminator and de-emphasis scan
 //   (fir_common.cuh: fm_audio, DeemphScan) over 4 consecutive outputs, or
-//   gain*|y|, and stores them 16 bytes at a time; the de-emphasis across
-//   chunks and K6's AGC are the same follow-up kernels as the staged
-//   route's.  A later chunk's y[j_begin - 1] is recomputed in the same
-//   passes (warp_y_at<P>).
+//   gain*|y| (kAm), or takes y itself (kFir: both planes, no carry), and
+//   stores them 16 bytes at a time (storing from the mma.sync accumulators
+//   would scatter 8-byte pairs, a lane's rows f and f + 8, across frames);
+//   the de-emphasis across chunks and the AGC of kAm (K1c, K6) are the
+//   same follow-up kernels as the staged route's.  A later chunk's
+//   y[j_begin - 1] is recomputed in the same passes (warp_y_at<P>).
 // * kAfsk (K1e): the discriminator's audio times the tone templates
 //   (float4 in shared memory, the template index stepped a tile at a time)
 //   gives each thread's four products of each tone; their prefix sums go
@@ -83,8 +91,10 @@
 //   parts) that measured 1.07 ms at the AX.25 bank's shape against these
 //   sums' 0.82 (PERF.md), so the CUDA cores keep them.
 // * The plan (S, frames a tile, buffer sizes) depends on T, D, the plane
-//   dtype, the pass count and kAfsk's L only (tc_plan); where none fits in
-//   shared memory, route_of sends the launch to the staged or warp kernel.
+//   dtype, the pass count and kAfsk's L only (tc_plan; kFir and kAm take
+//   kFm's, whose de-emphasis scratch is in the fixed header); where none
+//   fits in shared memory, route_of sends the launch to the staged or warp
+//   kernel.
 //   The kernel allocates nothing and does not synchronise.
 
 #include <stdint.h>
@@ -873,6 +883,9 @@ fir_tc_kernel(const Params p, const TcPlan g) {
         loc[r] = p.gain * sqrtf(yr[r] * yr[r] + yi[r] * yi[r]);
       }
       store4(orow + j0 + jb, loc, nv - jb);
+    } else if constexpr (MODE == kFir) {
+      store4(orow + j0 + jb, yr, nv - jb);
+      store4(p.out_i + c * p.n_out + j0 + jb, yi, nv - jb);
     } else {
       float pr, pi;
       if (jb == 0) {
@@ -961,6 +974,14 @@ TcKernel tc_kernel(int mode, int bf16, int fast) {
                   : fir_tc_kernel<kFm, __nv_bfloat16, 2>;
     }
     return fast ? fir_tc_kernel<kFm, float, 1> : fir_tc_kernel<kFm, float, 3>;
+  }
+  if (mode == kFir) {
+    if (bf16) {
+      return fast ? fir_tc_kernel<kFir, __nv_bfloat16, 1>
+                  : fir_tc_kernel<kFir, __nv_bfloat16, 2>;
+    }
+    return fast ? fir_tc_kernel<kFir, float, 1>
+                : fir_tc_kernel<kFir, float, 3>;
   }
   if (mode == kAm) {
     if (bf16) {

@@ -36,21 +36,30 @@ launches in ``<entry>.launches`` and, by the kernel that ran, in
 Three kernels, by shape (``csrc/fir_common.cuh::route_of``).  Mode fm
 (:func:`fir_fm_exact`) takes the tensor-core kernel (``csrc/fir_tc.cu``) at
 strides 4 to 16 with float32 planes and 4 to 40 with bfloat16 planes, mode
-afsk (:func:`fir_afsk_exact`) at strides 2 to 16 and 2 to 40, where its
-plan fits in shared memory: the FIR as the TPU kernel's frame matmul on
-bf16 tensor cores, f32-accurate in three passes (two for bfloat16 planes;
-one after ``set_mxu_precision('fast')``, ``ops/fir_tc.py``), mode afsk's
-window sums in float32 on the CUDA cores.  Every other launch takes the
-staged kernel at strides up to 40 in modes fm, usb and afsk and up to 16
-in modes fir and am, and the warp-per-output kernel above.  The cuts are
-where the kernels' times on an H100 cross (``tools/fir_paths.py``; PERF.md):
-mode fm at D = 2..40, 64 ch x 2^24, T = 32 + D - 1: at D = 4 the
-tensor-core kernel takes 4.5 ms against the staged kernel's 5.9 with
-float32 planes and 3.5 against 5.5 with bfloat16; it loses at D = 3, and
-with float32 planes at D = 24 and 32 (7.9 against 6.6 ms at 24).  Mode
-afsk at D = 2..40, 64 ch x 2^21, T = 48 + D - 1, L = 40: at D = 4 0.83
-against 1.20 ms with float32 planes and 0.70 against 1.25 with bfloat16;
-with float32 planes it loses at D = 24 and 32.
+afsk (:func:`fir_afsk_exact`) at strides 2 to 16 and 2 to 40, mode fir
+(:func:`fir_exact`) at 4 to 20 and 2 to 40, mode am (:func:`fir_am_exact`)
+at 16 to 40 and 2 to 40, where its plan fits in shared memory: the FIR as
+the TPU kernel's frame matmul on bf16 tensor cores, f32-accurate in three
+passes (two for bfloat16 planes; one after ``set_mxu_precision('fast')``,
+``ops/fir_tc.py``), mode afsk's window sums in float32 on the CUDA cores,
+mode am's AGC in the same follow-up passes as on the other kernels.
+Every other launch (mode usb always) takes the staged kernel at strides up
+to 40 in modes fm, usb and afsk and up to 16 in modes fir and am, and the
+warp-per-output kernel above.  The cuts are where the kernels' times on an
+H100 cross (``tools/fir_paths.py``; PERF.md): mode fm at D = 2..40, 64 ch
+x 2^24, T = 32 + D - 1: at D = 4 the tensor-core kernel takes 4.5 ms
+against the staged kernel's 5.9 with float32 planes and 3.5 against 5.5
+with bfloat16; it loses at D = 3, and with float32 planes at D = 24 and 32
+(7.9 against 6.6 ms at 24).  Mode afsk at D = 2..40, 64 ch x 2^21, T = 48
++ D - 1, L = 40: at D = 4 0.83 against 1.20 ms with float32 planes and
+0.70 against 1.25 with bfloat16; with float32 planes it loses at D = 24
+and 32.  Mode fir at D = 2..40, 64 ch x 2^24, T = 64 + D - 1: at the DDC
+bank's D = 4, 4.53 against 5.26 ms with float32 planes and 3.33 against
+7.06 with bfloat16; with float32 planes it loses at D = 3, 8, 24 and 32.
+Mode am with the AGC at D = 2..40, 64 ch x 16,777,200, T = 32 + D - 1: at
+the AM bank's D = 40, 4.60 against the warp kernel's 4.92 ms with float32
+planes and 2.13 against 5.46 with bfloat16; with float32 planes it loses
+below 16.
 
 Chunks.  Each channel's B/D outputs are cut into K chunks, K as large as the
 card's resident slots allow in one wave, and each chunk is one block of the
@@ -345,7 +354,7 @@ for _entry in (fir_fm_exact, fir_exact, fir_am_exact, fir_usb_exact,
                fir_afsk_exact):
     reset_counts(_entry)
 
-# The C interface's modes (csrc/fir_common.cuh).
+# The C interface's modes (csrc/fir_common.cuh: Mode).
 _MODE_FM, _MODE_FIR, _MODE_AM, _MODE_USB, _MODE_AFSK = 0, 1, 2, 3, 4
 
 
@@ -402,13 +411,14 @@ def _small(name, dev):
     return small
 
 
-def _chunks(name, lib, mode, c, n_out, t, d, ell, xr, tc=False):
+def _chunks(name, lib, mode, c, n_out, t, d, ell, xr, cut_mode=-1):
     """(K, route name) for a launch of n_out outputs a channel, or
-    ValueError outside the gate; ``tc``: whether the entry's mode has the
-    tensor-core kernel."""
+    ValueError outside the gate; ``cut_mode``: the mode whose cut of the
+    tensor-core kernel the entry takes, -1 for none
+    (csrc/fir_fm_exact.cu::route_of)."""
     route = ctypes.c_int(-1)
     with torch.cuda.device(xr.device):
-        k = lib.sdr_fir_chunks(mode, int(tc), c, n_out, t, d, ell,
+        k = lib.sdr_fir_chunks(mode, cut_mode, c, n_out, t, d, ell,
                                int(xr.dtype == torch.bfloat16), _fast(),
                                ctypes.byref(route))
     if k == -1:
@@ -512,7 +522,7 @@ def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
             tpl + [n0] + u_in + u_out)])
     lib = _build.library()
     k, route = _chunks(name, lib, mode, c, n, t, d, ell, xr,
-                       tc=mode in (_MODE_FM, _MODE_AFSK))
+                       cut_mode=-1 if mode == _MODE_USB else mode)
     out = empty(c, n)
     out_i = empty(c, n) if mode == _MODE_FIR else None
     a, bc, s_in, s_out, ends, k_agc = _iir_operands(

@@ -35,9 +35,9 @@ kernel with the caller's window start (C entries ``sdr_fir_mxu`` and
 ``ValueError`` naming the limit it is outside.  K5 runs the staged or warp
 kernel of ``csrc/fir_fm_exact.cu`` and ``csrc/fir_warp.cu``; K6, in both
 modes, the tensor-core kernel of ``csrc/fir_tc.cu`` at the strides of
-``ops/fir_fm.py``'s cut where its plan fits (``ops/fir_tc.py``; one bf16
-pass after
-``set_mxu_precision('fast')``), else the same two.  K5's launches, from
+mode fm's cut in ``ops/fir_fm.py`` where its plan fits
+(``ops/fir_tc.py``; one bf16 pass after ``set_mxu_precision('fast')``),
+else the same two.  K5's launches, from
 :func:`fir_mxu` and :func:`fir_offset`, count in ``fir_mxu.launches``;
 K6's in ``fir_fm_mxu.launches``; both by route in ``.routes``.
 
@@ -292,7 +292,8 @@ def fir_fm_mxu(x: Complex, taps, stride: int, offset: int,
         pi = small(lead_last.im.reshape(c), torch.float32, (c,))
         ylr, yli = empty(c), empty(c)   # y[n_out - 1]: not returned
     lib = _build.library()
-    k, route = _chunks(name, lib, kmode, c, n_out, t, d, 0, xr, tc=True)
+    k, route = _chunks(name, lib, kmode, c, n_out, t, d, 0, xr,
+                       cut_mode=_MODE_FM)
     out = empty(c, n_out)
     a, bc, s_in, s_out, ends, k_agc = _iir_operands(
         name, lib, kmode, c, n_out, k, deemph_ab,

@@ -1,11 +1,13 @@
-"""The tensor-core route of the FM-mode FIR (``csrc/fir_tc.cu``): its layout
-and a plain emulation of its arithmetic.
+"""The tensor-core route of the decimating FIR (``csrc/fir_tc.cu``): its
+layout and a plain emulation of its arithmetic.
 
-K1a (``ops/fir_fm.fir_fm_exact``) and K6 (``ops/fir_mxu.fir_fm_mxu``, modes
-'fm' and 'am') launch the tensor-core kernel at strides 4 to 16 with
+K1a (``ops/fir_fm.fir_fm_exact``) and K6 (``ops/fir_mxu.fir_fm_mxu``,
+modes 'fm' and 'am') launch the tensor-core kernel at strides 4 to 16 with
 float32 planes and 4 to 40 with bfloat16 planes, K1e
-(``ops/fir_fm.fir_afsk_exact``) at strides 2 to 16 and 2 to 40, where its
-plan fits in shared memory (``csrc/fir_common.cuh::route_of``); this module
+(``ops/fir_fm.fir_afsk_exact``) at 2 to 16 and 2 to 40, K1b
+(``fir_exact``) at 4 to 20 and 2 to 40, K1c (``fir_am_exact``) at 16 to
+40 and 2 to 40, where its plan fits in shared memory
+(``csrc/fir_common.cuh::route_of``); this module
 holds what that kernel's arithmetic and layout are, in plain PyTorch, so
 that the CPU tests reach them:
 
@@ -21,8 +23,9 @@ that the CPU tests reach them:
   span, real and imaginary planes side by side;
 * :func:`fir_y_split`: y as the kernel computes it, the frame GEMM in 3, 2
   or 1 bf16 passes with float32 sums (``passes=None``: one float32 GEMM),
-  and :func:`fm_exact_split` / :func:`fm_mxu_split`, K1a's and K6's
-  results with it;
+  and :func:`fm_exact_split`, :func:`fir_exact_split`,
+  :func:`am_exact_split` / :func:`fm_mxu_split`, the results of K1a, K1b,
+  K1c and K6 with it;
 * mode afsk's correlator: :func:`blocked_sums` (the window sums in
   float32, blocked by the epilogue's four outputs a thread) and
   :func:`afsk_exact_split`, K1e's results, chunk by chunk from each
@@ -281,6 +284,40 @@ def fm_exact_split(x: Complex, taps, stride: int, tail: Complex,
     y = fir_y_split(span_k1(x, tail, d), taps, d, x.re.shape[-1] // d,
                     passes)
     return _fm_plain(y, prev, rot, gain, deemph_ab, dstate), y[..., -1]
+
+
+def fir_exact_split(x: Complex, taps, stride: int, tail: Complex,
+                    passes: int = 3, chunks: int = 1) -> Complex:
+    """K1b (``fir_exact``, mode fir) as the tensor-core kernel computes it,
+    with the same arguments and result, Complex (C, B/D) y: each of
+    ``chunks`` chunks of the block's outputs (ceil(n/chunks) each, the
+    kernel's cut) from its own frame grid, frames of the plan's S outputs
+    for the plane dtype and pass count, in ``passes`` bf16 passes
+    (:func:`fir_y_split`).  No state crosses a chunk: y needs only the
+    window."""
+    d = int(stride)
+    n = x.re.shape[-1] // d
+    t = _n_taps(taps)
+    plan = tc_plan(t, d, x.re.element_size(), passes)
+    s = plan.S if plan is not None else 8
+    span = span_k1(x, tail, d)
+    chunk = -(-n // chunks)
+    return cplx.concatenate(
+        [fir_y_split(span[..., k * d:], taps, d, min(n, k + chunk) - k,
+                     passes, s=s) for k in range(0, n, chunk)], axis=-1)
+
+
+def am_exact_split(x: Complex, taps, stride: int, tail: Complex,
+                   gain: float, agc_ab=None, sd=None, passes: int = 3,
+                   chunks: int = 1):
+    """K1c (``fir_am_exact``, mode am) as the tensor-core kernel computes
+    it, with the same arguments and results: ``gain * |y|``, or with the
+    AGC (its follow-up passes, ``csrc/agc.cu``, as the plain version runs
+    them) ``gain * |y| / sd`` and the last sd; (out, sd_last or None)."""
+    from libsdr_tpu_torch.ops.fir_fm import _agc_plain
+
+    y = fir_exact_split(x, taps, stride, tail, passes, chunks)
+    return _agc_plain(y.abs(), gain, agc_ab, sd)
 
 
 def fm_mxu_split(x: Complex, taps, stride: int, offset: int,

@@ -8,17 +8,19 @@ stride by stride.
 Needs one CUDA card and nvcc.  Builds the kernel library three times, in
 parallel: with every stride on the staged kernel (``SDR_STAGED_MAX_D``
 large, ``SDR_TC_MAX_D=0``), with every stride on the warp kernel
-(``SDR_STAGED_MAX_D=0``, ``SDR_TC_MAX_D=0``) and, for modes fm and afsk,
-with every stride whose plan fits on the tensor-core kernel
-(``SDR_TC_MAX_D`` large).  Then, for every mode (fm with de-emphasis, fir, am and usb with the AGC,
-afsk with a 40-sample correlator), stride D and plane dtype, on C channels
+(``SDR_STAGED_MAX_D=0``, ``SDR_TC_MAX_D=0``) and, for the modes of K1
+with a tensor-core route (fm, fir, am and afsk: every mode but usb), with
+every stride whose plan fits on the tensor-core kernel (``SDR_TC_MAX_D``
+large).  Then, for every mode (fm with de-emphasis, fir, am and usb with
+the AGC, afsk with a 40-sample correlator), stride D and plane dtype, on C
+channels
 of about ``--block`` samples with T = order + D - 1 taps (the rx chains'
 orders: 32 for fm and am, 64 for fir and usb; the AX.25 bank's 48 for
 afsk), it holds the staged and the warp kernel against the plain
 version twice: from the op's initial carry ("cold": block 0, zero
 history) and from a warm carry (block 1, after the plain version ran
 block 0).  It times each kernel on block 1 with CUDA events, in the order
-staged, warp, tc, tc, warp, staged (tc in modes fm and afsk only).  Each result
+staged, warp, tc, tc, warp, staged (tc in the modes of TC_MODES).  Each result
 names the route its launches took.  One line per case, and all of them as
 JSON in ``--out``.
 
@@ -49,7 +51,7 @@ AFSK_L = 40   # the correlator window of mode afsk (the AX.25 bank's)
 VARIANTS = {"staged": ("SDR_STAGED_MAX_D=1000000", "SDR_TC_MAX_D=0"),
             "warp": ("SDR_STAGED_MAX_D=0", "SDR_TC_MAX_D=0"),
             "tc": ("SDR_TC_MAX_D=1000000",)}
-TC_MODES = ("fm", "afsk")   # the modes of K1 with a tensor-core route
+TC_MODES = ("fm", "fir", "am", "afsk")   # K1's modes with a tc route
 
 
 def fm_planes(gen, c, b, d, t0):

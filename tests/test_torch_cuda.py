@@ -887,11 +887,24 @@ def test_mxu_kernels_match_plain(cuda, dtype, d, t, s0, c):
             assert float(((got[1] - ref[1]) / ref[1]).abs().max()) < 1e-4
 
 
+# K5 at K1b's window start: (D, T) where K1b stays off the tensor-core
+# route with either plane dtype, as K5 does (D = 1, below every cut; D =
+# 200, above; T = 3,228 at the DDC bank's D = 4, where no tensor-core plan
+# fits), and where it takes that route by dtype (D = 2, 4, 40)
+K5_AT_K1B_OFF_TC = [(1, 33), (4, 3228), (200, 263)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,t", [(2, 37), (4, 67), (40, 71), (200, 263)])
+@pytest.mark.parametrize("d,t", [(2, 37), (4, 67), (40, 71), (200, 263),
+                                 (1, 33), (4, 3228)])
 def test_k5_at_k1b_window_start_is_k1b(cuda, dtype, d, t):
     """K5 in its overlap-save form at offset stride - 1 starts K1b's windows
-    and gives K1b's output bit for bit."""
+    and gives K1b's output bit for bit where K1b runs the staged or warp
+    kernel, as K5 does (at K5_AT_K1B_OFF_TC always).  Where K1b takes the
+    tensor-core route (its bf16 passes), K5 and K1b are each held to K1b's
+    plain version under the FIR gate of the module docstring, and to each
+    other."""
+    from libsdr_tpu_torch import _build
     from libsdr_tpu_torch.ops import fir_mxu as M
 
     gen = torch.Generator(device=cuda)
@@ -900,9 +913,22 @@ def test_k5_at_k1b_window_start_is_k1b(cuda, dtype, d, t):
                    torch.randn(t, generator=gen, device=cuda))
     x = _noise(gen, (3, d * 9000), dtype, cuda)
     tail = _noise(gen, (3, t - 1), dtype, cuda)
+    _, route = F._chunks("K1b", _build.library(), F._MODE_FIR, 3, 9000, t, d,
+                         0, x.re, cut_mode=F._MODE_FIR)
+    assert route != "tc" or (d, t) not in K5_AT_K1B_OFF_TC
+    n0 = dict(F.fir_exact.routes)
     a, b = M.fir_offset(x, taps, d, d - 1, tail), F.fir_exact(x, taps, d,
                                                                tail)
-    assert torch.equal(a.re, b.re) and torch.equal(a.im, b.im)
+    assert F.fir_exact.routes[route] == n0[route] + 1
+    if route == "tc":
+        ref = F.fir_exact_plain(x, taps, d, tail)
+        for got in (a, b):
+            err, bound = _mode_err(got, ref, False)
+            assert err < bound, err
+        err, bound = _mode_err(b, a, False)
+        assert err < bound, err
+    else:
+        assert torch.equal(a.re, b.re) and torch.equal(a.im, b.im)
 
 
 @pytest.mark.parametrize("offset", [0, 1, 4, 9, 100])
@@ -995,7 +1021,7 @@ def _precision(fast):
     set_mxu_precision("fast" if fast else "high")
 
 
-# the route's strides (csrc/fir_common.cuh::tc_min_d, tc_max_d): 4-16 with
+# the route's strides (csrc/fir_common.cuh::tc_stride): 4-16 with
 # float32 planes, 4-40 with bfloat16
 TC_K1A = [(dt, d, t, c) for dt in (torch.float32, torch.bfloat16)
           for d, t, c in ((4, 67, 64), (5, 68, 3), (8, 67, 5), (10, 41, 3),
@@ -1116,7 +1142,51 @@ def test_tc_k6_matches_split_and_plain(cuda, dtype, fast, d, t, s0, c):
         _precision(False)
 
 
-@pytest.mark.parametrize("t", [1, 17, 41, 51, 67, 143, 263, 12001])
+# K1b (mode fir) and K1c (mode am, +- the AGC) on the tensor-core route, at
+# strides on both ends of their cuts (csrc/fir_common.cuh::tc_stride: with
+# float32 planes fir 2-40 and am 13-40, each with gaps; 2-40 with
+# bfloat16) and the banks' shapes (the DDC bank's T = 67, D = 4; the AM
+# bank's T = 71, D = 40): (mode, agc, dtype, D, T, C)
+TC_K1BC = [("fir", False, dt, d, t, c)
+           for dt, shapes in ((torch.float32, ((4, 67, 64), (5, 68, 3),
+                                               (20, 83, 1), (2, 65, 3),
+                                               (40, 103, 1))),
+                              (torch.bfloat16, ((2, 65, 3), (4, 67, 64),
+                                                (40, 103, 1))))
+           for d, t, c in shapes] + [
+    ("am", agc, dt, d, t, c) for agc in (False, True)
+    for dt, shapes in ((torch.float32, ((16, 47, 3), (40, 71, 64),
+                                        (40, 71, 1), (13, 44, 3),
+                                        (33, 64, 1))),
+                       (torch.bfloat16, ((2, 33, 3), (24, 55, 1),
+                                         (40, 71, 64))))
+    for d, t, c in shapes]
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("mode,agc,dtype,d,t,c", TC_K1BC)
+def test_tc_k1_modes_match_split_and_plain(cuda, mode, agc, dtype, d, t, c,
+                                           fast):
+    """K1b and K1c on the tensor-core route over a warm block and three
+    carry-chained blocks of 12,621 outputs a channel (chunks K > 1, the
+    AGC's K_agc > 1, a ragged last tile), from a nonzero tail and AGC
+    state: y, or the audio and the AGC's exported state, against the split
+    emulation (ops/fir_tc.py, cut into the launch's chunks) within
+    SPLIT_REL of the largest, and at 'high' against the plain version
+    under the gates of the module docstring (tools/k1_parity.py)."""
+    from libsdr_tpu_torch.tools import k1_parity
+
+    assert k1_parity.SPLIT_REL == SPLIT_REL
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1000 * d + t + 7 * agc)
+    try:
+        _precision(fast)
+        k1_parity.tc_case(gen, mode, agc, dtype, d, t, c, device=cuda)
+    finally:
+        _precision(False)
+
+
+@pytest.mark.parametrize("t", [1, 17, 41, 51, 67, 71, 143, 263, 12001])
 def test_tc_plan_is_the_python_rule(cuda, t):
     """The kernel's plan (sdr_fir_tc_plan) is ops/fir_tc.tc_plan's on this
     card's shared memory, at every stride up to 40, both plane dtypes and
@@ -1151,11 +1221,14 @@ def test_tc_plan_is_the_python_rule(cuda, t):
 
 
 def test_paths_take_their_routes(cuda):
-    """The main path's K1a launches take the tensor-core route; the DDC
-    bank's K1b the staged kernel, the AM bank's K1c at D = 40 the warp
-    kernel; K1a at T = 12,001 (no tensor-core plan fits) the staged, and
-    at the cut's edges: D = 2 and 24 the staged kernel with float32 planes,
-    D = 24 the tensor-core kernel with bfloat16 planes."""
+    """The main path's K1a launches take the tensor-core route, and so do
+    the DDC bank's K1b and the AM bank's K1c at D = 40; K1a at T = 12,001
+    (no tensor-core plan fits) the staged, and at the cut's edges: D = 2
+    and 24 the staged kernel with float32 planes, D = 24 the tensor-core
+    kernel with bfloat16 planes; K1b and K1c at the edges of theirs and
+    of their gaps (csrc/fir_common.cuh::tc_stride: with float32 planes fir
+    2-40 but 3, 6, 8, 9, 12, 24, 32 and 34-39, am 13-40 but 32 and 34-39;
+    2-40 with bfloat16)."""
     from libsdr_tpu_torch.apps.chains import rx_stages
 
     def step(stages, b, c=4):
@@ -1175,8 +1248,8 @@ def test_paths_take_their_routes(cuda):
                      design="textbook")], 1 << 16)
     step(rx_stages("AM", FS, FS / 8), 40 * 4096)
     assert F.fir_fm_exact.routes == {"staged": 0, "warp": 0, "tc": 1}
-    assert F.fir_exact.routes == {"staged": 1, "warp": 0, "tc": 0}
-    assert F.fir_am_exact.routes == {"staged": 0, "warp": 1, "tc": 0}
+    assert F.fir_exact.routes == {"staged": 0, "warp": 0, "tc": 1}
+    assert F.fir_am_exact.routes == {"staged": 0, "warp": 0, "tc": 1}
     op = _op(16, 12001, 3, 16 * 4096)
     carry = op.init_carry(cuda)
     x = Complex(torch.randn(3, 16 * 4096, device=cuda),
@@ -1193,6 +1266,36 @@ def test_paths_take_their_routes(cuda):
         n0 = dict(F.fir_fm_exact.routes)
         fir_fm_exact(x, op._taps(cuda), d, carry[0], carry[1], op._rot, 1.0)
         assert F.fir_fm_exact.routes[route] == n0[route] + 1, (d, dtype)
+    taps = Complex(torch.randn(71, device=cuda), torch.randn(71, device=cuda))
+    for entry, extra, d, dtype, route in (
+            (F.fir_exact, (), 2, torch.float32, "tc"),
+            (F.fir_exact, (), 3, torch.float32, "staged"),
+            (F.fir_exact, (), 4, torch.float32, "tc"),
+            (F.fir_exact, (), 8, torch.float32, "staged"),
+            (F.fir_exact, (), 20, torch.float32, "tc"),
+            (F.fir_exact, (), 24, torch.float32, "warp"),
+            (F.fir_exact, (), 33, torch.float32, "tc"),
+            (F.fir_exact, (), 34, torch.float32, "warp"),
+            (F.fir_exact, (), 40, torch.float32, "tc"),
+            (F.fir_exact, (), 2, torch.bfloat16, "tc"),
+            (F.fir_exact, (), 40, torch.bfloat16, "tc"),
+            (F.fir_am_exact, (1.0,), 10, torch.float32, "staged"),
+            (F.fir_am_exact, (1.0,), 12, torch.float32, "staged"),
+            (F.fir_am_exact, (1.0,), 13, torch.float32, "tc"),
+            (F.fir_am_exact, (1.0,), 16, torch.float32, "tc"),
+            (F.fir_am_exact, (1.0,), 32, torch.float32, "warp"),
+            (F.fir_am_exact, (1.0,), 40, torch.float32, "tc"),
+            (F.fir_am_exact, (1.0,), 80, torch.float32, "warp"),
+            (F.fir_am_exact, (1.0,), 2, torch.bfloat16, "tc"),
+            (F.fir_am_exact, (1.0,), 40, torch.bfloat16, "tc")):
+        x = Complex(torch.randn(3, d * 4096, device=cuda),
+                    torch.randn(3, d * 4096, device=cuda)).to(dtype)
+        tail = Complex(torch.zeros(3, 70, device=cuda),
+                       torch.zeros(3, 70, device=cuda)).to(dtype)
+        n0 = dict(entry.routes)
+        entry(x, taps, d, tail, *extra)
+        assert entry.routes[route] == n0[route] + 1, (entry.__name__, d,
+                                                      dtype)
 
 
 # K1e (mode afsk) on the tensor-core route: against the split emulation
@@ -1214,22 +1317,6 @@ TC_AFSK = [(dt, d, ell, c) for dt in (torch.float32, torch.bfloat16)
     (torch.bfloat16, 40, 256, 2)]
 
 
-def _afsk_chunks(x, d, t, ell):
-    """The chunks per channel of the kernel's launch (sdr_fir_chunks) and
-    its route."""
-    import ctypes
-
-    from libsdr_tpu_torch import _build
-    from libsdr_tpu_torch.ops.fir import mxu_precision
-
-    route = ctypes.c_int(-1)
-    c, b = x.re.shape
-    k = _build.library().sdr_fir_chunks(
-        4, 1, c, b // d, t, d, ell, int(x.re.dtype == torch.bfloat16),
-        int(mxu_precision() == "fast"), ctypes.byref(route))
-    return k, route.value
-
-
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("dtype,d,ell,c", TC_AFSK)
 def test_tc_afsk_matches_split_and_plain(cuda, dtype, fast, d, ell, c):
@@ -1238,6 +1325,7 @@ def test_tc_afsk_matches_split_and_plain(cuda, dtype, fast, d, ell, c):
     ragged last tile), from a template phase of 7 and nonzero carried
     products: disc, y_last and the exported products against the split
     emulation, and at 'high' against the plain version."""
+    from libsdr_tpu_torch import _build
     from libsdr_tpu_torch.ops import fir_tc as TC
 
     n_out = 3 * 4096 + 333
@@ -1259,8 +1347,10 @@ def test_tc_afsk_matches_split_and_plain(cuda, dtype, fast, d, ell, c):
             x = Complex(torch.tensor(x.real, device=cuda).to(dtype),
                         torch.tensor(x.imag, device=cuda).to(dtype))
             args = _afsk_args(op, x, carry)
-            kk, route = _afsk_chunks(x, d, t, ell)
-            assert route == 2, (d, ell, dtype)
+            kk, route = F._chunks("K1e", _build.library(), F._MODE_AFSK, c,
+                                  n_out, t, d, ell, x.re,
+                                  cut_mode=F._MODE_AFSK)
+            assert route == "tc", (d, ell, dtype)
             emu = TC.afsk_exact_split(*args, passes=passes, chunks=kk,
                                       with_power=True)
             n0 = F.fir_afsk_exact.routes["tc"]
@@ -1345,7 +1435,9 @@ def test_fast_precision_keeps_70_db(cuda):
     against 'high' on the FM signal of the JAX package's own gate
     (tests/test_tpu_smoke.py::test_fast_precision_mode_on_chip): 64
     channels of a 900 Hz tone at 75 kHz deviation through the main path,
-    audio SNR above 70 dB; 'fast' must differ from 'high'."""
+    audio SNR above 70 dB; 'fast' must differ from 'high'.  Then K1b and
+    K1c on the tc route, the DDC and AM banks' chains at 'fast' against
+    'high': above an 8-bit source's 49.9 dB."""
     fs, n_ch, block = 960_000.0, 64, 1 << 17
     audio = siggen.sine(fs, block + 4096, 900.0, amps=0.7)
     iq = siggen.fm_modulate(fs, audio, deviation=75_000.0,
@@ -1374,6 +1466,48 @@ def test_fast_precision_keeps_70_db(cuda):
     err = y_hi - y_fast
     snr = 10 * np.log10(np.mean(y_hi[0] ** 2) / np.mean(err[0] ** 2))
     assert 70.0 < snr < 200.0, snr
+    # K1b (the DDC bank, IQBaseBand alone on the same signal) and K1c (the
+    # AM bank, rx_stages("AM"), on a 900 Hz tone at 50% AM): one bf16 pass
+    # keeps an 8-bit source's fidelity (6.02 * 8 + 1.76 dB), as the JAX
+    # kernel describes 'fast' (pallas_fir_mxu.py::_make_mm); there is no
+    # discriminator to gain from as FM does.
+    from libsdr_tpu_torch.apps.chains import rx_stages
+
+    am_block = 40 * 3277
+    t = np.arange(am_block) / fs
+    am = ((1 + 0.5 * np.cos(2 * np.pi * 900.0 * t))
+          * np.exp(2j * np.pi * 120_000.0 * t))
+    xa = Complex(torch.tensor(np.tile(am.real[None], (n_ch, 1)),
+                              dtype=torch.float32, device=cuda),
+                 torch.tensor(np.tile(am.imag[None], (n_ch, 1)),
+                              dtype=torch.float32, device=cuda))
+    for entry, stages, xin, b in (
+            (F.fir_exact, lambda: [IQBaseBand(fc=120_000, width=200_000,
+                                              order=64, decim=4,
+                                              design="textbook")],
+             x, block),
+            (F.fir_am_exact, lambda: rx_stages("AM", fs, 120_000.0), xa,
+             am_block)):
+        def run_bank():
+            rx = P.Pipeline(stages())
+            rx.bind(P.StreamSpec(np.complex64, fs, b, channels=(n_ch,)))
+            _, y = rx.compile()(rx.init_carry(cuda), xin)
+            if isinstance(y, Complex):
+                return (y.re.double() + 1j * y.im.double()).cpu().numpy()
+            return y.double().cpu().numpy()
+
+        try:
+            y_hi = run_bank()
+            _precision(True)
+            n0 = entry.routes["tc"]
+            y_fast = run_bank()
+            assert entry.routes["tc"] == n0 + 1, entry.__name__
+        finally:
+            _precision(False)
+        err = y_hi - y_fast
+        snr = 10 * np.log10(np.mean(np.abs(y_hi[0]) ** 2)
+                            / np.mean(np.abs(err[0]) ** 2))
+        assert 6.02 * 8 + 1.76 < snr < 200.0, (entry.__name__, snr)
 
 
 # -- slice 11: chunked dispatch as one CUDA graph, checkpoint, Q14 ----------

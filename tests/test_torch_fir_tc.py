@@ -28,6 +28,21 @@ and arithmetic of ``csrc/fir_tc.cu``) on the CPU.
    comes near 0, within the JAX bound 1e-3), and cut into K > 1 chunks,
    each from its L-early start, against K = 1.
 
+4. Modes fir (K1b) and am (K1c) on the route: ``fir_exact_split`` and
+   ``am_exact_split`` against the JAX exact-tiling kernel in interpret mode
+   (``pallas_fir_mxu.fir_exact``, ``fir_fm_exact(mode="am")`` with and
+   without the AGC) at float32 and bfloat16 planes, 'high' and 'fast',
+   from a nonzero tail, at the DDC bank's (T 67, D 4) shape and the AM
+   bank's taps at a stride the JAX kernel takes on 16 channels (T 71, D
+   20: its VMEM gate refuses D = 40, where its Toeplitz block alone is 21
+   MB of its 13.5 MB); at the AM bank's own (T 71, D 40) against the JAX
+   package's path there (``fir._conv1d`` and the AGC's
+   ``iir_first_order``, float32 whatever the precision, so at 'high'
+   only).  Bounds: y within FIR_REL of max |y|; am audio within
+   AUDIO_BOUND x max(1, |v|) and the exported sd within FIR_REL.  Then the
+   split cut into K chunks against K = 1, and at 'high' against the plain
+   versions under the card's gates (1e-5 of max |y|; with the AGC 1e-4).
+
 The CUDA kernel is held to this emulation on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -38,15 +53,18 @@ import pytest
 import torch
 
 from libsdr_tpu.core import cplx as jcplx
+from libsdr_tpu.ops import fir as jfir
 from libsdr_tpu.ops import pallas_fir_mxu as pfm
 from libsdr_tpu.ops.fir import set_mxu_precision as jax_set_precision
+from libsdr_tpu.ops.iir import iir_first_order as jax_iir
 from libsdr_tpu_torch.core import cplx
 from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.core.stream import ConfigError
 from libsdr_tpu_torch.ops import fir_tc as TC
 from libsdr_tpu_torch.ops import fsk
 from libsdr_tpu_torch.ops.fir import mxu_precision, set_mxu_precision
-from libsdr_tpu_torch.ops.fir_fm import _fir_y, fir_afsk_exact_plain
+from libsdr_tpu_torch.ops.fir_fm import (_fir_y, fir_afsk_exact_plain,
+                                         fir_am_exact_plain, fir_exact_plain)
 from libsdr_tpu_torch.ops.fir_mxu import _y_plain
 
 Y_REL = 1e-6        # frame GEMM in float32 against the plain y
@@ -93,7 +111,7 @@ def test_plan_rule(d):
     block's; the main path's plan (T = 67, D = 4) is 14 outputs a frame at
     a conflict-free 112-byte row stride, 64 frames a tile, two blocks an
     SM for both plane dtypes."""
-    for t in (1, 17, 67, 143, 263):
+    for t in (1, 17, 67, 71, 143, 263):
         for isz, passes in ((4, 3), (2, 2), (4, 1), (2, 1)):
             plan = TC.tc_plan(t, d, isz, passes)
             assert plan is not None, (t, d, isz)
@@ -110,6 +128,14 @@ def test_plan_rule(d):
             plan = TC.tc_plan(67, 4, isz, passes)
             assert (plan.S, plan.F) == (14, 64)
             assert TC.ldsm_ways(2 * plan.S * 4) == 1
+            assert plan.bytes <= TC.SMEM_SM // 2 - 1024
+    if d == 40:
+        # the AM bank (T = 71): S*D = 40 S bytes a frame, an odd multiple
+        # of 8 so that ldmatrix's rows miss each other's banks, and two
+        # blocks an SM in every arithmetic
+        for isz, passes in ((4, 3), (2, 2), (4, 1), (2, 1)):
+            plan = TC.tc_plan(71, 40, isz, passes)
+            assert plan.S % 2 == 1 and TC.ldsm_ways(2 * plan.S * 40) == 1
             assert plan.bytes <= TC.SMEM_SM // 2 - 1024
     # thousands of taps do not fit: such launches take the staged kernel
     assert TC.tc_plan(12001, 16, 4, 3) is None
@@ -452,3 +478,158 @@ def test_afsk_split_matches_plain_and_chunks(dtype, chunks):
         assert float(((got[0] - one[0]).abs() / scale).max()) < 1e-6
         for a, b in zip(_tails(got), _tails(one)):
             assert np.abs(a - b).max() < 1e-6
+
+
+# -- modes fir (K1b) and am (K1c) on the tensor-core route -----------------
+
+LAM, AM_GAIN = 0.96, 0.125   # tests/test_torch_analog.py's AGC
+CARD_REL, CARD_AGC = 1e-5, 1e-4   # chip_smoke.py's REL_BOUND, AGC_BOUND
+# (T, D, C, B): the DDC bank's taps and stride, the AM bank's taps at a
+# stride the JAX kernel takes, the AM bank's own (no JAX kernel)
+# (16 channels: the JAX kernel's gate wants a multiple of 16 with bfloat16
+# planes)
+K1_SHAPES = [(67, 4, 16, 4096), (71, 20, 16, 10240), (71, 40, 4, 10240)]
+
+
+def _k1_mode_case(t, d, c, b, dtype):
+    rng = np.random.default_rng(100 * d + t + (dtype == "bfloat16"))
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    x = _t(_cn(rng, c, b), tdt)
+    tail = _t(_cn(rng, c, t - 1), tdt)
+    g = rng.normal(size=t) + 1j * rng.normal(size=t)
+    sd = rng.uniform(0.3, 1.0, size=c).astype(np.float32)
+    return x, tail, g, sd
+
+
+def _jax_fir(x, tail, g, d, dtype):
+    """The JAX package's y at this shape: its exact-tiling kernel where its
+    gate takes the shape, else its own path there, ``_conv1d`` over tail +
+    block from window start D - 1."""
+    c, b = x.re.shape
+    kernel = pfm.mxu_fir2_supported(len(g), d, c, b, dtype=dtype)
+    assert kernel == (d <= 20)
+    if kernel:
+        return jcplx.to_numpy(pfm.fir_exact(_j(x, dtype), g, d,
+                                            _j(tail, dtype), interpret=True))
+    # in float32 over the same samples (bfloat16 ones are exact in it)
+    xc = jcplx.concatenate([_j(tail, "float32"), _j(x, "float32")], axis=-1)
+    return jcplx.to_numpy(jfir._conv1d(xc[..., d - 1:], g, d))
+
+
+def _jax_am(x, tail, g, d, dtype, agc, sd):
+    """The JAX package's AM audio (and sd_last with the AGC) at this shape:
+    ``fir_fm_exact(mode="am")`` where its gate takes the shape, else
+    AMBasebandFused's path, ``|_conv1d|`` and ``iir_first_order``."""
+    c, b = x.re.shape
+    ab = (LAM, 1 - LAM) if agc else None
+    gain = AM_GAIN if agc else 1.0
+    if pfm.mxu_fir2_supported(len(g), d, c, b, dtype=dtype):
+        aj, ej = pfm.fir_fm_exact(
+            _j(x, dtype), g, d, _j(tail, dtype), jcplx.zeros((c, 1)), 1.0,
+            gain, deemph_ab=ab,
+            deemph_lead=jnp.asarray(sd[:, None]) if agc else None,
+            mode="am", interpret=True)
+        return np.asarray(aj), np.asarray(ej.re)[:, 0] if agc else None
+    sig = jnp.abs(jnp.asarray(_jax_fir(x, tail, g, d, dtype))).astype(
+        jnp.float32)
+    if not agc:
+        return np.asarray(gain * sig), None
+    sdv, sd_last = jax_iir(sig, ab[0], ab[1], jnp.asarray(sd))
+    return np.asarray(gain * sig / sdv), np.asarray(sd_last)
+
+
+# 'fast' where the JAX kernel runs (at D = 40 the JAX package is float32
+# at either precision)
+K1_CASES = [(*shape, precision) for shape in K1_SHAPES
+            for precision in ("high", "fast")
+            if precision == "high" or shape[1] <= 20]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d,c,b,precision", K1_CASES)
+def test_fir_split_matches_jax(t, d, c, b, precision, dtype, jax_precision):
+    """K1b: fir_exact_split (3, 2 or 1 bf16 passes) from a nonzero tail
+    against the JAX package at the same precision: every output within
+    FIR_REL of max |y|.  At 'fast' the 'high' JAX kernel differs from it
+    by more than that (one pass keeps ~8 bits of each tap)."""
+    x, tail, g, _ = _k1_mode_case(t, d, c, b, dtype)
+    fast = precision == "fast"
+    jax_precision(precision)
+    want = _jax_fir(x, tail, g, d, dtype)
+    got = _np(TC.fir_exact_split(x, _taps(g), d, tail,
+                                 passes=TC.passes_for(x.re.dtype, fast)))
+    assert got.shape == want.shape == (c, b // d)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() < FIR_REL * scale
+    if fast:
+        jax_precision("high")
+        high = _jax_fir(x, tail, g, d, dtype)
+        assert np.abs(high - want).max() > FIR_REL * scale
+
+
+@pytest.mark.parametrize("agc", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d,c,b,precision", K1_CASES)
+def test_am_split_matches_jax(t, d, c, b, precision, dtype, agc,
+                              jax_precision):
+    """K1c: am_exact_split with and without the AGC (from a nonzero sd)
+    against the JAX package at the same precision: the audio within
+    AUDIO_BOUND x max(1, |v|), the exported sd within FIR_REL of its
+    largest."""
+    x, tail, g, sd = _k1_mode_case(t, d, c, b, dtype)
+    fast = precision == "fast"
+    jax_precision(precision)
+    want, sd_want = _jax_am(x, tail, g, d, dtype, agc, sd)
+    ab = (LAM, 1 - LAM) if agc else None
+    got, sd_got = TC.am_exact_split(
+        x, _taps(g), d, tail, AM_GAIN if agc else 1.0, ab,
+        torch.from_numpy(sd) if agc else None,
+        passes=TC.passes_for(x.re.dtype, fast))
+    assert got.shape == want.shape == (c, b // d)
+    assert _worst(got.numpy(), want) < AUDIO_BOUND
+    if agc:
+        assert np.abs(sd_got.numpy() - sd_want).max() < FIR_REL * np.abs(
+            sd_want).max()
+    else:
+        assert sd_got is None and sd_want is None
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d", [(67, 4), (71, 40)])
+def test_k1_split_chunks_and_plain(t, d, dtype, chunks):
+    """K1b's and K1c's split at 'high' cut into K chunks (each from its own
+    frame grid, as the kernel's blocks run them) gives what K = 1 gives,
+    to float32 round-off of the frame grid (1e-6 of the largest output);
+    and it holds the card's gates against the plain versions: y and |y|
+    within 1e-5 of the largest output, with the AGC 1e-4 on the audio and
+    of the exported sd."""
+    c, n = 3, 1000
+    x, tail, g, sd = _k1_mode_case(t, d, c, d * n, dtype)
+    taps = _taps(g)
+    passes = TC.passes_for(x.re.dtype, False)
+    ab, sdt = (LAM, 1 - LAM), torch.from_numpy(sd)
+    y = TC.fir_exact_split(x, taps, d, tail, passes=passes, chunks=chunks)
+    am = TC.am_exact_split(x, taps, d, tail, 1.0, passes=passes,
+                           chunks=chunks)[0]
+    agc, sd_last = TC.am_exact_split(x, taps, d, tail, AM_GAIN, ab, sdt,
+                                     passes=passes, chunks=chunks)
+    y_ref = fir_exact_plain(x, taps, d, tail)
+    scale = float(torch.maximum(y_ref.re.abs().max(), y_ref.im.abs().max()))
+    assert y.re.shape == (c, n)
+    assert float(max((y.re - y_ref.re).abs().max(),
+                     (y.im - y_ref.im).abs().max())) < CARD_REL * scale
+    am_ref = fir_am_exact_plain(x, taps, d, tail, 1.0)[0]
+    assert float((am - am_ref).abs().max()) < CARD_REL * float(
+        am_ref.abs().max())
+    agc_ref, sd_ref = fir_am_exact_plain(x, taps, d, tail, AM_GAIN, ab, sdt)
+    assert float((agc - agc_ref).abs().max()) < CARD_AGC
+    assert float(((sd_last - sd_ref) / sd_ref).abs().max()) < CARD_AGC
+    if chunks > 1:
+        one = TC.fir_exact_split(x, taps, d, tail, passes=passes)
+        assert float(max((y.re - one.re).abs().max(),
+                         (y.im - one.im).abs().max())) < 1e-6 * scale
+        one_agc = TC.am_exact_split(x, taps, d, tail, AM_GAIN, ab, sdt,
+                                    passes=passes)[0]
+        assert float((agc - one_agc).abs().max()) < 1e-6 * float(
+            one_agc.abs().max())
