@@ -30,18 +30,19 @@ its own line; the first failure exits non-zero:
    K6 (the v1 FIR with any window start, ``ops/fir_mxu.py``, and its fm /
    am epilogues) against their plain versions over strides 2-200, taps
    17-263, window starts 0, 1, D-2, D-1, D and 2D+1, C 1/3/64, both plane
-   dtypes, every output and the AGC's state, and K5 at K1b's window start
-   against K1b bit for bit (within the FIR gate where K1b takes the
-   tensor-core route); the tensor-core route (``csrc/fir_tc.cu``, K1a
-   and K6 at strides 4-16, 4-40 with bf16 planes; K1b and K1c at strides
-   of their cuts, 2-40 with bf16 planes) against the split
-   emulation of its bf16 passes (``ops/fir_tc.py``) and, at 'high', the
-   float32 plain versions, over its strides, both plane dtypes, 'high'
-   and 'fast', de-emphasis
-   on/off, chunks K > 1 and three carry-chained blocks, K6 in fm and am
-   with and without the IIR, K1c with and without the AGC; at the main
-   path's shapes too (two channels against the emulation), K1a timed in
-   both precisions;
+   dtypes, every output and the AGC's state, K5's launches on the
+   tensor-core route also against its split emulation, and K5 at K1b's
+   window start against K1b bit for bit (the same route at every shape);
+   the tensor-core route (``csrc/fir_tc.cu``, K1a and K6 at strides 4-16,
+   4-40 with bf16 planes; K1b, K1c, K1d and K5 at strides of their cuts,
+   K1d's to D = 120 with bf16 planes) against the split emulation of its bf16 passes
+   (``ops/fir_tc.py``) and, at 'high', the float32 plain versions, over
+   its strides, both plane dtypes, 'high' and 'fast', de-emphasis on/off,
+   chunks K > 1 and three carry-chained blocks, K6 in fm and am with and
+   without the IIR, K1c and K1d with and without the AGC, K5 at every
+   window form of its callers (starts in the tail, wrap 0 and 128*D); at
+   the main path's shapes too (two channels against the emulation), K1a
+   timed in both precisions;
 4. drive the paths through the user's entry points, bind, compile and the
    step, on 64 channels x ~2^24 complex samples in float32 and bfloat16
    planes, with each path's kernel launches counted from 0 and checked,
@@ -49,11 +50,12 @@ its own line; the first failure exits non-zero:
    main path ``Pipeline([IQBaseBand(order=64, decim=4), FMDemod(),
    FMDeemph()])`` (K1a, on the tensor-core route; then 'fast' against
    'high' through its chain, at least 70 dB SNR on the JAX gate's FM
-   tone), the AM
+   tone, and through the DDC, AM and USB banks' chains and F1's call, K1b,
+   K1c, K1d and K5, at least an 8-bit source's 49.9 dB), the AM
    bank ``rx_stages("AM", 960e3)`` (K1c, on the tensor-core route), the
-   USB bank ``rx_stages("USB", 960e3)`` (K1d, the warp kernel) and the DDC
-   bank ``[IQBaseBand(order=64, decim=4)]`` (K1b, on the tensor-core
-   route; BANK_ROUTES); each bank's kernel is also
+   USB bank ``rx_stages("USB", 960e3)`` (K1d, on the route of its cut) and
+   the DDC bank ``[IQBaseBand(order=64, decim=4)]`` (K1b, on the
+   tensor-core route; BANK_ROUTES); each bank's kernel is also
    timed against its plain version at the bank's shapes, beside its bound
    on its route; then the digital
    receive paths on message traffic (``libsdr_tpu_torch/tools/
@@ -75,8 +77,10 @@ its own line; the first failure exits non-zero:
    K4 (channel) + K3 + K1b a block, and BPSK31's host loop's share;
    then F1, the arbitrary-offset FIR bank: ``fir_overlap_save`` at
    offsets 0 and 1 over 64 ch x 2^24 with the DDC bank's T = 67, D = 4,
-   one K5 launch a block, K5 held against its plain version on the path's
-   own call and timed beside the strided ``conv1d`` the port used before;
+   one K5 launch a block on the tensor-core route (F1_ROUTES), K5 held
+   against its plain version on the path's own call and against its split
+   emulation on two of its channels, and timed beside the strided
+   ``conv1d`` the port used before;
    and K6 at the same width (D = 4, window start 1) in fm with
    de-emphasis and am with the AGC; then slice 11: the streaming config
    (``tools/stream_times.py``: the main path on 128 ch x 2^19 and 2^16 at
@@ -103,8 +107,8 @@ limit, and ``{"ok": true, "device": {...}}``.  In the record every ``ms``
 is CUDA events around the calls; K4's rows add ``device_ms`` (the same
 calls replayed in a CUDA graph, no host time) and ``kernel_route`` (the
 route of ``csrc/pfb.cu`` the path's launches took); the banks' rows (K1b,
-K1c, K1d) give float32 planes' numbers under the common keys and
-``kernel_route``, and bfloat16 planes' under ``bf16_*``.
+K1c, K1d) and F1's (K5) give float32 planes' numbers under the common
+keys and ``kernel_route``, and bfloat16 planes' under ``bf16_*``.
 """
 
 from __future__ import annotations
@@ -148,10 +152,12 @@ REL_BOUND = 1e-5
 AGC_BOUND = 1e-4
 # The route each bank's kernel takes, by plane dtype (csrc/fir_common.cuh::
 # route_of at the banks' shapes): the AM bank's K1c (T = 71, D = 40), the
-# USB bank's K1d (T = 143, D = 80), the DDC bank's K1b (T = 67, D = 4)
+# USB bank's K1d (T = 143, D = 80), the DDC bank's K1b (T = 67, D = 4);
+# and F1's K5 (T = 67, D = 4, mode fir's cut)
 BANK_ROUTES = {"AM bank": {"f32": "tc", "bf16": "tc"},
-               "USB bank": {"f32": "warp", "bf16": "warp"},
+               "USB bank": {"f32": "warp", "bf16": "tc"},
                "DDC bank": {"f32": "tc", "bf16": "tc"}}
+F1_ROUTES = {"f32": "tc", "bf16": "tc"}
 # The kernel source of each route
 ROUTE_SOURCES = {"tc": "fir_tc.cu", "staged": "fir_fm_exact.cu",
                  "warp": "fir_warp.cu"}
@@ -729,9 +735,10 @@ def bound_tc(nbytes, tc_ops, f32_ops):
 
 
 def bank_bound(TC, name, route, isz, b, d, t):
-    """The bound of a bank's kernel (K1b fir_exact, K1c fir_am_exact, K1d
-    fir_usb_exact) on its route for one block of CHANNELS x b samples of
-    itemsize isz: (ms, what sets it, the bound line's text).  Bytes: what
+    """The bound of a bank's kernel (K1b fir_exact, and K5 at F1's shape,
+    the same function; K1c fir_am_exact, K1d fir_usb_exact) on its route
+    for one block of CHANNELS x b samples of itemsize isz: (ms, what sets
+    it, the bound line's text).  Bytes: what
     the function must move, the planes read once and its outputs written
     once (y's two float32 planes, K1b; the audio, 4 bytes an output, K1c
     and K1d).  Operations: on the tc route the FIR's 8T an output a bf16
@@ -765,11 +772,12 @@ def bank_bound(TC, name, route, isz, b, d, t):
     return b_ms, b_by, text + (
         f"; tensor cores {dense / FLOPS_BF16_TC * 1e3:.3f} ms dense "
         f"({passes} passes of 8T), {run_ops / FLOPS_BF16_TC * 1e3:.3f} ms as "
-        f"run (S={plan.S}, {plan.F} frames a tile); epilogue "
+        f"run (S={plan.S}, {plan.F} frames a tile); "
+        f"epilogue "
         f"{epi / FLOPS_F32 * 1e3:.3f} ms")
 
 
-def phase_fast_snr(torch, L, x32, smi):
+def phase_fast_snr(torch, x32, smi):
     """set_mxu_precision('fast') against 'high' through the main path's
     chain (IQBaseBand(order=64, decim=4) -> FMDemod -> FMDeemph, fused, on
     the tc route), the JAX package's gate
@@ -778,55 +786,55 @@ def phase_fast_snr(torch, L, x32, smi):
     960 kHz, on 64 channels x 2^17, audio SNR at least FAST_SNR_DB on
     channel 0.  Also printed, not held: the same on the main path's own
     test signal x32 (FM tones with noise, where the audio has clicks at
-    outputs with |y| near 0 that one pass can move).  Returns the gate's
-    SNR."""
-    from libsdr_tpu_torch.core.cplx import Complex
-    from libsdr_tpu_torch.ops import FMDeemph, FMDemod, IQBaseBand, siggen
+    outputs with |y| near 0 that one pass can move).  Then the kernels
+    without a discriminator to gain from, each on the tc route at both
+    precisions, held to an 8-bit source's 49.9 dB as the JAX kernel
+    describes 'fast' (pallas_fir_mxu.py::_make_mm): K1b through the DDC
+    bank's chain on the FM signal, K1c through the AM bank's, K1d through
+    the USB bank's (D = 80, in the plane dtype its cut puts on the tc
+    route), K5 through F1's call (fir_overlap_save at offset 0, D = 4) on
+    the FM signal (tools/fast_precision.py's cases, as the card tests run
+    them).  Returns the gate's SNR and {kernel: SNR}."""
+    from libsdr_tpu_torch.ops import FMDeemph, FMDemod, IQBaseBand
     from libsdr_tpu_torch.ops import fir_fm as F
-    from libsdr_tpu_torch.ops.fir import set_mxu_precision
+    from libsdr_tpu_torch.tools import fast_precision as FP
 
-    fs, n_ch, block = 960_000.0, 64, 1 << 17
-    audio = siggen.sine(fs, block + 4096, 900.0, amps=0.7)
-    iq = siggen.fm_modulate(fs, audio, deviation=75_000.0,
-                            carrier=120_000.0)[:block]
-    tone = Complex(torch.tensor(np.tile(iq.real[None], (n_ch, 1)),
-                                dtype=torch.float32, device="cuda"),
-                   torch.tensor(np.tile(iq.imag[None], (n_ch, 1)),
-                                dtype=torch.float32, device="cuda"))
+    n_ch, block = 64, 1 << 17
+    tone = FP.fm_tone(n_ch, block)
 
-    def snr_db(x, stages, b):
-        rx = L.Pipeline(stages)
-        rx.bind(L.StreamSpec(np.complex64, fs, b, channels=(x.re.shape[0],)))
-        step = rx.compile()
-        c0 = rx.init_carry("cuda")
-        _, high = step(c0, x)
+    def snr_db(run, entry):
         try:
-            set_mxu_precision("fast")
-            n0 = F.fir_fm_exact.routes["tc"]
-            _, fast = step(c0, x)
-            torch.cuda.synchronize()
-            check(F.fir_fm_exact.routes["tc"] == n0 + 1,
-                  "'fast' off the tc route")
-        finally:
-            set_mxu_precision("high")
-        p_err = ((high - fast).double() ** 2).mean(dim=1)
-        check(bool((p_err > 0).all()), "'fast' equals 'high'")
-        return 10 * torch.log10((high.double() ** 2).mean(dim=1) / p_err)
+            return FP.fast_snr_db(run, entry)
+        except AssertionError as e:
+            raise SmokeFailure(str(e))
 
-    gate = float(snr_db(tone, [IQBaseBand(fc=120_000, width=200_000,
-                                          order=64, decim=4,
-                                          design="textbook"),
-                               FMDemod(), FMDeemph()], block)[0])
-    main = snr_db(x32, [IQBaseBand(fc=FS / 8, width=FS / 4.8, order=64,
-                                   decim=4, design="textbook"),
-                        FMDemod(), FMDeemph()], BLOCK)
+    def bb(**kw):
+        return IQBaseBand(order=64, decim=4, design="textbook", **kw)
+
+    gate = float(snr_db(FP.chain(lambda: [bb(fc=120_000, width=200_000),
+                                          FMDemod(), FMDeemph()],
+                                 tone, block), F.fir_fm_exact)[0])
+    main = snr_db(FP.chain(lambda: [bb(fc=FS / 8, width=FS / 4.8), FMDemod(),
+                                    FMDeemph()], x32, BLOCK),
+                  F.fir_fm_exact)
     print(f"phase 4 'fast' vs 'high' audio SNR through the main path's "
           f"chain: {gate:.1f} dB on the JAX gate's tone (gate "
           f"{FAST_SNR_DB:g} dB); on the main path's noisy test signal "
           f"channel 0 {float(main[0]):.1f} dB, worst of {CHANNELS} "
           f"{float(main.min()):.1f} dB (not held) | {smi}")
     check(gate >= FAST_SNR_DB, f"'fast' SNR {gate} dB < {FAST_SNR_DB}")
-    return gate
+    usb_dtype = (torch.float32 if BANK_ROUTES["USB bank"]["f32"] == "tc"
+                 else torch.bfloat16)
+    flat = {}
+    for name, entry, run in FP.flat_cases(n_ch, usb_dtype, block):
+        flat[name] = float(snr_db(run, entry)[0])
+        check(flat[name] >= FP.FAST_8BIT_DB,
+              f"'fast' {name} SNR {flat[name]} dB < {FP.FAST_8BIT_DB}")
+    print("phase 4 'fast' vs 'high' SNR without a discriminator, channel 0: "
+          + ", ".join(f"{k} {v:.1f} dB" for k, v in flat.items())
+          + f" (K1d in {str(usb_dtype)[6:]} planes; gate "
+          f"{FP.FAST_8BIT_DB:.1f} dB, an 8-bit source's) | {smi}")
+    return gate, flat
 
 
 def afsk_op(L, d, ell, c, b, plane_dtype=None):
@@ -1974,10 +1982,11 @@ def k6_errs(torch, got, ref, mode, agc):
                float(((got[1] - ref[1]) / ref[1]).abs().max())), AGC_BOUND
 
 
-# K5 at K1b's window start (offset D - 1): (D, T) where K1b stays off the
-# tensor-core route with either plane dtype, as K5 does (D = 1, below every
-# cut; D = 200, above; T = 3,228 at the DDC bank's D = 4, where no
-# tensor-core plan fits), and where it takes that route by dtype.  The
+# K5 at K1b's window start (offset D - 1), which takes K1b's route at every
+# shape: (D, T) where both stay off the tensor-core route with either plane
+# dtype (D = 1, below every cut; D = 200, above mode fir's; T = 3,228 at
+# the DDC bank's D = 4, where no tensor-core plan fits), and where both
+# take it.  The
 # shapes of K5_AT_K1B draw from the run's generator, those of
 # K5_AT_K1B_MORE from one of their own (K5_SEED), so that the run's
 # generator reaches the later paths (W1's band among them) at the offset it
@@ -1995,19 +2004,23 @@ def phase_mxu_parity(torch, gen):
     (chunks K > 1); every output, the clamped last frame included; K6 in fm
     with and without de-emphasis and am with and without the AGC ((lam,
     1 - lam) and a b of its own), from nonzero y[-1] and IIR states, the
-    AGC's exported state too.  Then K5 in its overlap-save form at K1b's
-    window start (offset D-1) against K1b at K5_AT_K1B and K5_AT_K1B_MORE:
-    bit for bit where K1b runs the staged or warp kernel (at
-    K5_AT_K1B_OFF_TC always); where it takes the tensor-core route, K5 and
-    K1b each within REL_BOUND of K1b's plain version and of each other
-    (K1b's bf16 passes against K5's float32 sums).  Returns the worst
-    errors."""
+    AGC's exported state too; K5's launches on the tensor-core route also
+    against its split emulation (ops/fir_tc.py::fir_mxu_split, cut into
+    the launch's chunks) within TC_SPLIT_REL.  Then K5 in its overlap-save
+    form at K1b's window start (offset D-1) against K1b at K5_AT_K1B and
+    K5_AT_K1B_MORE: the same route as K1b (the tensor-core route but at
+    K5_AT_K1B_OFF_TC) and bit for bit K1b's output, both within
+    REL_BOUND of K1b's plain version.  Returns the worst errors."""
     from libsdr_tpu_torch import _build
     from libsdr_tpu_torch.core.cplx import Complex
     from libsdr_tpu_torch.ops import fir_fm as F
     from libsdr_tpu_torch.ops import fir_mxu as M
+    from libsdr_tpu_torch.ops import fir_tc as TC
 
-    worst = {"fir_mxu": 0.0, "fm": 0.0, "am": 0.0, "agc": 0.0}
+    worst = {"fir_mxu": 0.0, "k5 split": 0.0, "fm": 0.0, "am": 0.0,
+             "agc": 0.0}
+    lib = _build.library()
+    k5_tc = 0
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for i, (d, t) in enumerate(MXU_SHAPES):
@@ -2030,6 +2043,20 @@ def phase_mxu_parity(torch, gen):
                 check(errs["rel"] < REL_BOUND,
                       f"fir_mxu vs plain {name}: {errs['rel']}")
                 line["fir_mxu"] = max(line["fir_mxu"], errs["rel"])
+                kk, route = F._chunks(name, lib, F._MODE_FIR, c, b // d, t,
+                                      d, 0, x.re)
+                if route == "tc":
+                    y = M.fir_mxu(x, taps, d, s0)[0]
+                    emu = TC.fir_mxu_split(x, taps, d, s0, b // d, 128 * d,
+                                           passes=TC.passes_for(dtype, False),
+                                           chunks=kk)
+                    e = max(float((y.re - emu.re).abs().max()),
+                            float((y.im - emu.im).abs().max())) / max(
+                        float(emu.re.abs().max()), float(emu.im.abs().max()))
+                    check(e < TC_SPLIT_REL, f"fir_mxu vs split {name}: {e}")
+                    line["k5 split"] = max(line["k5 split"], e)
+                    k5_tc += 1
+                    del y, emu
                 fm, fm_taps, rot = mxu_fm_bank(torch, gen, c, b, d, t, dtype)
                 lead = Complex(torch.full((c, 1), 0.6, device="cuda"),
                                torch.full((c, 1), -0.8, device="cuda"))
@@ -2056,13 +2083,13 @@ def phase_mxu_parity(torch, gen):
                 cases += 1
                 del x, fm
             print(f"parity K5/K6 {str(dtype)[6:]} D={d} T={t} s0=0..{2 * d + 1}"
-                  f" C=1,3,64: K5 {line['fir_mxu']:.2e} (of max |y|), K6 fm "
+                  f" C=1,3,64: K5 {line['fir_mxu']:.2e} (of max |y|; vs "
+                  f"split {line['k5 split']:.2e}), K6 fm "
                   f"{line['fm']:.2e} rad, am {line['am']:.2e} (of max), AGC "
                   f"{line['agc']:.2e}")
             for k in worst:
                 worst[k] = max(worst[k], line[k])
     k5_vs_tc, k5_routes = 0.0, []
-    lib = _build.library()
     k5_gen = torch.Generator(device="cuda")
     k5_gen.manual_seed(K5_SEED)
     for dtype in (torch.float32, torch.bfloat16):
@@ -2074,41 +2101,35 @@ def phase_mxu_parity(torch, gen):
             tail = noise(torch, g, 3, t - 1, dtype)
             name = f"{str(dtype)[6:]} D={d} T={t}"
             _, route = F._chunks("K1b", lib, F._MODE_FIR, 3, 9000, t, d, 0,
-                                 x.re, cut_mode=F._MODE_FIR)
-            check(route != "tc" or (d, t) not in K5_AT_K1B_OFF_TC,
-                  f"K1b {name} on the tc route")
-            n0 = dict(F.fir_exact.routes)
+                                 x.re)
+            check((route == "tc") == ((d, t) not in K5_AT_K1B_OFF_TC),
+                  f"K1b {name} on the {route} route")
+            n0, m0 = dict(F.fir_exact.routes), dict(M.fir_mxu.routes)
             a = M.fir_offset(x, taps, d, d - 1, tail)
             k1b = F.fir_exact(x, taps, d, tail)
-            check(F.fir_exact.routes[route] == n0[route] + 1,
-                  f"K1b {name}: not on the {route} route")
-            if route == "tc":
-                # K1b's bf16 passes against K5's float32 sums: each within
-                # the FIR gate of K1b's plain version, and of each other
-                ref = F.fir_exact_plain(x, taps, d, tail)
-                for label, got, want in (("K5", a, ref), ("K1b", k1b, ref),
-                                         ("K5 vs K1b", a, k1b)):
-                    scale = float(torch.maximum(want.re.abs().max(),
-                                                want.im.abs().max()))
-                    e = max(float((got.re - want.re).abs().max()),
-                            float((got.im - want.im).abs().max())) / scale
-                    check(e < REL_BOUND, f"{label} at K1b's window start "
-                          f"on the tc route vs plain ({name}): {e}")
-                    k5_vs_tc = max(k5_vs_tc, e)
-            else:
-                check(torch.equal(a.re, k1b.re)
-                      and torch.equal(a.im, k1b.im),
-                      f"K5 at offset D-1 != K1b ({name})")
+            check(F.fir_exact.routes[route] == n0[route] + 1
+                  and M.fir_mxu.routes[route] == m0[route] + 1,
+                  f"K5/K1b {name}: not both on the {route} route")
+            check(torch.equal(a.re, k1b.re) and torch.equal(a.im, k1b.im),
+                  f"K5 at offset D-1 != K1b ({name})")
+            ref = F.fir_exact_plain(x, taps, d, tail)
+            scale = float(torch.maximum(ref.re.abs().max(),
+                                        ref.im.abs().max()))
+            e = max(float((a.re - ref.re).abs().max()),
+                    float((a.im - ref.im).abs().max())) / scale
+            check(e < REL_BOUND, f"K5 at K1b's window start vs plain "
+                  f"({name}): {e}")
+            k5_vs_tc = max(k5_vs_tc, e)
             k5_routes.append(f"{str(dtype)[6:]} D={d} T={t}: {route}")
     print(f"parity K5/K6: {cases} cases, worst K5 {worst['fir_mxu']:.3e} of "
-          f"max |y| (bound {REL_BOUND:g}), K6 fm {worst['fm']:.3e} rad "
+          f"max |y| (bound {REL_BOUND:g}), on the tc route ({k5_tc} cases) "
+          f"{worst['k5 split']:.3e} vs split (bound {TC_SPLIT_REL:g}), K6 "
+          f"fm {worst['fm']:.3e} rad "
           f"(bound {ERR_BOUND:g}), am {worst['am']:.3e} (bound "
           f"{REL_BOUND:g}), AGC {worst['agc']:.3e} (bound {AGC_BOUND:g}); "
-          "K5 at offset D-1 == K1b bit for bit where K1b runs the staged or "
-          f"warp kernel (always at {K5_AT_K1B_OFF_TC}), K5 and K1b within "
-          f"{k5_vs_tc:.2e} of max |y| of K1b's plain version and of each "
-          f"other where it takes the tc route (K1b by route: "
-          f"{', '.join(k5_routes)})")
+          "K5 at offset D-1 == K1b bit for bit on K1b's route (off the tc "
+          f"route at {K5_AT_K1B_OFF_TC}), both within {k5_vs_tc:.2e} of max "
+          f"|y| of K1b's plain version (by route: {', '.join(k5_routes)})")
     return worst, cases
 
 
@@ -2118,11 +2139,13 @@ def phase_mxu_parity(torch, gen):
 TC_K1A_SHAPES = {"float32": ((4, 67), (5, 68), (8, 67), (10, 41), (16, 47)),
                  "bfloat16": ((4, 67), (5, 68), (8, 67), (10, 41), (16, 47),
                               (24, 55), (40, 71))}
-# K1b (mode fir) and K1c (mode am, +- the AGC) on the route, by mode and
-# plane dtype: (D, T, C) at both ends of their cuts and inside them (with
-# float32 planes fir 2-40 and am 13-40, each with gaps; 2-40 with
-# bfloat16), the DDC bank's D = 4, T = 67 and the AM bank's D = 40, T = 71
-# among them
+# K1b (mode fir), K1c (mode am, +- the AGC) and K1d (mode usb, +- the AGC)
+# on the route, by mode and plane dtype: (D, T, C) at both ends of their
+# cuts and inside them (with float32 planes fir 2-40 and am 13-40, each
+# with gaps; 2-40 with bfloat16; usb's to D = 120), the DDC bank's D = 4,
+# T = 67, the AM bank's D = 40, T = 71 and the USB bank's D = 80, T = 143
+# among them; and K5 (mode fir's cut) at every window form of its callers
+# (tools/k1_parity.py's k5_case), F1's D = 4, T = 67 among them
 K1BC_SEED = 12
 TC_K1BC_SHAPES = {
     ("fir", "float32"): ((2, 65, 3), (4, 67, 64), (5, 68, 3), (7, 70, 3),
@@ -2133,7 +2156,13 @@ TC_K1BC_SHAPES = {
     ("am", "float32"): ((13, 44, 3), (16, 47, 3), (20, 51, 1), (33, 64, 1),
                         (40, 71, 64)),
     ("am", "bfloat16"): ((2, 33, 3), (4, 35, 64), (40, 71, 64),
-                         (40, 71, 1))}
+                         (40, 71, 1)),
+    ("usb", "float32"): ((4, 67, 3), (13, 76, 1), (33, 96, 3),
+                         (31, 94, 64)),
+    ("usb", "bfloat16"): ((2, 65, 3), (40, 103, 1), (60, 123, 3),
+                          (80, 143, 64), (100, 163, 3), (120, 183, 1))}
+TC_K5_SHAPES = {"float32": ((4, 67, 64), (5, 68, 3), (20, 83, 1)),
+                "bfloat16": ((2, 37, 3), (4, 67, 64), (40, 71, 3))}
 TC_K6_SHAPES = {"float32": ((4, 67, 1, 64), (4, 67, 0, 3), (4, 67, 4, 1),
                             (8, 67, 9, 3), (16, 67, 9, 3)),
                 "bfloat16": ((4, 67, 1, 64), (4, 67, 0, 3), (8, 67, 9, 3),
@@ -2152,18 +2181,22 @@ def phase_tc_parity(torch, L, gen):
     the tc route.  Then K6 (fir_fm_mxu, TC_K6_SHAPES) at window starts 0-9
     in fm with and
     without de-emphasis and am with and without the AGC, the same way;
-    then K1b (fir_exact) and K1c (fir_am_exact, +- the AGC) at
-    TC_K1BC_SHAPES (tools/k1_parity.py's tc_case: against the split
-    emulation within TC_SPLIT_REL and the plain version under REL_BOUND or
-    AGC_BOUND).  Returns the worst errors and the case count."""
+    then K1b (fir_exact), K1c (fir_am_exact, +- the AGC) and K1d
+    (fir_usb_exact, +- the AGC) at TC_K1BC_SHAPES (tools/k1_parity.py's
+    tc_case: against the split emulation within TC_SPLIT_REL and the plain
+    version under REL_BOUND or AGC_BOUND), and K5 at TC_K5_SHAPES (its
+    k5_case, the same gates).  Returns the worst errors and the case
+    count."""
     from libsdr_tpu_torch.core.cplx import Complex
     from libsdr_tpu_torch.ops import fir_mxu as M
     from libsdr_tpu_torch.ops import fir_tc as TC
     from libsdr_tpu_torch.ops.fir import set_mxu_precision
+    from libsdr_tpu_torch.tools.k1_parity import k5_case
     from libsdr_tpu_torch.tools.k1_parity import tc_case as k1_tc_case
 
     worst = dict.fromkeys(("k1a split", "k1a plain", "k6 split",
-                           "k6 plain", "k1bc split", "k1bc plain"), 0.0)
+                           "k6 plain", "k1bc split", "k1bc plain",
+                           "k5 split", "k5 plain"), 0.0)
     cases = 0
     # K1b/K1c's cases draw from a generator of their own, so that the run's
     # generator reaches the later paths (W1's band among them: its margin,
@@ -2239,7 +2272,8 @@ def phase_tc_parity(torch, L, gen):
                           f"plain): " + ", ".join(line))
                     del x, fm
                 for mode, agcs in (("fir", (False,)),
-                                   ("am", (False, True))):
+                                   ("am", (False, True)),
+                                   ("usb", (False, True))):
                     for d, t, c in TC_K1BC_SHAPES[mode, str(dtype)[6:]]:
                         line = []
                         for agc in agcs:
@@ -2247,7 +2281,7 @@ def phase_tc_parity(torch, L, gen):
                                 es, ep = k1_tc_case(k1bc_gen, mode, agc,
                                                     dtype, d, t, c)
                             except AssertionError as e:
-                                raise SmokeFailure(f"tc K1b/K1c {e}")
+                                raise SmokeFailure(f"tc K1b/K1c/K1d {e}")
                             worst["k1bc split"] = max(worst["k1bc split"],
                                                       es)
                             worst["k1bc plain"] = max(worst["k1bc plain"],
@@ -2255,10 +2289,21 @@ def phase_tc_parity(torch, L, gen):
                             line.append(f"{'agc' if agc else 'no agc'} "
                                         f"{es:.1e}/{ep:.1e}")
                             cases += 1
-                        print(f"parity tc K1{'b' if mode == 'fir' else 'c'}"
-                              f" {mode} {str(dtype)[6:]} D={d} T={t} C={c} "
-                              f"passes={passes} (vs split / vs plain): "
-                              + ", ".join(line))
+                        kid = {"fir": "K1b", "am": "K1c", "usb": "K1d"}[mode]
+                        print(f"parity tc {kid} {mode} {str(dtype)[6:]} D={d} "
+                              f"T={t} C={c} passes={passes} (vs split / vs "
+                              "plain): " + ", ".join(line))
+                for d, t, c in TC_K5_SHAPES[str(dtype)[6:]]:
+                    try:
+                        es, ep = k5_case(k1bc_gen, dtype, d, t, c)
+                    except AssertionError as e:
+                        raise SmokeFailure(f"tc K5 {e}")
+                    worst["k5 split"] = max(worst["k5 split"], es)
+                    worst["k5 plain"] = max(worst["k5 plain"], ep)
+                    cases += 1
+                    print(f"parity tc K5 {str(dtype)[6:]} D={d} T={t} C={c} "
+                          f"passes={passes}, 7 window forms (vs split / vs "
+                          f"plain): {es:.1e}/{ep:.1e}")
     finally:
         set_mxu_precision("high")
     return worst, cases
@@ -2341,25 +2386,26 @@ def f1_taps(torch, L):
     return cplx.constant(taps, torch.float32, "cuda")
 
 
-def k5_bound(c, b, n, isz, t):
-    """K5's bound for one block: the planes read once, y's two float32
-    planes written once; the FIR's 8T operations an output."""
-    return bound(c * (2 * isz * b + 8 * n), c * n * 8 * t)
-
-
 def phase_f1(torch, L, gen, smi):
     """F1, the arbitrary-offset FIR bank: fir_overlap_save(taps, x, tail,
     stride=4, offset=0 and 1) over 64 channels x 2^24-sample blocks with the
     DDC bank's T = 67 taps, float32 and bfloat16 planes, best of 3 runs of
-    10 carry-chained steps, K5's launches counted from 0 (one a block).
-    Then K5 against its plain version on the arguments of the path's own
-    call, and the kernel, the plain version and the library call (one
-    strided conv1d over the stacked concat(tail, x), full float32: the
-    route the port took before) timed with CUDA events."""
+    10 carry-chained steps, K5's launches counted from 0 (one a block,
+    each on its route, F1_ROUTES).  Then K5 against its plain version on
+    the arguments of the path's own call, on its first two channels
+    against its split emulation (ops/fir_tc.py::fir_mxu_split, the
+    launch's chunks) within TC_SPLIT_REL where it takes the tc route, and
+    the kernel, the plain version and the library call (one strided conv1d
+    over the stacked concat(tail, x), full float32: the route the port
+    took before) timed with CUDA events, beside its bound on its route
+    (bank_bound: K1b's at the same shape)."""
     import torch.nn.functional as tf
 
+    from libsdr_tpu_torch import _build
     from libsdr_tpu_torch.core import cplx
+    from libsdr_tpu_torch.ops import fir_fm as F
     from libsdr_tpu_torch.ops import fir_mxu as M
+    from libsdr_tpu_torch.ops import fir_tc as TC
     from libsdr_tpu_torch.ops.fir import fir_overlap_save, full_f32
 
     taps = f1_taps(torch, L)
@@ -2394,13 +2440,32 @@ def phase_f1(torch, L, gen, smi):
             check(counts["fir_mxu"] == 1 + 3 * 10 and all(
                 v == 0 for k, v in counts.items() if k != "fir_mxu"),
                 f"F1 {plane} offset {offset} launches {counts}")
+            route = F1_ROUTES[plane]
+            check(M.fir_mxu.routes[route] == counts["fir_mxu"],
+                  f"F1 {plane} offset {offset} routes {M.fir_mxu.routes}, "
+                  f"not all {route}")
             launches += counts["fir_mxu"]
             del y, tl
             (args, kw), = k5.calls
-            errs, _, _ = mode_errs(torch, M.fir_offset, M.fir_offset_plain,
-                                   args, False)
+            errs, got, _ = mode_errs(torch, M.fir_offset, M.fir_offset_plain,
+                                     args, False)
             check(errs["rel"] < REL_BOUND,
                   f"F1 {plane} offset {offset} K5 vs plain: {errs}")
+            e_split = None
+            if route == "tc":
+                kk, _ = F._chunks("K5", _build.library(), F._MODE_FIR,
+                                  CHANNELS, n, F1_T, F1_D, 0, x.re)
+                emu = TC.fir_mxu_split(
+                    args[0][:2], args[1], F1_D, offset - (F1_T - 1), n, 0,
+                    args[4][:2], TC.passes_for(dtype, False), kk)
+                e_split = max(
+                    float((got.re[:2] - emu.re).abs().max()),
+                    float((got.im[:2] - emu.im).abs().max())) / max(
+                    float(emu.re.abs().max()), float(emu.im.abs().max()))
+                check(e_split < TC_SPLIT_REL,
+                      f"F1 {plane} offset {offset} K5 vs split: {e_split}")
+                del emu
+            del got
             ms = cuda_ms(torch, lambda: M.fir_offset(*args), 5)
             plain_ms = cuda_ms(torch, lambda: M.fir_offset_plain(*args), 2)
             # the library call: one strided conv1d over concat(tail, x)
@@ -2413,18 +2478,25 @@ def phase_f1(torch, L, gen, smi):
                 lib_ms = cuda_ms(torch, lambda: tf.conv1d(xb, w,
                                                           stride=F1_D), 2)
             del xb
-            b_ms, b_by = k5_bound(CHANNELS, BLOCK, n, x.re.element_size(),
-                                  F1_T)
+            b_ms, b_by, text = bank_bound(TC, "fir_exact", route,
+                                          x.re.element_size(), BLOCK, F1_D,
+                                          F1_T)
             res[(offset, plane)] = dict(ms_step=ms_step, err=errs["rel"],
                                         ms=ms, plain_ms=plain_ms,
-                                        lib_ms=lib_ms, bound=(b_ms, b_by))
+                                        lib_ms=lib_ms, bound=(b_ms, b_by),
+                                        route=route, split=e_split)
             print(f"phase F1 offset={offset} {plane} planes ({CHANNELS}x"
                   f"{BLOCK}, T={F1_T}, D={F1_D}): {ms_step:.3f} ms/step "
                   f"({CHANNELS * BLOCK / ms_step / 1e3:.1f} Msamples/s), "
-                  f"launches {counts}; K5 on the path's call: max_err "
-                  f"{errs['rel']:.3e} of max |y|, kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms, library conv1d {lib_ms:.3f} ms, bound "
-                  f"{b_ms:.3f} ms ({b_by}) | {smi}")
+                  f"launches {counts} on the {route} route; K5 on the "
+                  f"path's call: max_err {errs['rel']:.3e} of max |y|"
+                  + ("" if e_split is None else
+                     f" ({e_split:.2e} vs split on 2 channels)")
+                  + f", kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"library conv1d {lib_ms:.3f} ms, bound {b_ms:.3f} ms "
+                  f"({b_by}) | {smi}")
+            print(f"bound K5 F1 {route} route {plane} planes: {text}; kernel "
+                  f"{ms:.3f} ms")
             del x, args, k5
             torch.cuda.empty_cache()
     del x32
@@ -2845,10 +2917,11 @@ def main() -> int:
           f"(bound {ERR_BOUND:g}); K6 {tc_worst['k6 split']:.3e} vs split "
           f"(bounds {TC_SPLIT_FM:g} rad fm, {TC_SPLIT_REL:g} am), "
           f"{tc_worst['k6 plain']:.3e} vs plain (bounds {ERR_BOUND:g} rad "
-          f"fm, {REL_BOUND:g} am, {AGC_BOUND:g} AGC); K1b/K1c "
+          f"fm, {REL_BOUND:g} am, {AGC_BOUND:g} AGC); K1b/K1c/K1d "
           f"{tc_worst['k1bc split']:.3e} vs split (bound {TC_SPLIT_REL:g}), "
           f"{tc_worst['k1bc plain']:.3e} vs plain (bounds {REL_BOUND:g}, "
-          f"{AGC_BOUND:g} AGC)")
+          f"{AGC_BOUND:g} AGC); K5 {tc_worst['k5 split']:.3e} vs split, "
+          f"{tc_worst['k5 plain']:.3e} vs plain (bound {REL_BOUND:g})")
 
     # Kernel vs plain at the main path's shapes, timed with CUDA events,
     # and on two channels against the split emulation of the tc route, at
@@ -2916,7 +2989,7 @@ def main() -> int:
         BLOCK, x32, BLOCK // 4,
         [F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact],
         "tc")
-    fast_snr = phase_fast_snr(torch, L, x32, smi)
+    fast_snr, fast_flat = phase_fast_snr(torch, x32, smi)
     del x32, xr, xi
     torch.cuda.empty_cache()
     banks = phase_banks(torch, L, gen, smi)
@@ -2990,8 +3063,8 @@ def main() -> int:
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=None)]
     # The banks' kernels, each on the route its shape takes by plane dtype
-    # (BANK_ROUTES: K1b and K1c on the tc route, K1d on the warp kernel;
-    # K1c and K1d with the AGC passes of agc.cu), each bound computed once
+    # (BANK_ROUTES; K1c and K1d with the AGC passes of agc.cu), each bound
+    # computed once
     # (bank_bound) for its bound line and its record: the keys of float32
     # planes, and bf16_* those of bfloat16 planes.
     for label, name in (("K1b DDC bank", "fir_exact"),
@@ -3061,20 +3134,34 @@ def main() -> int:
             max_abs_err=e[0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms, device_ms=device_ms,
             kernel_route="+".join(r for r, n in routes.items() if n)))
-    # K5 at F1 (offset 0, float32 planes; library: the strided conv1d over
-    # concat(tail, x)); K6 at full width in fm with de-emphasis
-    for name, line, res, launches, lib_ms, src in (
-            ("fir_mxu", 204, f1[(0, "f32")], f1_launches,
-             f1[(0, "f32")]["lib_ms"], "fir_fm_exact.cu"),
-            ("fir_fm_mxu", 410, k6[("fm", "f32")], k6_launches, None,
-             "fir_tc.cu")):
-        record.append(dict(
-            name=name, route="cuda",
-            source=f"libsdr_tpu_torch/csrc/{src}",
-            replaces=f"libsdr_tpu/ops/pallas_fir_mxu.py:{line}",
-            launches=launches, max_abs_err=res["err"], ms=res["ms"],
-            plain_ms=res["plain_ms"], bound_ms=res["bound"][0],
-            bound_by=res["bound"][1], library_ms=lib_ms))
+    # K5 at F1 (offset 0; library: the strided conv1d over concat(tail,
+    # x)): float32 planes' numbers under the common keys, bfloat16 planes'
+    # under bf16_*, as the banks' rows; K6 at full width in fm with
+    # de-emphasis
+    row = dict(name="fir_mxu", route="cuda",
+               replaces="libsdr_tpu/ops/pallas_fir_mxu.py:204",
+               launches=f1_launches)
+    for plane in ("f32", "bf16"):
+        res = f1[(0, plane)]
+        pre = "" if plane == "f32" else "bf16_"
+        row.update({
+            pre + "source":
+                f"libsdr_tpu_torch/csrc/{ROUTE_SOURCES[res['route']]}",
+            pre + "kernel_route": res["route"],
+            pre + "max_abs_err": res["err"], pre + "ms": res["ms"],
+            pre + "plain_ms": res["plain_ms"],
+            pre + "bound_ms": res["bound"][0],
+            pre + "bound_by": res["bound"][1],
+            pre + "library_ms": res["lib_ms"]})
+    record.append(row)
+    res = k6[("fm", "f32")]
+    record.append(dict(
+        name="fir_fm_mxu", route="cuda",
+        source="libsdr_tpu_torch/csrc/fir_tc.cu",
+        replaces="libsdr_tpu/ops/pallas_fir_mxu.py:410",
+        launches=k6_launches, max_abs_err=res["err"], ms=res["ms"],
+        plain_ms=res["plain_ms"], bound_ms=res["bound"][0],
+        bound_by=res["bound"][1], library_ms=None))
     print(f"tc route ({tc_cases} parity cases): K1a at the "
           f"main shape {main['f32'][1]:.3f} / {main['bf16'][1]:.3f} ms (f32 "
           f"/ bf16 planes; 'fast' {main['f32'][4]:.3f} / "
@@ -3082,7 +3169,8 @@ def main() -> int:
           f"{k6[('fm', 'f32')]['ms']:.3f} / {k6[('fm', 'bf16')]['ms']:.3f}"
           f", am + AGC {k6[('am', 'f32')]['ms']:.3f} / "
           f"{k6[('am', 'bf16')]['ms']:.3f} ms; 'fast' vs 'high' "
-          f"{fast_snr:.1f} dB")
+          f"{fast_snr:.1f} dB (K1b, K1d, K5: "
+          + ", ".join(f"{v:.1f}" for v in fast_flat.values()) + " dB)")
     print(f"slice 5: K5/K6 parity {mxu_cases} cases (worst K5 "
           f"{mxu_worst['fir_mxu']:.2e}, K6 fm {mxu_worst['fm']:.2e} rad); F1 "
           + ", ".join(f"offset {o} {p} {r['ms_step']:.3f}"

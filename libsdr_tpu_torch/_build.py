@@ -118,7 +118,7 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         p, p, p, p,          # taps_r, taps_i, out, out_i
         i64, i64, i32, i32,  # C, B, T, D
         i64, i64, i64,       # window start s0, n_out, wrap
-        i32, i32, p]         # K, bf16 planes, stream
+        i32, i32, i32, p]    # K, fast (one bf16 pass), bf16 planes, stream
     lib.sdr_fir_mxu.restype = i32
     lib.sdr_fir_fm_mxu.argtypes = [
         i32, p, p,           # mode, xr, xi

@@ -14,8 +14,8 @@
 // 128-output frames, n_out = B/D and wrap = 128*D: the last frame's windows
 // reach past the block into the frame before it, as the TPU kernel's halo
 // clamps to the block's last frame.  fir_overlap_save (ops/fir.py) runs
-// sdr_fir_mxu with s0 = offset - (T-1), in the tail, and windows that end
-// inside the block.
+// sdr_fir_mxu with s0 = offset - (T-1), anywhere in [1 - T, B - T], wrap
+// 0 and windows that end inside the block.
 //
 // and then, by mode:
 //   kFm   audio = gain * atan2poly(y[j] conj(y[j-1]) rot), optional
@@ -114,7 +114,13 @@ inline int staged_max_d(int mode) {
 
 // The strides lo..hi as a set: bit D for stride D (D < 64).
 constexpr unsigned long long stride_set(int lo, int hi) {
-  return (1ULL << (hi + 1)) - (1ULL << lo);
+  return (hi >= 63 ? ~0ULL : (1ULL << (hi + 1)) - 1) & ~((1ULL << lo) - 1);
+}
+
+// The multiples of 4 from lo to hi (64 <= lo, hi < 128) as a set: bit D -
+// 64 for stride D.
+constexpr unsigned long long stride_set4_hi(int lo, int hi) {
+  return lo > hi ? 0ULL : (1ULL << (lo - 64)) | stride_set4_hi(lo + 4, hi);
 }
 
 // The cuts of the tensor-core kernel (fir_tc.cu): the strides that take it,
@@ -153,11 +159,34 @@ constexpr unsigned long long kTcFirF32 =
                           stride_set(34, 39));
 constexpr unsigned long long kTcAmF32 =
     stride_set(13, 40) & ~(stride_set(32, 32) | stride_set(34, 39));
+// * kUsb with the AGC (K1d), the USB bank's 64 ch x 16,777,200, T = 64 +
+//   D - 1, at every stride D = 2..63, the multiples of 4 from 64 to 128
+//   and 160, 180 and 200 (and 90), each kernel timed twice in each of two
+//   runs, the same rule as kFir's and kAm's over every timing taken.  With
+//   bfloat16 planes the route wins at every stride 2-61 and at the
+//   multiples of 4 from 64 to 120 but 84 and 108 (frames of one or two
+//   outputs; the USB bank's D = 80: 2.79 ms against the warp kernel's
+//   3.66), loses in one run of two at 62, 84 and 108 (within 6%), and
+//   loses at 63 (frames of 8), 90 (frames of 4) and from 124 up, where the
+//   warp kernel's time falls with the outputs (D = 200: 2.98 against
+//   2.44).  With float32 planes it wins only at D = 4, 13-16, 23, 25-31
+//   and 33, loses in one run of two at 20 and 40 (within 6%), and loses
+//   from 41 up (D = 80: 6.21 against 3.45; 32 frames of one output a tile,
+//   ~4 us each).  Below 64 a stride set, from 64 a set of its own
+//   (stride_set4_hi; with bfloat16 planes only).
+constexpr unsigned long long kTcUsbBf16 = stride_set(2, 61);
+constexpr unsigned long long kTcUsbBf16Hi = stride_set4_hi(64, 80) |
+                                            stride_set4_hi(88, 104) |
+                                            stride_set4_hi(112, 120);
+constexpr unsigned long long kTcUsbF32 =
+    stride_set(4, 4) | stride_set(13, 16) | stride_set(23, 23) |
+    stride_set(25, 31) | stride_set(33, 33);
 
 // Whether stride D takes the tensor-core kernel in the cut of `mode` with
-// bf16 (or float32) planes.  The comparison builds set SDR_TC_MAX_D for
-// every mode and both dtypes (0: no stride on it; a large value: every
-// stride whose plan fits).
+// bf16 (or float32) planes: a stride set below 64, and one of 64 to 127
+// (kUsb's alone has strides there).  The comparison builds
+// set SDR_TC_MAX_D for every mode and both dtypes (0: no stride on it; a
+// large value: every stride whose plan fits).
 inline bool tc_stride(int mode, int bf16, int D) {
 #ifdef SDR_TC_MAX_D
   (void)mode;
@@ -171,6 +200,10 @@ inline bool tc_stride(int mode, int bf16, int D) {
       break;
     case kAm:
       set = bf16 ? stride_set(2, 40) : kTcAmF32;
+      break;
+    case kUsb:
+      if (D >= 64) return bf16 && D < 128 && (kTcUsbBf16Hi >> (D - 64) & 1);
+      set = bf16 ? kTcUsbBf16 : kTcUsbF32;
       break;
     case kAfsk:
       set = stride_set(2, bf16 ? 40 : 16);
@@ -485,7 +518,7 @@ int warp_launch(int mode, const Params& p, long long C, int bf16,
 // p.ends holds each chunk's last output.
 int deemph_chunks_launch(const Params& p, long long C, cudaStream_t stream);
 
-// The tensor-core kernel (fir_tc.cu) for kFm, kFir, kAm and kAfsk: whether
+// The tensor-core kernel (fir_tc.cu) for every mode: whether
 // a plan of it fits the card's shared memory at this shape (passes: 1 for
 // 'fast', else 3 for float32 planes and 2 for bfloat16; L: kAfsk's window,
 // 0 in the other modes), the chunks per channel for C channels (-2 -

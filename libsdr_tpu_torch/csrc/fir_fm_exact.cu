@@ -34,14 +34,13 @@
 // 67 TFLOP/s f32 the two bounds are close at D = 4, so neither can be
 // ignored; at the rx app's strides (D >= 40, T/D < 2) HBM bounds it.
 //
-// Three kernels share the work by shape (route_of below): modes kFm, kFir,
-// kAm and kAfsk of K1 (every mode but kUsb), kFm and kAm of K6, take the
+// Three kernels share the work by shape (route_of below): every mode of K1,
+// K5 (mode kFir from any window start) and kFm and kAm of K6 take the
 // tensor-core kernel of fir_tc.cu at the strides of its cut
-// (fir_common.cuh: tc_stride); every other launch (K1's kUsb, K5, and
-// strides or tap counts outside the cut) takes the staged kernel below at
-// strides up to staged_max_d(mode) and the warp kernel of fir_warp.cu
-// above, which stages a few windows per warp instead of D polyphase rows
-// per block.
+// (fir_common.cuh: tc_stride); every other launch (strides or tap counts
+// outside the cut) takes the staged kernel below at strides up to
+// staged_max_d(mode) and the warp kernel of fir_warp.cu above, which
+// stages a few windows per warp instead of D polyphase rows per block.
 //
 // Design of the staged kernel:
 // * Each channel's B/D outputs are cut into K chunks, K from the occupancy
@@ -641,14 +640,14 @@ bool bad_iir(int mode, int iir, long long n_out, long long C, int K,
 }
 
 // The kernel that runs a launch, by shape alone.  cut_mode is the mode
-// whose cut of the tensor-core kernel the entry takes (K1 its own mode but
-// kUsb, K6 kFm for both its modes kFm and kAm), or -1 for none (K1's kUsb,
-// K5): strides in that cut (tc_stride) take it where its plan fits in
-// shared memory (kAfsk's with its window L); every other launch takes the
-// staged kernel up to staged_max_d and the warp kernel above.
+// whose cut of the tensor-core kernel the entry takes (K1 its own mode, K5
+// kFir's, K6 kFm's for both its modes kFm and kAm): strides in that cut
+// (tc_stride) take it where its plan fits in shared memory (kAfsk's with
+// its window L); every other launch takes the staged kernel up to
+// staged_max_d and the warp kernel above.
 int route_of(int mode, int cut_mode, int T, int D, int L, int bf16, int fast,
              int smem_max, int smem_sm) {
-  if (cut_mode >= 0 && tc_stride(cut_mode, bf16, D) &&
+  if (tc_stride(cut_mode, bf16, D) &&
       tc_fits(T, D, mode == kAfsk ? L : 0, bf16, fast, smem_max, smem_sm)) {
     return kRouteTc;
   }
@@ -717,13 +716,14 @@ extern "C" {
 
 // Chunks per channel for a launch of `mode` with n_out outputs a channel:
 // as many as fill the resident block slots of the card in one wave, with a
-// least chunk length per route.  cut_mode (-1: none) and fast as for
-// route_of; *route gets the route (kRouteStaged, kRouteWarp or kRouteTc).
+// least chunk length per route.  cut_mode and fast as for route_of;
+// *route gets the route (kRouteStaged, kRouteWarp or kRouteTc).
 // Returns K >= 1, -1 if the shape is outside the kernel's gate, or
 // -2 - cudaError_t.
 int sdr_fir_chunks(int mode, int cut_mode, long long C, long long n_out,
                    int T, int D, int L, int bf16, int fast, int* route) {
   if (bad_shape(C, n_out, T, D) || mode < kFm || mode > kAfsk ||
+      cut_mode < kFm || cut_mode > kAfsk ||
       (mode == kAfsk && (L < 2 || L > kAfskMaxL))) {
     return -1;
   }
@@ -768,9 +768,9 @@ int sdr_agc_chunks(long long C, long long n_out) {
 //   kFm   prev_r/prev_i (C,) is y[-1] and ylast_r/ylast_i (C,) get y[B/D-1];
 //         with iir != 0 the de-emphasis out = a*out[-1] + b*audio runs from
 //         s_in (C,), with ends (C, K) scratch when K > 1;
-//   kFm, kFir, kAm and kAfsk take the tensor-core kernel where route_of
-//         says so, in one bf16 pass when fast != 0
-//         (set_mxu_precision('fast')), else f32-accurate;
+//   every mode takes the tensor-core kernel where route_of says so, in one
+//         bf16 pass when fast != 0 (set_mxu_precision('fast')), else
+//         f32-accurate;
 //   kUsb  ramp_r/ramp_i are (B/D,) and ph_r/ph_i point at one float each;
 //   kAm, kUsb with iir != 0: the AGC with lam = a (and 1 - lam; b is not
 //         read) from s_in (C,) into s_out (C,), ends (C, K_agc) scratch; out
@@ -839,21 +839,22 @@ int sdr_fir_exact(int mode, const void* xr, const void* xi,
   }
   // the AGC of K1 is lam's own: b = 1 - lam
   const bool agc = mode == kAm || mode == kUsb;
-  return run(mode, mode == kUsb ? -1 : mode, p, C, K, K_agc, gain,
-             s_in, s_out, ends, a, agc ? 1.0 - a : b, iir, fast, bf16,
-             stream);
+  return run(mode, mode, p, C, K, K_agc, gain, s_in, s_out, ends, a,
+             agc ? 1.0 - a : b, iir, fast, bf16, stream);
 }
 
 // K5: the complex FIR alone (out, out_i: the planes of y, (C, n_out)) with
 // windows from x[s0 + j*D] for j < n_out, where s0 >= 1 - T; indices
 // below 0 read the (C, T-1) tail (which may be null when s0 >= 0), and
-// indices n >= B read x[n - wrap], 0 <= wrap <= B (fir_common.cuh).
-// Returns 0, -1 outside the gate, else a cudaError_t.
+// indices n >= B read x[n - wrap], 0 <= wrap <= B (fir_common.cuh).  It
+// takes the tensor-core kernel at the strides of mode kFir's cut, so that
+// at K1b's window start (s0 = D - T, wrap 0) it is K1b (fast as for
+// sdr_fir_exact).  Returns 0, -1 outside the gate, else a cudaError_t.
 int sdr_fir_mxu(const void* xr, const void* xi, const void* tail_r,
                 const void* tail_i, const float* taps_r, const float* taps_i,
                 float* out, float* out_i, long long C, long long B, int T,
                 int D, long long s0, long long n_out, long long wrap, int K,
-                int bf16, void* stream) {
+                int fast, int bf16, void* stream) {
   if (bad_shape(C, n_out, T, D) || bad_chunks(n_out, C, K) || !out ||
       !out_i || bad_window(B, s0, n_out, T, D, wrap) ||
       (s0 < 0 && !(tail_r && tail_i))) {
@@ -874,8 +875,8 @@ int sdr_fir_mxu(const void* xr, const void* xi, const void* tail_r,
   p.wrap = wrap;
   p.T = T;
   p.D = D;
-  return run(kFir, -1, p, C, K, 0, 1.f, nullptr, nullptr, nullptr, 0.0,
-             0.0, 0, 0, bf16, stream);
+  return run(kFir, kFir, p, C, K, 0, 1.f, nullptr, nullptr, nullptr, 0.0,
+             0.0, 0, fast, bf16, stream);
 }
 
 // K6: the v1 FIR with windows from x[s0 + j*D], s0 >= 0, over a block of

@@ -1,18 +1,20 @@
 // Tensor-core decimating complex FIR, alone or with the FM discriminator
-// (+ the de-emphasis, or + the dual-tone FSK correlator) or the AM envelope:
-// the route of K1's modes kFm (K1a, entry sdr_fir_exact), kFir (K1b), kAm
-// (K1c) and kAfsk (K1e), and of K6's kFm and kAm (entry sdr_fir_fm_mxu), at
-// the strides of its cut (fir_common.cuh: tc_stride).  It computes what
-// the staged kernel of fir_fm_exact.cu computes in those modes, with the
-// same window form (Params: K1's start D - T with the tail, K6's s0 >= 0
-// and its wrap of 128*D) and the same epilogues.  K5 (sdr_fir_mxu: mode
-// kFir from any window start) does not take it.
+// (+ the de-emphasis, or + the dual-tone FSK correlator), the AM envelope
+// or the USB rotation: the route of K1's modes kFm (K1a, entry
+// sdr_fir_exact), kFir (K1b), kAm (K1c), kUsb (K1d) and kAfsk (K1e), of
+// K5 (entry sdr_fir_mxu: mode kFir from any window start, with kFir's
+// cut) and of K6's kFm and kAm (entry sdr_fir_fm_mxu), at the strides of
+// its cut (fir_common.cuh: tc_stride).  It computes what the staged kernel
+// of fir_fm_exact.cu computes in those modes, with the same window form
+// (Params: K1's start D - T with the tail, K5's any start in [1 - T, B - T]
+// with the tail and a wrap of 0 or 128*D, K6's s0 >= 0 and its wrap of
+// 128*D) and the same epilogues.
 //
 // Replaces the TPU kernels libsdr_tpu/ops/pallas_fir_mxu.py::_kernel_fm2
-// (:777, modes 'fm', 'fir', 'am' and 'afsk') and ::_kernel_fm (:410, modes
-// 'fm' and 'am'), and does their arithmetic: the FIR as block-Toeplitz
-// frame matmuls, f32-accurate from a manual split into bf16 passes
-// (_make_mm, :161):
+// (:777, modes 'fm', 'fir', 'am', 'usb' and 'afsk'), ::_kernel (:204, the
+// v1 FIR) and ::_kernel_fm (:410, modes 'fm' and 'am'), and does their
+// arithmetic: the FIR as block-Toeplitz frame matmuls, f32-accurate from a
+// manual split into bf16 passes (_make_mm, :161):
 //
 //   float32 planes  x_hi*g_hi + x_hi*g_lo + x_lo*g_hi    (3 passes)
 //   bfloat16 planes x*g_hi + x*g_lo                      (2 passes: x exact)
@@ -34,7 +36,13 @@
 // the AM bank's D = 40 (T = 71) a tile holds few outputs (shared memory
 // holds each output's 40 samples twice raw and once converted), so the MMAs
 // and the epilogue cost a tenth of D = 4's a sample and the copies and the
-// conversion set the pace.
+// conversion set the pace.  The USB bank's D = 80 (T = 143) is the far end
+// of that: frames of one output (S*D a multiple of 8), so an n-tile's four
+// output columns hold one and the band is a quarter useful, 32 (float32
+// planes) or 64 (bfloat16) outputs a tile, each tile's span one bulk copy
+// of ~2,600 or ~5,200 samples a plane; the MMAs stay a small share and the
+// tile's fixed steps set the pace (~3.4 us a tile at either dtype; a ring
+// of four raw stages measured no faster, PERF.md).
 //
 // Design:
 // * GEMM rows are frames: S consecutive outputs of one channel.  Row f of a
@@ -63,18 +71,23 @@
 //   epilogue; two blocks share an SM where they fit (the main path: 106
 //   KB each), so one block's MMAs overlap the other's conversion and
 //   epilogue.  Spans that reach into the tail or past the block (the first
-//   tile of a channel in K1, K6's last frame) are read by the threads
-//   through sample_at instead.
+//   tile of a channel in K1, and in K5 where its start is negative; the
+//   tiles of K5 and K6 whose windows wrap) are read by the threads through
+//   sample_at instead; every other tile, a later chunk's first among them
+//   wherever its chunk starts, takes the bulk copies.
 // * Epilogue: the accumulators go to shared memory in output order (over
 //   the converted span, which the MMAs no longer read), and each thread
 //   runs the staged kernel's discriminator and de-emphasis scan
 //   (fir_common.cuh: fm_audio, DeemphScan) over 4 consecutive outputs, or
-//   gain*|y| (kAm), or takes y itself (kFir: both planes, no carry), and
-//   stores them 16 bytes at a time (storing from the mma.sync accumulators
-//   would scatter 8-byte pairs, a lane's rows f and f + 8, across frames);
-//   the de-emphasis across chunks and the AGC of kAm (K1c, K6) are the
-//   same follow-up kernels as the staged route's.  A later chunk's
-//   y[j_begin - 1] is recomputed in the same passes (warp_y_at<P>).
+//   gain*|y| (kAm), or the exact NCO's rotation by a0 * ramp[j] and
+//   gain*(re + im)/2 (kUsb: usb_sig; a0 read once a block, the ramp, which
+//   every channel shares, in 16-byte loads that stay in L2), or takes y
+//   itself (kFir: both planes, no carry), and stores them 16 bytes at a
+//   time (storing from the mma.sync accumulators would scatter 8-byte
+//   pairs, a lane's rows f and f + 8, across frames); the de-emphasis
+//   across chunks and the AGC of kAm and kUsb (K1c, K1d, K6) are the same
+//   follow-up kernels as the staged route's.  A later chunk's y[j_begin -
+//   1] is recomputed in the same passes (warp_y_at<P>).
 // * kAfsk (K1e): the discriminator's audio times the tone templates
 //   (float4 in shared memory, the template index stepped a tile at a time)
 //   gives each thread's four products of each tone; their prefix sums go
@@ -91,10 +104,10 @@
 //   parts) that measured 1.07 ms at the AX.25 bank's shape against these
 //   sums' 0.82 (PERF.md), so the CUDA cores keep them.
 // * The plan (S, frames a tile, buffer sizes) depends on T, D, the plane
-//   dtype, the pass count and kAfsk's L only (tc_plan; kFir and kAm take
-//   kFm's, whose de-emphasis scratch is in the fixed header); where none
-//   fits in shared memory, route_of sends the launch to the staged or warp
-//   kernel.
+//   dtype, the pass count and kAfsk's L only (tc_plan; kFir, kAm and kUsb
+//   take kFm's, whose de-emphasis scratch is in the fixed header); where
+//   none fits in shared memory, route_of sends the launch to the staged or
+//   warp kernel.
 //   The kernel allocates nothing and does not synchronise.
 
 #include <stdint.h>
@@ -522,6 +535,22 @@ __device__ __forceinline__ void store4(float* o, const float (&v)[kTcR],
   }
 }
 
+// v[0 .. 3] = i[0 .. n-1], zeros from n on (n may be <= 0): one 16-byte
+// load where i is aligned and all four are in range.
+__device__ __forceinline__ void load4(const float* i, float (&v)[kTcR],
+                                      int n) {
+  if (n >= kTcR && (reinterpret_cast<uintptr_t>(i) & 15) == 0) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(i));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kTcR; ++r) v[r] = r < n ? i[r] : 0.f;
+}
+
 // v[0 .. 3], the outputs j .. j + 3 of a tile starting at output j0, to
 // orow: those with j + r < nv and j0 + j + r >= j_lo (a later chunk's
 // outputs before its own start are not written).
@@ -711,6 +740,11 @@ fir_tc_kernel(const Params p, const TcPlan g) {
   const Tin* ti = p.s0 < 0 ? static_cast<const Tin*>(p.tail_i) + c * (T - 1)
                            : nullptr;
   float* orow = p.out + c * p.n_out;
+  float ph_r = 0.f, ph_i = 0.f;  // kUsb: the block's unit phasor a0
+  if constexpr (MODE == kUsb) {
+    ph_r = p.ph_r[0];
+    ph_i = p.ph_i[0];
+  }
 
   if (tid == 0) {
     for (int s = 0; s < 2; ++s) {
@@ -883,6 +917,16 @@ fir_tc_kernel(const Params p, const TcPlan g) {
         loc[r] = p.gain * sqrtf(yr[r] * yr[r] + yi[r] * yi[r]);
       }
       store4(orow + j0 + jb, loc, nv - jb);
+    } else if constexpr (MODE == kUsb) {
+      // the exact NCO: output j rotated by a0 * ramp[j]
+      float rr[kTcR], ri[kTcR];
+      load4(p.ramp_r + j0 + jb, rr, nv - jb);
+      load4(p.ramp_i + j0 + jb, ri, nv - jb);
+#pragma unroll
+      for (int r = 0; r < kTcR; ++r) {
+        loc[r] = p.gain * usb_sig(yr[r], yi[r], ph_r, ph_i, rr[r], ri[r]);
+      }
+      store4(orow + j0 + jb, loc, nv - jb);
     } else if constexpr (MODE == kFir) {
       store4(orow + j0 + jb, yr, nv - jb);
       store4(p.out_i + c * p.n_out + j0 + jb, yi, nv - jb);
@@ -989,6 +1033,14 @@ TcKernel tc_kernel(int mode, int bf16, int fast) {
                   : fir_tc_kernel<kAm, __nv_bfloat16, 2>;
     }
     return fast ? fir_tc_kernel<kAm, float, 1> : fir_tc_kernel<kAm, float, 3>;
+  }
+  if (mode == kUsb) {
+    if (bf16) {
+      return fast ? fir_tc_kernel<kUsb, __nv_bfloat16, 1>
+                  : fir_tc_kernel<kUsb, __nv_bfloat16, 2>;
+    }
+    return fast ? fir_tc_kernel<kUsb, float, 1>
+                : fir_tc_kernel<kUsb, float, 3>;
   }
   if (mode == kAfsk) {
     if (bf16) {

@@ -33,33 +33,32 @@ hand-written kernels of ``csrc/`` or raises.  Each entry counts its kernel
 launches in ``<entry>.launches`` and, by the kernel that ran, in
 ``<entry>.routes`` (``{"tc": n, "staged": n, "warp": n}``).
 
-Three kernels, by shape (``csrc/fir_common.cuh::route_of``).  Mode fm
-(:func:`fir_fm_exact`) takes the tensor-core kernel (``csrc/fir_tc.cu``) at
-strides 4 to 16 with float32 planes and 4 to 40 with bfloat16 planes, mode
-afsk (:func:`fir_afsk_exact`) at strides 2 to 16 and 2 to 40, mode fir
-(:func:`fir_exact`) at 4 to 20 and 2 to 40, mode am (:func:`fir_am_exact`)
-at 16 to 40 and 2 to 40, where its plan fits in shared memory: the FIR as
-the TPU kernel's frame matmul on bf16 tensor cores, f32-accurate in three
-passes (two for bfloat16 planes; one after ``set_mxu_precision('fast')``,
+Three kernels, by shape (``csrc/fir_common.cuh::route_of``).  Every mode
+takes the tensor-core kernel (``csrc/fir_tc.cu``) at the strides of its cut
+(``tc_stride``), where its plan fits in shared memory: the FIR as the TPU
+kernel's frame matmul on bf16 tensor cores, f32-accurate in three passes
+(two for bfloat16 planes; one after ``set_mxu_precision('fast')``,
 ``ops/fir_tc.py``), mode afsk's window sums in float32 on the CUDA cores,
-mode am's AGC in the same follow-up passes as on the other kernels.
-Every other launch (mode usb always) takes the staged kernel at strides up
-to 40 in modes fm, usb and afsk and up to 16 in modes fir and am, and the
-warp-per-output kernel above.  The cuts are where the kernels' times on an
-H100 cross (``tools/fir_paths.py``; PERF.md): mode fm at D = 2..40, 64 ch
-x 2^24, T = 32 + D - 1: at D = 4 the tensor-core kernel takes 4.5 ms
-against the staged kernel's 5.9 with float32 planes and 3.5 against 5.5
-with bfloat16; it loses at D = 3, and with float32 planes at D = 24 and 32
-(7.9 against 6.6 ms at 24).  Mode afsk at D = 2..40, 64 ch x 2^21, T = 48
-+ D - 1, L = 40: at D = 4 0.83 against 1.20 ms with float32 planes and
-0.70 against 1.25 with bfloat16; with float32 planes it loses at D = 24
-and 32.  Mode fir at D = 2..40, 64 ch x 2^24, T = 64 + D - 1: at the DDC
-bank's D = 4, 4.53 against 5.26 ms with float32 planes and 3.33 against
-7.06 with bfloat16; with float32 planes it loses at D = 3, 8, 24 and 32.
-Mode am with the AGC at D = 2..40, 64 ch x 16,777,200, T = 32 + D - 1: at
-the AM bank's D = 40, 4.60 against the warp kernel's 4.92 ms with float32
-planes and 2.13 against 5.46 with bfloat16; with float32 planes it loses
-below 16.
+modes am's and usb's AGC in the same follow-up passes as on the other
+kernels.  The cuts, float32 / bfloat16 planes: mode fm (:func:`fir_fm_exact`)
+D = 4-16 / 4-40; afsk (:func:`fir_afsk_exact`) 2-16 / 2-40; fir
+(:func:`fir_exact`) 2-40 but 3, 6, 8, 9, 12, 24, 32 and 34-39 / 2-40; am
+(:func:`fir_am_exact`) 13-40 but 32 and 34-39 / 2-40; usb
+(:func:`fir_usb_exact`) 4, 13-16, 23, 25-31 and 33 / 2-61 and the
+multiples of 4 from 64 to 120 but 84 and 108.  Every other launch
+takes the staged kernel at strides up to 40 in modes fm, usb and afsk and
+up to 16 in modes fir and am, and the warp-per-output kernel above.  The
+cuts are where the kernels' times on an H100 cross, each stride timed
+twice (``tools/fir_paths.py``; PERF.md): mode fm at D = 2..40, 64 ch x
+2^24, T = 32 + D - 1 (at D = 4, 4.5 ms against the staged kernel's 5.9
+with float32 planes, 3.5 against 5.5 with bfloat16); afsk at 64 ch x 2^21,
+T = 48 + D - 1, L = 40 (D = 4: 0.83 against 1.20, 0.70 against 1.25); fir
+at 64 ch x 2^24, T = 64 + D - 1 (the DDC bank's D = 4: 4.53 against 5.26,
+3.33 against 7.06); am with the AGC at 64 ch x 16,777,200, T = 32 + D - 1
+(the AM bank's D = 40: 4.60 against the warp kernel's 4.92, 2.13 against
+5.46); usb with the AGC at 64 ch x 16,777,200, T = 64 + D - 1 (the USB
+bank's D = 80: 2.79 against the warp kernel's 3.66 with bfloat16 planes,
+6.21 against 3.45 with float32, whose plan holds 32 outputs a tile).
 
 Chunks.  Each channel's B/D outputs are cut into K chunks, K as large as the
 card's resident slots allow in one wave, and each chunk is one block of the
@@ -253,12 +252,19 @@ def fir_am_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
     return out, sd_last
 
 
+def _usb_sig(y: Complex, phasor: Complex, ramp: Complex) -> torch.Tensor:
+    """The USB mode's sample of each output: (re + im)/2 of y[j] * (a0 *
+    ramp[j])."""
+    z = y * (phasor * ramp)
+    return (z.re + z.im) * 0.5
+
+
 def fir_usb_exact_plain(x: Complex, taps: Complex, stride: int,
                         tail: Complex, phasor: Complex, ramp: Complex,
                         gain: float, agc_ab=None, sd=None):
     """Plain PyTorch version of :func:`fir_usb_exact`, in float32."""
-    z = _fir_y(x, taps, int(stride), tail) * (phasor * ramp)
-    return _agc_plain((z.re + z.im) * 0.5, gain, agc_ab, sd)
+    return _agc_plain(_usb_sig(_fir_y(x, taps, int(stride), tail), phasor,
+                               ramp), gain, agc_ab, sd)
 
 
 def fir_usb_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
@@ -411,12 +417,13 @@ def _small(name, dev):
     return small
 
 
-def _chunks(name, lib, mode, c, n_out, t, d, ell, xr, cut_mode=-1):
+def _chunks(name, lib, mode, c, n_out, t, d, ell, xr, cut_mode=None):
     """(K, route name) for a launch of n_out outputs a channel, or
     ValueError outside the gate; ``cut_mode``: the mode whose cut of the
-    tensor-core kernel the entry takes, -1 for none
+    tensor-core kernel the entry takes, the mode's own by default
     (csrc/fir_fm_exact.cu::route_of)."""
     route = ctypes.c_int(-1)
+    cut_mode = mode if cut_mode is None else cut_mode
     with torch.cuda.device(xr.device):
         k = lib.sdr_fir_chunks(mode, cut_mode, c, n_out, t, d, ell,
                                int(xr.dtype == torch.bfloat16), _fast(),
@@ -521,8 +528,7 @@ def _launch(entry, mode, x, taps, d, tail, gain=1.0, iir_ab=None,
         ops = (ctypes.c_void_p * 13)(*[v.data_ptr() for v in (
             tpl + [n0] + u_in + u_out)])
     lib = _build.library()
-    k, route = _chunks(name, lib, mode, c, n, t, d, ell, xr,
-                       cut_mode=-1 if mode == _MODE_USB else mode)
+    k, route = _chunks(name, lib, mode, c, n, t, d, ell, xr)
     out = empty(c, n)
     out_i = empty(c, n) if mode == _MODE_FIR else None
     a, bc, s_in, s_out, ends, k_agc = _iir_operands(

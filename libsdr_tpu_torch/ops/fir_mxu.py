@@ -32,12 +32,14 @@ Each entry dispatches on the device of its input: a CPU tensor takes its
 plain PyTorch version (``*_plain``, beside it); a CUDA tensor launches a
 kernel with the caller's window start (C entries ``sdr_fir_mxu`` and
 ``sdr_fir_fm_mxu``; the AGC is ``csrc/agc.cu``'s passes), or raises
-``ValueError`` naming the limit it is outside.  K5 runs the staged or warp
-kernel of ``csrc/fir_fm_exact.cu`` and ``csrc/fir_warp.cu``; K6, in both
-modes, the tensor-core kernel of ``csrc/fir_tc.cu`` at the strides of
-mode fm's cut in ``ops/fir_fm.py`` where its plan fits
-(``ops/fir_tc.py``; one bf16 pass after ``set_mxu_precision('fast')``),
-else the same two.  K5's launches, from
+``ValueError`` naming the limit it is outside.  Both take the
+tensor-core kernel of ``csrc/fir_tc.cu`` where their cut says so and its
+plan fits (``ops/fir_tc.py``: the split emulation of K5 is
+``fir_mxu_split``; one bf16 pass after ``set_mxu_precision('fast')``),
+else the staged or warp kernel of ``csrc/fir_fm_exact.cu`` and
+``csrc/fir_warp.cu``: K5 at the strides of mode fir's cut in
+``ops/fir_fm.py`` (so that at K1b's window start, offset ``stride - 1``,
+it is K1b bit for bit), K6 in both modes at mode fm's.  K5's launches, from
 :func:`fir_mxu` and :func:`fir_offset`, count in ``fir_mxu.launches``;
 K6's in ``fir_fm_mxu.launches``; both by route in ``.routes``.
 
@@ -208,7 +210,7 @@ def _launch_fir(name, x, taps, d, s0, n_out, wrap, tail=None) -> Complex:
         rc = lib.sdr_fir_mxu(
             xr.data_ptr(), xi.data_ptr(), _ptr(tr), _ptr(ti), gr.data_ptr(),
             gi.data_ptr(), out.data_ptr(), out_i.data_ptr(), c, b, t, d, s0,
-            n_out, wrap, k, int(xr.dtype == torch.bfloat16),
+            n_out, wrap, k, _fast(), int(xr.dtype == torch.bfloat16),
             ctypes.c_void_p(stream))
     _check(name, lib, rc)
     _count(fir_mxu, route)

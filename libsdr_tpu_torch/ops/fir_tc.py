@@ -1,15 +1,14 @@
 """The tensor-core route of the decimating FIR (``csrc/fir_tc.cu``): its
 layout and a plain emulation of its arithmetic.
 
-K1a (``ops/fir_fm.fir_fm_exact``) and K6 (``ops/fir_mxu.fir_fm_mxu``,
-modes 'fm' and 'am') launch the tensor-core kernel at strides 4 to 16 with
-float32 planes and 4 to 40 with bfloat16 planes, K1e
-(``ops/fir_fm.fir_afsk_exact``) at 2 to 16 and 2 to 40, K1b
-(``fir_exact``) at 4 to 20 and 2 to 40, K1c (``fir_am_exact``) at 16 to
-40 and 2 to 40, where its plan fits in shared memory
-(``csrc/fir_common.cuh::route_of``); this module
-holds what that kernel's arithmetic and layout are, in plain PyTorch, so
-that the CPU tests reach them:
+Every mode of K1 (``ops/fir_fm.py``: ``fir_fm_exact``, ``fir_exact``,
+``fir_am_exact``, ``fir_usb_exact``, ``fir_afsk_exact``), K5 and K6
+(``ops/fir_mxu.py``: ``fir_mxu`` / ``fir_offset``, ``fir_fm_mxu``) launch
+the tensor-core kernel at the strides of their cuts where its plan fits in
+shared memory (``csrc/fir_common.cuh::route_of`` and ``tc_stride``; the
+cuts are listed in ``ops/fir_fm.py``); this module holds what that
+kernel's arithmetic and layout are, in plain PyTorch, so that the CPU
+tests reach them:
 
 * :func:`tc_plan`: the kernel's plan of a shape, the rule of
   ``fir_tc.cu::tc_plan`` (frames of S outputs with S*D a multiple of 8,
@@ -24,8 +23,10 @@ that the CPU tests reach them:
 * :func:`fir_y_split`: y as the kernel computes it, the frame GEMM in 3, 2
   or 1 bf16 passes with float32 sums (``passes=None``: one float32 GEMM),
   and :func:`fm_exact_split`, :func:`fir_exact_split`,
-  :func:`am_exact_split` / :func:`fm_mxu_split`, the results of K1a, K1b,
-  K1c and K6 with it;
+  :func:`am_exact_split`, :func:`usb_exact_split`, :func:`fir_mxu_split`
+  (over K5's span from any window start, :func:`span_k5`) and
+  :func:`fm_mxu_split`, the results of K1a, K1b, K1c, K1d, K5 and K6 with
+  it;
 * mode afsk's correlator: :func:`blocked_sums` (the window sums in
   float32, blocked by the epilogue's four outputs a thread) and
   :func:`afsk_exact_split`, K1e's results, chunk by chunk from each
@@ -286,25 +287,54 @@ def fm_exact_split(x: Complex, taps, stride: int, tail: Complex,
     return _fm_plain(y, prev, rot, gain, deemph_ab, dstate), y[..., -1]
 
 
-def fir_exact_split(x: Complex, taps, stride: int, tail: Complex,
-                    passes: int = 3, chunks: int = 1) -> Complex:
-    """K1b (``fir_exact``, mode fir) as the tensor-core kernel computes it,
-    with the same arguments and result, Complex (C, B/D) y: each of
-    ``chunks`` chunks of the block's outputs (ceil(n/chunks) each, the
-    kernel's cut) from its own frame grid, frames of the plan's S outputs
-    for the plane dtype and pass count, in ``passes`` bf16 passes
-    (:func:`fir_y_split`).  No state crosses a chunk: y needs only the
-    window."""
+def span_k5(x: Complex, t: int, d: int, s0: int, n_out: int, wrap: int,
+            tail: Optional[Complex] = None) -> Complex:
+    """K5's span (the window form of ``csrc/fir_common.cuh``): v[n] for n
+    in [s0, s0 + (n_out-1)*D + T), where v[n] is the (C, T-1) carry tail's
+    tail[n + T-1] for n < 0, x[n] inside the block and x[n - wrap] past
+    it."""
+    b = x.re.shape[-1]
+    lo, hi = s0, s0 + (n_out - 1) * d + t
+    parts = []
+    if lo < 0:
+        parts.append(tail.to(x.re.dtype)[..., lo + t - 1:min(hi, 0) + t - 1])
+    if hi > 0 and lo < b:
+        parts.append(x[..., max(lo, 0):min(hi, b)])
+    if hi > b:
+        parts.append(x[..., max(lo, b) - wrap:hi - wrap])
+    return cplx.concatenate(parts, axis=-1)
+
+
+def fir_mxu_split(x: Complex, taps, stride: int, s0: int, n_out: int,
+                  wrap: int = 0, tail: Optional[Complex] = None,
+                  passes: int = 3, chunks: int = 1) -> Complex:
+    """K5 (``ops/fir_mxu.py``: ``fir_mxu`` with s0 = offset, n_out = B/D
+    and wrap = 128*D; ``fir_offset`` with s0 = offset - (T-1), the tail
+    and wrap 0) as the tensor-core kernel computes it: Complex (C, n_out)
+    y over :func:`span_k5`, each of ``chunks`` chunks of the outputs
+    (ceil(n_out/chunks) each, the kernel's cut) from its own frame grid,
+    frames of the plan's S outputs for the plane dtype and pass count, in
+    ``passes`` bf16 passes (:func:`fir_y_split`).  No state crosses a
+    chunk: y needs only the window."""
     d = int(stride)
-    n = x.re.shape[-1] // d
     t = _n_taps(taps)
     plan = tc_plan(t, d, x.re.element_size(), passes)
     s = plan.S if plan is not None else 8
-    span = span_k1(x, tail, d)
-    chunk = -(-n // chunks)
+    span = span_k5(x, t, d, int(s0), n_out, wrap, tail)
+    chunk = -(-n_out // chunks)
     return cplx.concatenate(
-        [fir_y_split(span[..., k * d:], taps, d, min(n, k + chunk) - k,
-                     passes, s=s) for k in range(0, n, chunk)], axis=-1)
+        [fir_y_split(span[..., k * d:], taps, d, min(n_out, k + chunk) - k,
+                     passes, s=s) for k in range(0, n_out, chunk)], axis=-1)
+
+
+def fir_exact_split(x: Complex, taps, stride: int, tail: Complex,
+                    passes: int = 3, chunks: int = 1) -> Complex:
+    """K1b (``fir_exact``, mode fir) as the tensor-core kernel computes it,
+    with the same arguments and result, Complex (C, B/D) y: K5's split
+    (:func:`fir_mxu_split`) at K1's window start D - T."""
+    d = int(stride)
+    return fir_mxu_split(x, taps, d, d - _n_taps(taps), x.re.shape[-1] // d,
+                         0, tail, passes, chunks)
 
 
 def am_exact_split(x: Complex, taps, stride: int, tail: Complex,
@@ -318,6 +348,21 @@ def am_exact_split(x: Complex, taps, stride: int, tail: Complex,
 
     y = fir_exact_split(x, taps, stride, tail, passes, chunks)
     return _agc_plain(y.abs(), gain, agc_ab, sd)
+
+
+def usb_exact_split(x: Complex, taps, stride: int, tail: Complex,
+                    phasor: Complex, ramp: Complex, gain: float, agc_ab=None,
+                    sd=None, passes: int = 3, chunks: int = 1):
+    """K1d (``fir_usb_exact``, mode usb) as the tensor-core kernel computes
+    it, with the same arguments and results: y of :func:`fir_exact_split`
+    rotated by the exact NCO, ``(re + im)/2`` of ``y[j] * (a0 * ramp[j])``,
+    then ``gain * sig``, or with the AGC (its follow-up passes,
+    ``csrc/agc.cu``, as the plain version runs them) ``gain * sig / sd``
+    and the last sd; (out, sd_last or None)."""
+    from libsdr_tpu_torch.ops.fir_fm import _agc_plain, _usb_sig
+
+    y = fir_exact_split(x, taps, stride, tail, passes, chunks)
+    return _agc_plain(_usb_sig(y, phasor, ramp), gain, agc_ab, sd)
 
 
 def fm_mxu_split(x: Complex, taps, stride: int, offset: int,

@@ -9,12 +9,11 @@ Needs one CUDA card and nvcc.  Builds the kernel library three times, in
 parallel: with every stride on the staged kernel (``SDR_STAGED_MAX_D``
 large, ``SDR_TC_MAX_D=0``), with every stride on the warp kernel
 (``SDR_STAGED_MAX_D=0``, ``SDR_TC_MAX_D=0``) and, for the modes of K1
-with a tensor-core route (fm, fir, am and afsk: every mode but usb), with
-every stride whose plan fits on the tensor-core kernel (``SDR_TC_MAX_D``
-large).  Then, for every mode (fm with de-emphasis, fir, am and usb with
-the AGC, afsk with a 40-sample correlator), stride D and plane dtype, on C
-channels
-of about ``--block`` samples with T = order + D - 1 taps (the rx chains'
+with a tensor-core route (every mode: TC_MODES), with every stride whose
+plan fits on the tensor-core kernel (``SDR_TC_MAX_D`` large).  Then, for
+every mode (fm with de-emphasis, fir, am and usb with the AGC, afsk with
+a 40-sample correlator), stride D and plane dtype, on C channels of about
+``--block`` samples with T = order + D - 1 taps (the rx chains'
 orders: 32 for fm and am, 64 for fir and usb; the AX.25 bank's 48 for
 afsk), it holds the staged and the warp kernel against the plain
 version twice: from the op's initial carry ("cold": block 0, zero
@@ -51,7 +50,7 @@ AFSK_L = 40   # the correlator window of mode afsk (the AX.25 bank's)
 VARIANTS = {"staged": ("SDR_STAGED_MAX_D=1000000", "SDR_TC_MAX_D=0"),
             "warp": ("SDR_STAGED_MAX_D=0", "SDR_TC_MAX_D=0"),
             "tc": ("SDR_TC_MAX_D=1000000",)}
-TC_MODES = ("fm", "fir", "am", "afsk")   # K1's modes with a tc route
+TC_MODES = ("fm", "fir", "am", "usb", "afsk")   # K1's modes on the tc route
 
 
 def fm_planes(gen, c, b, d, t0):

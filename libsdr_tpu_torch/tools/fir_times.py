@@ -23,7 +23,7 @@ start with one of the prefixes given.
 Build variants: ``default`` is the library as the package builds it;
 ``staged`` is built with ``SDR_TC_MAX_D=0``, so that every launch takes the
 staged or warp kernel (the tensor-core route's comparison, in turns with
-``default`` in one call: K1a, K1b, K1c, K1e and K6 leave it).  ``--knockouts`` adds, for both, the builds
+``default`` in one call: every call leaves it).  ``--knockouts`` adds, for both, the builds
 without parts of K1e's epilogue (``csrc/fir_common.cuh``:
 ``SDR_AFSK_KO_SUM``, ``_TONE``, ``_DISC`` and all three), named
 ``<variant> -sum`` and so on; their outputs are wrong, and only K1e's

@@ -887,10 +887,10 @@ def test_mxu_kernels_match_plain(cuda, dtype, d, t, s0, c):
             assert float(((got[1] - ref[1]) / ref[1]).abs().max()) < 1e-4
 
 
-# K5 at K1b's window start: (D, T) where K1b stays off the tensor-core
-# route with either plane dtype, as K5 does (D = 1, below every cut; D =
-# 200, above; T = 3,228 at the DDC bank's D = 4, where no tensor-core plan
-# fits), and where it takes that route by dtype (D = 2, 4, 40)
+# K5 at K1b's window start: (D, T) where both stay off the tensor-core
+# route with either plane dtype (D = 1, below every cut; D = 200, above
+# mode fir's; T = 3,228 at the DDC bank's D = 4, where no tensor-core plan
+# fits), and where both take it (D = 2, 4, 40; K5 has mode fir's cut)
 K5_AT_K1B_OFF_TC = [(1, 33), (4, 3228), (200, 263)]
 
 
@@ -899,11 +899,11 @@ K5_AT_K1B_OFF_TC = [(1, 33), (4, 3228), (200, 263)]
                                  (1, 33), (4, 3228)])
 def test_k5_at_k1b_window_start_is_k1b(cuda, dtype, d, t):
     """K5 in its overlap-save form at offset stride - 1 starts K1b's windows
-    and gives K1b's output bit for bit where K1b runs the staged or warp
-    kernel, as K5 does (at K5_AT_K1B_OFF_TC always).  Where K1b takes the
-    tensor-core route (its bf16 passes), K5 and K1b are each held to K1b's
-    plain version under the FIR gate of the module docstring, and to each
-    other."""
+    and takes K1b's route at every shape (K1b's own cut, its chunks and,
+    on the tensor-core route, its passes), so it gives K1b's output bit
+    for bit: on the tensor-core route at K1b's cut, on the staged or warp
+    kernel at K5_AT_K1B_OFF_TC.  Both within the FIR gate of the module
+    docstring of K1b's plain version."""
     from libsdr_tpu_torch import _build
     from libsdr_tpu_torch.ops import fir_mxu as M
 
@@ -914,21 +914,16 @@ def test_k5_at_k1b_window_start_is_k1b(cuda, dtype, d, t):
     x = _noise(gen, (3, d * 9000), dtype, cuda)
     tail = _noise(gen, (3, t - 1), dtype, cuda)
     _, route = F._chunks("K1b", _build.library(), F._MODE_FIR, 3, 9000, t, d,
-                         0, x.re, cut_mode=F._MODE_FIR)
-    assert route != "tc" or (d, t) not in K5_AT_K1B_OFF_TC
-    n0 = dict(F.fir_exact.routes)
+                         0, x.re)
+    assert (route == "tc") == ((d, t) not in K5_AT_K1B_OFF_TC), route
+    n0, m0 = dict(F.fir_exact.routes), dict(M.fir_mxu.routes)
     a, b = M.fir_offset(x, taps, d, d - 1, tail), F.fir_exact(x, taps, d,
                                                                tail)
     assert F.fir_exact.routes[route] == n0[route] + 1
-    if route == "tc":
-        ref = F.fir_exact_plain(x, taps, d, tail)
-        for got in (a, b):
-            err, bound = _mode_err(got, ref, False)
-            assert err < bound, err
-        err, bound = _mode_err(b, a, False)
-        assert err < bound, err
-    else:
-        assert torch.equal(a.re, b.re) and torch.equal(a.im, b.im)
+    assert M.fir_mxu.routes[route] == m0[route] + 1
+    assert torch.equal(a.re, b.re) and torch.equal(a.im, b.im)
+    err, bound = _mode_err(b, F.fir_exact_plain(x, taps, d, tail), False)
+    assert err < bound, err
 
 
 @pytest.mark.parametrize("offset", [0, 1, 4, 9, 100])
@@ -1142,11 +1137,13 @@ def test_tc_k6_matches_split_and_plain(cuda, dtype, fast, d, t, s0, c):
         _precision(False)
 
 
-# K1b (mode fir) and K1c (mode am, +- the AGC) on the tensor-core route, at
-# strides on both ends of their cuts (csrc/fir_common.cuh::tc_stride: with
-# float32 planes fir 2-40 and am 13-40, each with gaps; 2-40 with
-# bfloat16) and the banks' shapes (the DDC bank's T = 67, D = 4; the AM
-# bank's T = 71, D = 40): (mode, agc, dtype, D, T, C)
+# K1b (mode fir), K1c (mode am, +- the AGC) and K1d (mode usb, +- the AGC)
+# on the tensor-core route, at strides on both ends of their cuts
+# (csrc/fir_common.cuh::tc_stride: with float32 planes fir 2-40, am 13-40
+# and usb 4-33, each with gaps; 2-40 with bfloat16, usb to 61 and the
+# multiples of 4 to 120 but 84 and 108) and the banks' shapes (the DDC bank's T = 67, D =
+# 4; the AM bank's T = 71, D = 40; the USB bank's T = 143, D = 80 with
+# bfloat16 planes): (mode, agc, dtype, D, T, C)
 TC_K1BC = [("fir", False, dt, d, t, c)
            for dt, shapes in ((torch.float32, ((4, 67, 64), (5, 68, 3),
                                                (20, 83, 1), (2, 65, 3),
@@ -1160,6 +1157,13 @@ TC_K1BC = [("fir", False, dt, d, t, c)
                                         (33, 64, 1))),
                        (torch.bfloat16, ((2, 33, 3), (24, 55, 1),
                                          (40, 71, 64))))
+    for d, t, c in shapes] + [
+    ("usb", agc, dt, d, t, c) for agc in (False, True)
+    for dt, shapes in ((torch.float32, ((4, 67, 3), (13, 76, 1),
+                                        (33, 96, 3), (31, 94, 64))),
+                       (torch.bfloat16, ((2, 65, 3), (40, 103, 1),
+                                         (60, 123, 3), (80, 143, 64),
+                                         (100, 163, 3), (120, 183, 1))))
     for d, t, c in shapes]
 
 
@@ -1186,12 +1190,59 @@ def test_tc_k1_modes_match_split_and_plain(cuda, mode, agc, dtype, d, t, c,
         _precision(False)
 
 
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7])
+@pytest.mark.parametrize("dtype,d,t", [(torch.float32, 33, 96),
+                                       (torch.bfloat16, 80, 143),
+                                       (torch.bfloat16, 100, 163)])
+def test_tc_k1d_chunks_match_split_and_plain(cuda, d, t, dtype, chunks):
+    """K1d with the AGC on the tensor-core route at the USB bank's stride
+    and at D = 100 with bfloat16 planes (with float32 planes both take the
+    warp kernel), and at D = 33 with float32 planes (the largest stride of
+    its float32 cut), its launches cut into
+    1, 2, 3 and 7 chunks a channel (3 channels of chunks * 4096 + 333
+    outputs): as test_tc_k1_modes_match_split_and_plain, at 'high'."""
+    from libsdr_tpu_torch.tools import k1_parity
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(100 * d + chunks)
+    k1_parity.tc_case(gen, "usb", True, dtype, d, t, 3, device=cuda,
+                      chunks=chunks)
+
+
+# K5 on the tensor-core route (mode fir's cut): (dtype, D, T, C), F1's
+# D = 4, T = 67 on 64 channels among them
+TC_K5 = [(dt, d, t, c) for dt in (torch.float32, torch.bfloat16)
+         for d, t, c in ((2, 37, 3), (4, 67, 64), (5, 68, 3), (20, 83, 1),
+                         (40, 71, 3))]
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("dtype,d,t,c", TC_K5)
+def test_tc_k5_matches_split_and_plain(cuda, dtype, fast, d, t, c):
+    """K5 on the tensor-core route at every window form of its callers
+    (tools/k1_parity.py's k5_case): fir_offset from window starts 1 - T,
+    2 - T, D - T (in the tail) and 0 with wrap 0 and odd output counts,
+    fir_mxu from 0, D and 2D + 1 with wrap 128*D, chunks K > 1: y against
+    the split emulation within SPLIT_REL of the largest, and at 'high'
+    against the plain version within 1e-5."""
+    from libsdr_tpu_torch.tools import k1_parity
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(10 * d + t)
+    try:
+        _precision(fast)
+        k1_parity.k5_case(gen, dtype, d, t, c, device=cuda)
+    finally:
+        _precision(False)
+
+
 @pytest.mark.parametrize("t", [1, 17, 41, 51, 67, 71, 143, 263, 12001])
 def test_tc_plan_is_the_python_rule(cuda, t):
     """The kernel's plan (sdr_fir_tc_plan) is ops/fir_tc.tc_plan's on this
-    card's shared memory, at every stride up to 40, both plane dtypes and
-    both precisions, without mode afsk's correlator and with its windows
-    2, 40 and 256; both say when no plan fits."""
+    card's shared memory, at every stride up to 40 and mode usb's larger
+    ones, both plane dtypes and both precisions, without mode afsk's
+    correlator and with its windows 2, 40 and 256; both say when no plan
+    fits."""
     import ctypes
 
     from libsdr_tpu_torch import _build
@@ -1202,7 +1253,7 @@ def test_tc_plan_is_the_python_rule(cuda, t):
     smem_block = getattr(prop, "shared_memory_per_block_optin",
                          TC.SMEM_BLOCK)
     smem_sm = getattr(prop, "shared_memory_per_multiprocessor", TC.SMEM_SM)
-    for d in range(1, 41):
+    for d in list(range(1, 41)) + [48, 63, 64, 80, 90, 100, 120, 200]:
         for bf16 in (0, 1):
             for fast in (0, 1):
                 for ell in (0, 2, 40, 256):
@@ -1222,13 +1273,18 @@ def test_tc_plan_is_the_python_rule(cuda, t):
 
 def test_paths_take_their_routes(cuda):
     """The main path's K1a launches take the tensor-core route, and so do
-    the DDC bank's K1b and the AM bank's K1c at D = 40; K1a at T = 12,001
+    the DDC bank's K1b, the AM bank's K1c at D = 40, the USB bank's K1d at
+    D = 80 (with bfloat16 planes; float32 ones by the cut, USB_BANK_F32)
+    and F1's K5 (fir_overlap_save at offsets 0 and 1, D = 4, T = 67, both
+    plane dtypes); K1a at T = 12,001
     (no tensor-core plan fits) the staged, and at the cut's edges: D = 2
     and 24 the staged kernel with float32 planes, D = 24 the tensor-core
     kernel with bfloat16 planes; K1b and K1c at the edges of theirs and
     of their gaps (csrc/fir_common.cuh::tc_stride: with float32 planes fir
     2-40 but 3, 6, 8, 9, 12, 24, 32 and 34-39, am 13-40 but 32 and 34-39;
-    2-40 with bfloat16)."""
+    2-40 with bfloat16), and K1d at the edges of its (with float32 planes
+    4, 13-16, 23, 25-31 and 33; with bfloat16 2-61 and the multiples of 4
+    to 120 but 84 and 108)."""
     from libsdr_tpu_torch.apps.chains import rx_stages
 
     def step(stages, b, c=4):
@@ -1250,6 +1306,7 @@ def test_paths_take_their_routes(cuda):
     assert F.fir_fm_exact.routes == {"staged": 0, "warp": 0, "tc": 1}
     assert F.fir_exact.routes == {"staged": 0, "warp": 0, "tc": 1}
     assert F.fir_am_exact.routes == {"staged": 0, "warp": 0, "tc": 1}
+    _usb_bank_and_f1_routes(cuda)
     op = _op(16, 12001, 3, 16 * 4096)
     carry = op.init_carry(cuda)
     x = Complex(torch.randn(3, 16 * 4096, device=cuda),
@@ -1267,6 +1324,12 @@ def test_paths_take_their_routes(cuda):
         fir_fm_exact(x, op._taps(cuda), d, carry[0], carry[1], op._rot, 1.0)
         assert F.fir_fm_exact.routes[route] == n0[route] + 1, (d, dtype)
     taps = Complex(torch.randn(71, device=cuda), torch.randn(71, device=cuda))
+    th = 0.01 * np.arange(4096)   # mode usb's ramp: 4096 outputs each case
+    usb = (Complex(torch.tensor(0.6, device=cuda),
+                   torch.tensor(0.8, device=cuda)),
+           Complex(torch.tensor(np.cos(th), dtype=torch.float32, device=cuda),
+                   torch.tensor(-np.sin(th), dtype=torch.float32,
+                                device=cuda)), 1.0)
     for entry, extra, d, dtype, route in (
             (F.fir_exact, (), 2, torch.float32, "tc"),
             (F.fir_exact, (), 3, torch.float32, "staged"),
@@ -1287,7 +1350,23 @@ def test_paths_take_their_routes(cuda):
             (F.fir_am_exact, (1.0,), 40, torch.float32, "tc"),
             (F.fir_am_exact, (1.0,), 80, torch.float32, "warp"),
             (F.fir_am_exact, (1.0,), 2, torch.bfloat16, "tc"),
-            (F.fir_am_exact, (1.0,), 40, torch.bfloat16, "tc")):
+            (F.fir_am_exact, (1.0,), 40, torch.bfloat16, "tc"),
+            (F.fir_usb_exact, usb, 4, torch.float32, "tc"),
+            (F.fir_usb_exact, usb, 5, torch.float32, "staged"),
+            (F.fir_usb_exact, usb, 20, torch.float32, "staged"),
+            (F.fir_usb_exact, usb, 33, torch.float32, "tc"),
+            (F.fir_usb_exact, usb, 40, torch.float32, "staged"),
+            (F.fir_usb_exact, usb, 41, torch.float32, "warp"),
+            (F.fir_usb_exact, usb, 80, torch.float32, "warp"),
+            (F.fir_usb_exact, usb, 61, torch.bfloat16, "tc"),
+            (F.fir_usb_exact, usb, 62, torch.bfloat16, "warp"),
+            (F.fir_usb_exact, usb, 63, torch.bfloat16, "warp"),
+            (F.fir_usb_exact, usb, 84, torch.bfloat16, "warp"),
+            (F.fir_usb_exact, usb, 88, torch.bfloat16, "tc"),
+            (F.fir_usb_exact, usb, 108, torch.bfloat16, "warp"),
+            (F.fir_usb_exact, usb, 120, torch.bfloat16, "tc"),
+            (F.fir_usb_exact, usb, 122, torch.bfloat16, "warp"),
+            (F.fir_usb_exact, usb, 124, torch.bfloat16, "warp")):
         x = Complex(torch.randn(3, d * 4096, device=cuda),
                     torch.randn(3, d * 4096, device=cuda)).to(dtype)
         tail = Complex(torch.zeros(3, 70, device=cuda),
@@ -1435,17 +1514,15 @@ def test_fast_precision_keeps_70_db(cuda):
     against 'high' on the FM signal of the JAX package's own gate
     (tests/test_tpu_smoke.py::test_fast_precision_mode_on_chip): 64
     channels of a 900 Hz tone at 75 kHz deviation through the main path,
-    audio SNR above 70 dB; 'fast' must differ from 'high'.  Then K1b and
-    K1c on the tc route, the DDC and AM banks' chains at 'fast' against
-    'high': above an 8-bit source's 49.9 dB."""
-    fs, n_ch, block = 960_000.0, 64, 1 << 17
-    audio = siggen.sine(fs, block + 4096, 900.0, amps=0.7)
-    iq = siggen.fm_modulate(fs, audio, deviation=75_000.0,
-                            carrier=120_000.0)[:block]
-    x = Complex(torch.tensor(np.tile(iq.real[None], (n_ch, 1)),
-                             dtype=torch.float32, device=cuda),
-                torch.tensor(np.tile(iq.imag[None], (n_ch, 1)),
-                             dtype=torch.float32, device=cuda))
+    audio SNR above 70 dB; 'fast' must differ from 'high'.  Then K1b, K1c
+    and K1d on the tc route, the DDC, AM and USB banks' chains, and K5,
+    F1's fir_overlap_save at offset 0 on the FM signal, at 'fast' against
+    'high' (tools/fast_precision.py's cases): above an 8-bit source's 49.9
+    dB."""
+    from libsdr_tpu_torch.tools import fast_precision as FP
+
+    fs, n_ch, block = FP.FS, 64, 1 << 17
+    x = FP.fm_tone(n_ch, block, cuda)
 
     def run():
         rx = P.Pipeline([IQBaseBand(fc=120_000, width=200_000, order=64,
@@ -1466,48 +1543,54 @@ def test_fast_precision_keeps_70_db(cuda):
     err = y_hi - y_fast
     snr = 10 * np.log10(np.mean(y_hi[0] ** 2) / np.mean(err[0] ** 2))
     assert 70.0 < snr < 200.0, snr
-    # K1b (the DDC bank, IQBaseBand alone on the same signal) and K1c (the
-    # AM bank, rx_stages("AM"), on a 900 Hz tone at 50% AM): one bf16 pass
-    # keeps an 8-bit source's fidelity (6.02 * 8 + 1.76 dB), as the JAX
-    # kernel describes 'fast' (pallas_fir_mxu.py::_make_mm); there is no
-    # discriminator to gain from as FM does.
+    # K1b, K1c, K1d (in bfloat16 planes, its route there; with float32
+    # planes the USB bank takes the warp kernel, USB_BANK_F32) and K5: one
+    # bf16 pass keeps an 8-bit source's fidelity (6.02 * 8 + 1.76 dB), as
+    # the JAX kernel describes 'fast' (pallas_fir_mxu.py::_make_mm); there
+    # is no discriminator to gain from as FM does.
+    for name, entry, bank in FP.flat_cases(n_ch, torch.bfloat16, block,
+                                           cuda):
+        snr = float(FP.fast_snr_db(bank, entry)[0])
+        assert FP.FAST_8BIT_DB < snr < 200.0, (name, snr)
+
+
+# The route of the USB bank's K1d (T = 143, D = 80) with float32 planes, by
+# the measured cut of mode usb (csrc/fir_common.cuh::tc_stride)
+USB_BANK_F32 = "warp"
+
+
+def _usb_bank_and_f1_routes(cuda):
+    """The USB bank's chain (rx_stages("USB"), D = 80) and F1's call
+    (fir_overlap_save at offsets 0 and 1 with the DDC bank's taps, D = 4)
+    in both plane dtypes: K1d and K5 on their routes, one launch a
+    block."""
     from libsdr_tpu_torch.apps.chains import rx_stages
+    from libsdr_tpu_torch.ops import fir_mxu as M
+    from libsdr_tpu_torch.ops.fir import fir_overlap_save
 
-    am_block = 40 * 3277
-    t = np.arange(am_block) / fs
-    am = ((1 + 0.5 * np.cos(2 * np.pi * 900.0 * t))
-          * np.exp(2j * np.pi * 120_000.0 * t))
-    xa = Complex(torch.tensor(np.tile(am.real[None], (n_ch, 1)),
-                              dtype=torch.float32, device=cuda),
-                 torch.tensor(np.tile(am.imag[None], (n_ch, 1)),
-                              dtype=torch.float32, device=cuda))
-    for entry, stages, xin, b in (
-            (F.fir_exact, lambda: [IQBaseBand(fc=120_000, width=200_000,
-                                              order=64, decim=4,
-                                              design="textbook")],
-             x, block),
-            (F.fir_am_exact, lambda: rx_stages("AM", fs, 120_000.0), xa,
-             am_block)):
-        def run_bank():
-            rx = P.Pipeline(stages())
-            rx.bind(P.StreamSpec(np.complex64, fs, b, channels=(n_ch,)))
-            _, y = rx.compile()(rx.init_carry(cuda), xin)
-            if isinstance(y, Complex):
-                return (y.re.double() + 1j * y.im.double()).cpu().numpy()
-            return y.double().cpu().numpy()
-
-        try:
-            y_hi = run_bank()
-            _precision(True)
-            n0 = entry.routes["tc"]
-            y_fast = run_bank()
-            assert entry.routes["tc"] == n0 + 1, entry.__name__
-        finally:
-            _precision(False)
-        err = y_hi - y_fast
-        snr = 10 * np.log10(np.mean(np.abs(y_hi[0]) ** 2)
-                            / np.mean(np.abs(err[0]) ** 2))
-        assert 6.02 * 8 + 1.76 < snr < 200.0, (entry.__name__, snr)
+    for dtype, route in ((torch.float32, USB_BANK_F32),
+                         (torch.bfloat16, "tc")):
+        rx = P.Pipeline(rx_stages("USB", FS, FS / 8))
+        b = 80 * 4096
+        rx.bind(P.StreamSpec(np.complex64, FS, b, channels=(4,),
+                             plane_dtype=dtype))
+        assert (rx.stages[0]._t, rx.stages[0]._decim) == (143, 80)
+        x = Complex(torch.randn(4, b, device=cuda),
+                    torch.randn(4, b, device=cuda)).to(dtype)
+        n0 = dict(F.fir_usb_exact.routes)
+        rx.compile()(rx.init_carry(cuda), x)
+        torch.cuda.synchronize()
+        assert F.fir_usb_exact.routes[route] == n0[route] + 1, dtype
+        rng = np.random.default_rng(67)
+        g = rng.normal(size=67) + 1j * rng.normal(size=67)
+        for offset in (0, 1):
+            x = Complex(torch.randn(4, 4 * 4096, device=cuda),
+                        torch.randn(4, 4 * 4096, device=cuda)).to(dtype)
+            tail = Complex(torch.zeros(4, 66, device=cuda),
+                           torch.zeros(4, 66, device=cuda)).to(dtype)
+            m0 = dict(M.fir_mxu.routes)
+            fir_overlap_save(g, x, tail, stride=4, offset=offset)
+            assert M.fir_mxu.routes["tc"] == m0["tc"] + 1, (dtype, offset)
 
 
 # -- slice 11: chunked dispatch as one CUDA graph, checkpoint, Q14 ----------

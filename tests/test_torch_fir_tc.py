@@ -43,6 +43,21 @@ and arithmetic of ``csrc/fir_tc.cu``) on the CPU.
    split cut into K chunks against K = 1, and at 'high' against the plain
    versions under the card's gates (1e-5 of max |y|; with the AGC 1e-4).
 
+5. Mode usb (K1d) and the v1 any-offset FIR (K5) on the route:
+   ``usb_exact_split`` (+- the AGC) against the JAX exact-tiling kernel in
+   mode 'usb' in interpret mode (``pallas_fir_mxu.fir_fm_exact(mode="usb",
+   usb_phasors=...)``, its VMEM budget lifted: the TPU's gate refuses D >=
+   40, interpret mode runs the same kernel at any size) at the USB bank's
+   (T 143, D 80) and at D = 100, both plane dtypes, 'high' and 'fast',
+   under test_am_split_matches_jax's bounds; ``fir_mxu_split`` at window
+   starts 0, 1, D - 1 and D against the JAX v1 kernel ``fir_mxu`` in
+   interpret mode (y within FIR_REL of max |y|), and from starts in the
+   tail (F1's offsets 0 and 1) against the JAX package's
+   ``fir_overlap_save`` in interpret mode; K5's split at every window
+   form of its callers (starts in the tail with wrap 0, 0 with wrap 0 and
+   with 128*D, D, 2D + 1) cut into K chunks against the plain versions
+   under the card's gate; and K1d's split in the chunks test of (4).
+
 The CUDA kernel is held to this emulation on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -64,8 +79,10 @@ from libsdr_tpu_torch.ops import fir_tc as TC
 from libsdr_tpu_torch.ops import fsk
 from libsdr_tpu_torch.ops.fir import mxu_precision, set_mxu_precision
 from libsdr_tpu_torch.ops.fir_fm import (_fir_y, fir_afsk_exact_plain,
-                                         fir_am_exact_plain, fir_exact_plain)
-from libsdr_tpu_torch.ops.fir_mxu import _y_plain
+                                         fir_am_exact_plain, fir_exact_plain,
+                                         fir_usb_exact_plain)
+from libsdr_tpu_torch.ops.fir_mxu import (_y_plain, fir_mxu_plain,
+                                          fir_offset_plain)
 
 Y_REL = 1e-6        # frame GEMM in float32 against the plain y
 FIR_REL = 1e-4      # tests/test_pallas.py:36-37
@@ -596,14 +613,14 @@ def test_am_split_matches_jax(t, d, c, b, precision, dtype, agc,
 
 @pytest.mark.parametrize("chunks", [1, 2, 3, 7])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t,d", [(67, 4), (71, 40)])
+@pytest.mark.parametrize("t,d", [(67, 4), (71, 40), (143, 80)])
 def test_k1_split_chunks_and_plain(t, d, dtype, chunks):
-    """K1b's and K1c's split at 'high' cut into K chunks (each from its own
-    frame grid, as the kernel's blocks run them) gives what K = 1 gives,
-    to float32 round-off of the frame grid (1e-6 of the largest output);
-    and it holds the card's gates against the plain versions: y and |y|
-    within 1e-5 of the largest output, with the AGC 1e-4 on the audio and
-    of the exported sd."""
+    """K1b's, K1c's and K1d's split at 'high' cut into K chunks (each from
+    its own frame grid, as the kernel's blocks run them) gives what K = 1
+    gives, to float32 round-off of the frame grid (1e-6 of the largest
+    output); and it holds the card's gates against the plain versions: y,
+    |y| and the USB audio within 1e-5 of the largest output, with the AGC
+    1e-4 on the audio and of the exported sd."""
     c, n = 3, 1000
     x, tail, g, sd = _k1_mode_case(t, d, c, d * n, dtype)
     taps = _taps(g)
@@ -625,6 +642,19 @@ def test_k1_split_chunks_and_plain(t, d, dtype, chunks):
     agc_ref, sd_ref = fir_am_exact_plain(x, taps, d, tail, AM_GAIN, ab, sdt)
     assert float((agc - agc_ref).abs().max()) < CARD_AGC
     assert float(((sd_last - sd_ref) / sd_ref).abs().max()) < CARD_AGC
+    ph, ramp, _ = _usb_operands(d, n)
+    usb = TC.usb_exact_split(x, taps, d, tail, ph, ramp, 1.0, passes=passes,
+                             chunks=chunks)[0]
+    usb_ref = fir_usb_exact_plain(x, taps, d, tail, ph, ramp, 1.0)[0]
+    assert float((usb - usb_ref).abs().max()) < CARD_REL * float(
+        usb_ref.abs().max())
+    usb_agc, usb_sd = TC.usb_exact_split(x, taps, d, tail, ph, ramp, AM_GAIN,
+                                         ab, sdt, passes=passes,
+                                         chunks=chunks)
+    ref_agc, ref_sd = fir_usb_exact_plain(x, taps, d, tail, ph, ramp,
+                                          AM_GAIN, ab, sdt)
+    assert float((usb_agc - ref_agc).abs().max()) < CARD_AGC
+    assert float(((usb_sd - ref_sd) / ref_sd).abs().max()) < CARD_AGC
     if chunks > 1:
         one = TC.fir_exact_split(x, taps, d, tail, passes=passes)
         assert float(max((y.re - one.re).abs().max(),
@@ -633,3 +663,183 @@ def test_k1_split_chunks_and_plain(t, d, dtype, chunks):
                                     passes=passes)[0]
         assert float((agc - one_agc).abs().max()) < 1e-6 * float(
             one_agc.abs().max())
+        one_usb = TC.usb_exact_split(x, taps, d, tail, ph, ramp, AM_GAIN, ab,
+                                     sdt, passes=passes)[0]
+        assert float((usb_agc - one_usb).abs().max()) < 1e-6 * float(
+            one_usb.abs().max())
+
+
+# -- mode usb (K1d) and the v1 any-offset FIR (K5) on the tensor-core route -
+
+USB_THETA = 2 * np.pi * 1500.0 / 960e3   # the NCO's step a sample
+USB_A0 = np.exp(0.7j)                    # the carried unit phasor
+# (T, D, C, B): the USB bank's taps and stride, and D = 100 with the rx
+# chain's order (T = 64 + D - 1), two frames of 128 outputs on 16
+# channels (the JAX kernel's gate wants a multiple of 16 with bfloat16
+# planes)
+USB_CASES = [(143, 80, 16, 2 * 128 * 80), (163, 100, 16, 2 * 128 * 100)]
+
+
+def _usb_operands(d, n):
+    """The port's (a0, ramp (n,)) and the JAX kernel's usb_phasors (fph:
+    a0 times each 128-output frame's phasor, rrow: each lane's) for one
+    block of n outputs at stride d."""
+    th = USB_THETA * d
+    ph = cplx.constant(np.complex64(USB_A0), torch.float32)
+    ramp = cplx.constant(np.exp(-1j * th * np.arange(n)), torch.float32)
+    s = pfm._S
+    fr = (USB_A0 * np.exp(-1j * th * s * np.arange(n // s))).astype(
+        np.complex64)
+    fph = np.zeros((len(fr), 8), np.float32)
+    fph[:, 0], fph[:, 1] = fr.real, fr.imag
+    row = np.exp(-1j * th * np.arange(s))
+    rrow = np.zeros((16, s), np.float32)
+    rrow[0], rrow[8] = row.real, row.imag
+    return ph, ramp, (jnp.asarray(fph), jnp.asarray(rrow))
+
+
+@pytest.fixture
+def wide_vmem(monkeypatch):
+    """Lifts the JAX v2 kernel's VMEM budget for a test: at D >= 40 its
+    Toeplitz block alone outgrows the TPU's 13.5 MB, so its gate refuses
+    the USB bank's strides, but interpret mode runs the same kernel on the
+    CPU at any size."""
+    monkeypatch.setattr(pfm, "_VMEM_BUDGET", 1 << 40)
+
+
+@pytest.mark.parametrize("agc", [False, True])
+@pytest.mark.parametrize("precision", ["high", "fast"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d,c,b", USB_CASES)
+def test_usb_split_matches_jax(t, d, c, b, dtype, precision, agc,
+                               jax_precision, wide_vmem):
+    """K1d: usb_exact_split (3, 2 or 1 bf16 passes, the exact NCO's a0 *
+    ramp[j]) with and without the AGC (from a nonzero sd) against the JAX
+    exact-tiling kernel in mode 'usb' in interpret mode (per-frame phasor
+    times per-lane phasor, the same rotation rounded otherwise) at the
+    same precision, from a nonzero tail: the audio within AUDIO_BOUND x
+    max(1, |v|), the exported sd within FIR_REL of its largest."""
+    x, tail, g, sd = _k1_mode_case(t, d, c, b, dtype)
+    n = b // d
+    ph, ramp, phasors = _usb_operands(d, n)
+    ab = (LAM, 1 - LAM) if agc else None
+    gain = AM_GAIN if agc else 1.0
+    jax_precision(precision)
+    want, ej = pfm.fir_fm_exact(
+        _j(x, dtype), g, d, _j(tail, dtype), jcplx.zeros((c, 1)), 1.0, gain,
+        deemph_ab=ab, deemph_lead=jnp.asarray(sd[:, None]) if agc else None,
+        mode="usb", usb_phasors=phasors, interpret=True)
+    want = np.asarray(want)
+    got, sd_got = TC.usb_exact_split(
+        x, _taps(g), d, tail, ph, ramp, gain, ab,
+        torch.from_numpy(sd) if agc else None,
+        passes=TC.passes_for(x.re.dtype, precision == "fast"))
+    assert got.shape == want.shape == (c, n)
+    assert _worst(got.numpy(), want) < AUDIO_BOUND
+    if agc:
+        sd_want = np.asarray(ej.re)[:, 0]
+        assert np.abs(sd_got.numpy() - sd_want).max() < FIR_REL * np.abs(
+            sd_want).max()
+    else:
+        assert sd_got is None
+
+
+# (T, D, C, B) of K5 against the JAX v1 kernel: the DDC bank's taps and
+# stride (F1's), and the AM bank's taps at a stride its VMEM gate takes
+K5_CASES = [(67, 4, 16, 4096), (71, 20, 16, 2 * 128 * 20)]
+
+
+@pytest.mark.parametrize("precision", ["high", "fast"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", ["0", "1", "D-1", "D"])
+@pytest.mark.parametrize("t,d,c,b", K5_CASES)
+def test_fir_mxu_split_matches_jax(t, d, c, b, offset, dtype, precision,
+                                   jax_precision):
+    """K5: fir_mxu_split at window starts 0, 1, D - 1 and D (the JAX
+    kernel's _build_mats takes starts up to the stride) with wrap 128*D
+    (the last frame's windows clamped into the frame before it) against
+    the JAX v1 kernel ``fir_mxu`` in interpret mode at the same precision:
+    every output, the clamped ones too, within FIR_REL of max |y|."""
+    s0 = {"0": 0, "1": 1, "D-1": d - 1, "D": d}[offset]
+    x, _, g, _ = _k1_mode_case(t, d, c, b, dtype)
+    assert pfm.mxu_fir_supported(t, d, s0, c, b, dtype=dtype)
+    jax_precision(precision)
+    jy, nsp = pfm.fir_mxu(_j(x, dtype), g, d, s0, interpret=True)
+    want = jcplx.to_numpy(jy)
+    got = _np(TC.fir_mxu_split(x, _taps(g), d, s0, b // d, 128 * d,
+                               passes=TC.passes_for(x.re.dtype,
+                                                    precision == "fast")))
+    assert nsp == 128 and got.shape == want.shape == (c, b // d)
+    assert np.abs(got - want).max() < FIR_REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fir_offset_split_matches_jax(offset, dtype, monkeypatch):
+    """K5 as F1 calls it (``fir_overlap_save`` at offsets 0 and 1, the DDC
+    bank's T = 67, D = 4): fir_mxu_split from window start offset - (T-1),
+    in the (C, T-1) tail, with wrap 0 over the whole block, against the
+    JAX package's ``fir_overlap_save`` in kernel_mode('interpret'), whose
+    in-block outputs come from its v1 kernel ``fir_mxu`` (64 channels, its
+    gate's least; the call is counted) and the outputs whose windows reach
+    into the tail or past its frames from its conv: every output within
+    FIR_REL of max |y|, at 'high'.  The JAX path runs on float32 planes of
+    the same samples (bfloat16 ones are exact in them): with bfloat16
+    planes it returns y in bfloat16, where the port returns float32."""
+    t, d, c, b = 67, 4, 64, 4096
+    x, tail, g, _ = _k1_mode_case(t, d, c, b, dtype)
+    calls = []
+    fir_mxu = pfm.fir_mxu
+    monkeypatch.setattr(pfm, "fir_mxu",
+                        lambda *a, **k: calls.append(a[3]) or fir_mxu(*a,
+                                                                      **k))
+    with jfir.kernel_mode("interpret"):
+        jy, _ = jfir.fir_overlap_save(g, _j(x, "float32"),
+                                      _j(tail, "float32"), stride=d,
+                                      offset=offset)
+    want = jcplx.to_numpy(jy)
+    n = (b - offset - 1) // d + 1
+    got = _np(TC.fir_mxu_split(x, _taps(g), d, offset - (t - 1), n, 0, tail,
+                               passes=TC.passes_for(x.re.dtype, False)))
+    assert len(calls) == 1 and calls[0] >= 0
+    assert got.shape == want.shape == (c, n)
+    assert np.abs(got - want).max() < FIR_REL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,d", [(67, 4), (143, 80)])
+def test_k5_split_chunks_and_plain(t, d, dtype, chunks):
+    """K5's split at 'high' over its window forms: starts 1 - T, 2 - T and
+    D - T in the tail with wrap 0 and an odd output count (fir_offset at
+    offsets 0, 1 and D - 1), 0 with wrap 0 (offset T - 1), and 0, D and
+    2D + 1 with wrap 128*D (fir_mxu), cut into K chunks: within the card's
+    gate (1e-5 of the largest output) of the plain versions, and the
+    offset form within 1e-6 of K = 1 (float32 round-off of the frame
+    grid)."""
+    c = 3
+    b = 2 * 128 * d + 2
+    x, tail, g, _ = _k1_mode_case(t, d, c, b, dtype)
+    taps = _taps(g)
+    passes = TC.passes_for(x.re.dtype, False)
+    for off in (0, 1, d - 1, t - 1):
+        n = (b - off - 1) // d + 1
+        assert off > 1 or n % 2 == 1
+        y = TC.fir_mxu_split(x, taps, d, off - (t - 1), n, 0, tail, passes,
+                             chunks)
+        ref = fir_offset_plain(x, taps, d, off, tail)
+        scale = float(torch.maximum(ref.re.abs().max(), ref.im.abs().max()))
+        assert y.re.shape == (c, n)
+        assert float(max((y.re - ref.re).abs().max(),
+                         (y.im - ref.im).abs().max())) < CARD_REL * scale
+        one = TC.fir_mxu_split(x, taps, d, off - (t - 1), n, 0, tail, passes)
+        assert float(max((y.re - one.re).abs().max(),
+                         (y.im - one.im).abs().max())) < 1e-6 * scale
+    xb = x[..., :2 * 128 * d]
+    for s0 in (0, d, 2 * d + 1):
+        y = TC.fir_mxu_split(xb, taps, d, s0, 2 * 128, 128 * d,
+                             passes=passes, chunks=chunks)
+        ref, _ = fir_mxu_plain(xb, taps, d, s0)
+        scale = float(torch.maximum(ref.re.abs().max(), ref.im.abs().max()))
+        assert float(max((y.re - ref.re).abs().max(),
+                         (y.im - ref.im).abs().max())) < CARD_REL * scale
