@@ -100,7 +100,21 @@ its own line; the first failure exits non-zero:
    ``pocsag_rx``, ``ax25_rx`` (IQ and ``--audio``) and ``rtty_rx`` on
    captures from ``tx``, their messages against ``--device cpu``'s; then
    ``scanner``, ``multimode --map``, ``spectrum`` and ``psk31_rx`` against
-   ``--device cpu`` (the same decodes, the same peaks).
+   ``--device cpu`` (the same decodes, the same peaks);
+7. slice 14, on traffic from a generator of its own (the native host
+   runtime is built in phase 2): the pump-fed POCSAG bank at P2's shape
+   (``tools/ingest_bank.py``: P2's traffic on the u8 wire in a file, the
+   native file pump and ring, one upload of the raw u8 a step,
+   ``u8_wire_to_planes`` on the card, K1a + K2, ``compact_device``, the
+   native POCSAG state machine; bf16 and f32 planes; every page, the bits
+   of the same chain fed the same bytes on the card, one launch of each a
+   step, the native messages equal to ``POCSAGDecoder``'s); the live
+   scanner at W1's shape on a loopback TCP wire paced to 24.576
+   Msamples/s (no byte dropped, the file-fed decode of the same bytes,
+   every page on its own channel, K4 and K2 launched); ``tx pocsag
+   --wire`` into the live POCSAG receiver, ``scanner --live`` with and
+   without ``--bf16`` against ``--raw``, and ``aprs_service --live``
+   fed by ``tx afsk --wire``, its spot read by GET /spots.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  In the record every ``ms``
@@ -2855,6 +2869,361 @@ def phase_slice11(torch, L, smi):
     return res
 
 
+# -- slice 14: the native host runtime, file and live ingest, APRS ---------
+
+def phase_pump_p2(torch, gen, smi, tmp: Path):
+    """The pump-fed POCSAG bank at P2's shape (256 ch x 117,760 at 240 kHz,
+    4 steps; tools/ingest_bank.py): P2's traffic quantized to the u8 wire
+    (send_live_iq's rounding, scaled so that nothing clips) and written as
+    one file of (256, 2 x 117,760) u8 steps; FilePump -> RingBuffer -> one
+    upload of the raw u8 a step -> u8_wire_to_planes on the card -> the
+    bank's stages (K1a at D = 10, K2) -> compact_device -> the native
+    POCSAG state machine, with bf16 and f32 planes.  Every channel decodes
+    its page; the bits equal the same chain fed the same bytes already on
+    the card; K1a and K2 launch once a step each and nothing else; the
+    native state machine's messages equal POCSAGDecoder's."""
+    from libsdr_tpu_torch.decode import POCSAGDecoder, pocsag_decode_bits
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.tools import ingest_bank as IB
+    from libsdr_tpu_torch.tools.digital_signals import (POCSAG_ADDRESS,
+                                                        pocsag_blocks)
+
+    fs, c, blk, nb = 240e3, 256, 117_760, 4
+    dev = torch.device("cuda")
+    blocks = pocsag_blocks(c, blk, nb, gen, fs)
+    steps = [IB.quantize_u8(b, IB.unclipped_scale(blocks)) for b in blocks]
+    del blocks
+    path = tmp / "p2_wire.u8"
+    nbytes = IB.write_wire_file(path, steps)
+    cap = IB.capacity(fs, blk)
+    entries = all_entries()
+    # the file pump and ring alone, no device: the host's rate for the wire
+    t0 = time.perf_counter()
+    n_alone = sum(raw.nbytes for raw in IB.pump_steps(path, c, blk))
+    pump_mbps = n_alone / (time.perf_counter() - t0) / 1e6
+    check(n_alone == nbytes, f"the pump alone gave {n_alone} of {nbytes}")
+
+    def key(msgs):
+        return [(m.address, m.function, m.bits, m.payload) for m in msgs]
+
+    res = {}
+    for plane, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        # the in-memory feed: its second run timed (the first warms up)
+        for _ in range(2):
+            set_counts_zero(entries)
+            mem = IB.run_steps(steps, IB.pocsag_bank(fs, blk, c, dtype), fs,
+                               blk, dtype, dev)
+            mem_counts = counts_now(entries)
+        set_counts_zero(entries)
+        fed = IB.run_steps(IB.pump_steps(path, c, blk),
+                           IB.pocsag_bank(fs, blk, c, dtype), fs, blk, dtype,
+                           dev)
+        counts = counts_now(entries)
+        routes = dict(F.fir_fm_exact.routes)
+        same = all(torch.equal(a, b) for a, b in zip(fed[0] + fed[1],
+                                                     mem[0] + mem[1]))
+        worst = max(int(k.max()) for k in fed[1])
+        bits = IB.channel_bits(fed[0], fed[1])
+        t0 = time.perf_counter()
+        nat = [pocsag_decode_bits(b) for b in bits]
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = [POCSAGDecoder().process(b) for b in bits]
+        py_s = time.perf_counter() - t0
+        same_msgs = all(key(a) == key(b) for a, b in zip(nat, py))
+        decoded = sum(any(m.address == POCSAG_ADDRESS for m in ms)
+                      for ms in nat)
+        ms_fed, ms_mem = fed[2] / nb * 1e3, mem[2] / nb * 1e3
+        up_ms = fed[3]["upload"] / nb * 1e3
+        take_ms = fed[3]["take"] / nb * 1e3
+        mbps = nbytes / fed[2] / 1e6
+        res[plane] = dict(ms_fed=ms_fed, ms_mem=ms_mem, up_ms=up_ms,
+                          take_ms=take_ms, mbps=mbps, pump_mbps=pump_mbps,
+                          nat_s=nat_s, py_s=py_s, decoded=decoded)
+        print(f"phase 14 pump-fed P2 {plane} planes ({c} x {blk:,} @ 240 "
+              f"kHz, {nb} steps, {nbytes / 1e6:.1f} MB of u8 wire): "
+              f"{ms_fed:.2f} ms a step with the ingest (of it: the ring's "
+              f"take {take_ms:.2f}, the upload of the raw u8 from pageable "
+              f"memory {up_ms:.2f}), {ms_mem:.2f} without (the bytes on "
+              f"the card), wire {mbps:.0f} MB/s (the pump and ring "
+              f"alone, no device: {pump_mbps:.0f} MB/s); pages {decoded}/{c}; bits "
+              f"{'equal' if same else 'DIFFER from'} the in-memory feed's "
+              f"(most {worst} a step of capacity {cap}); host decode native "
+              f"{nat_s:.3f} s, Python {py_s:.2f} s, "
+              f"{'the same' if same_msgs else 'DIFFERENT'} messages; "
+              f"launches {counts} (in memory {mem_counts}), K1a routes "
+              f"{routes} | {smi}")
+        for label, n in (("pump-fed", counts), ("in-memory", mem_counts)):
+            check(n["fir_fm_exact"] == nb and n["pll"] == nb and all(
+                v == 0 for k, v in n.items()
+                if k not in ("fir_fm_exact", "pll")),
+                f"pump-fed P2 {plane} {label} launches {n}")
+        check(same, f"pump-fed P2 {plane}: bits differ from the in-memory "
+                    "feed")
+        check(worst <= cap, f"pump-fed P2 {plane}: {worst} bits > {cap}")
+        check(same_msgs, f"pump-fed P2 {plane}: native != Python messages")
+        check(decoded == c, f"pump-fed P2 {plane}: {decoded} of {c} pages")
+        del mem, fed, bits
+    path.unlink()
+    del steps
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_live_w1(torch, gen, smi, tmp: Path):
+    """The live scanner at W1's shape (1024 ch x 2^26-sample blocks at
+    24.576 MHz, two blocks) on loopback: W1's band from the phase's own
+    generator, scaled below full scale and quantized once to u8 bytes,
+    sent by io.live's wire writer to a tcp-listen://127.0.0.1:0 source,
+    paced to 24.576 Msamples/s (tx --realtime's pace, a radio's rate), and
+    decoded by scan_blocks(stream_live_iq(...)), then with
+    stream_live_iq_bf16 and bf16 planes.  No byte dropped; the decode
+    equals the file-fed one of the same bytes, dtype for dtype; every page
+    decoded sits on its own channel and its address on no other; K4 and
+    K2 launched on the path."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.tools import ingest_bank as IB
+    from libsdr_tpu_torch.tools import wideband_signals as W
+
+    m, b = W1_M, W1_BLOCK
+    dev = torch.device("cuda")
+    blocks, pages = W.pager_band(m, 2, b, "cuda", gen=gen)
+    x = [Complex(p.re[None], p.im[None]) for p in blocks]
+    scale = IB.unclipped_scale(x, 0.9)
+    data = b"".join(IB.quantize_u8(p, scale).cpu().numpy().tobytes()
+                    for p in x)
+    del blocks, x
+    torch.cuda.empty_cache()
+    path = tmp / "w1_wire.u8"
+    path.write_bytes(data)
+    entries = all_entries()
+    res = {}
+    for plane, bf16 in (("f32", False), ("bf16", True)):
+        set_counts_zero(entries)
+        found, stats, secs = IB.scan_live(data, W1_FS, m, b, bf16, dev,
+                                          rate=W1_FS, timeout=60.0)
+        counts = counts_now(entries)
+        filed = IB.scan_file(path, W1_FS, m, b, bf16, dev)
+        same = IB.pages_of(found) == IB.pages_of(filed)
+        ok = IB.decoded_pages(found, pages)
+        astray = IB.misplaced(found, pages)
+        res[plane] = dict(decoded=len(ok), sent=len(pages), secs=secs)
+        print(f"phase 14 live W1 {plane} planes ({m} ch x {b:,} @ "
+              f"{W1_FS / 1e6:g} MHz, 2 blocks over loopback TCP paced to "
+              f"{W1_FS / 1e6:g} Msamples/s): {secs:.2f} s, "
+              f"{stats.bytes_in:,} bytes in, {stats.bytes_dropped} "
+              f"dropped; pages decoded {len(ok)}/{len(pages)} on their own "
+              f"channel (the u8 wire's rounding changes the traffic), "
+              f"{'equal to' if same else 'DIFFERENT from'} the file-fed "
+              f"decode of the same bytes; astray {astray}; launches "
+              f"{counts} | {smi}")
+        check(stats.bytes_dropped == 0 and stats.bytes_in == len(data),
+              f"live W1 {plane}: {stats.bytes_in} in, "
+              f"{stats.bytes_dropped} dropped of {len(data)}")
+        check(same, f"live W1 {plane}: live != file-fed decode")
+        check(not astray, f"live W1 {plane}: pages off their channel "
+                          f"{astray}")
+        check(counts["pfb_mxu"] == 2 and counts["pll"] == 2,
+              f"live W1 {plane}: launches {counts}")
+        check(ok, f"live W1 {plane}: no page decoded")
+    path.unlink()
+    return res
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cli(args):
+    """A CLI of the port as a process of its own, from the checkout."""
+    return subprocess.Popen([sys.executable, "-m"] + args,
+                            cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _finish(proc, label, timeout=120):
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"{label}: did not finish within {timeout} s")
+    check(proc.returncode == 0, f"{label} failed: {out[-2000:]}")
+    return out
+
+
+def phase_live_apps(torch, gen, smi, tmp: Path):
+    """The apps on the card through their CLIs: tx pocsag --wire
+    tcp-listen://127.0.0.1:P into the live POCSAG receiver (stream_live_iq
+    through the POCSAG chain); scanner --live with and without --bf16 from
+    a FIFO, decoding as --raw (--bf16) does on the same bytes; and
+    aprs_service --live fifo://..., fed by tx afsk --wire, showing the
+    frame in GET /spots over HTTP on loopback, with K2 launched."""
+    import json as _json
+    import os
+    import threading
+    import urllib.request
+
+    from libsdr_tpu_torch.apps import aprs_service, scanner
+    from libsdr_tpu_torch.apps.chains import pocsag_front_end, run_bit_chain
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.decode import pocsag_decode_bits
+    from libsdr_tpu_torch.io.live import LiveStats, stream_live_iq
+    from libsdr_tpu_torch.tools import ingest_bank as IB
+    from libsdr_tpu_torch.tools import wideband_signals as W
+
+    entries = all_entries()
+    # tx pocsag --wire tcp-listen -> the live receiver pulls (tcp://)
+    port = _free_port()
+    proc = _cli(["libsdr_tpu_torch.apps.tx", "pocsag", "--wire",
+                 f"tcp-listen://127.0.0.1:{port}", "--address", "77",
+                 "--text", "LIVE LOOPBACK"])
+    stats, t0 = LiveStats(), time.perf_counter()
+    while True:
+        try:
+            gen_iq = stream_live_iq(f"tcp://127.0.0.1:{port}", 48_000,
+                                    stats=stats, timeout=30.0)
+            break
+        except ConnectionError:
+            check(time.perf_counter() - t0 < 60 and proc.poll() is None,
+                  "tx --wire tcp-listen never listened")
+            time.sleep(0.1)
+    iq = np.concatenate(list(gen_iq))
+    _finish(proc, "tx pocsag --wire")
+    set_counts_zero(entries)
+    msgs = pocsag_decode_bits(run_bit_chain(
+        pocsag_front_end(240e3, 48_000), iq, "cuda"))
+    counts = counts_now(entries)
+    print(f"phase 14 tx pocsag --wire tcp-listen -> live receiver on the "
+          f"card: {stats.bytes_in} bytes, {stats.bytes_dropped} dropped, "
+          f"{[(x.address, x.as_text()) for x in msgs]}, launches {counts}")
+    check(stats.bytes_dropped == 0 and msgs and msgs[0].address == 77
+          and msgs[0].as_text().startswith("LIVE LOOPBACK"),
+          f"tx --wire loopback: {msgs}")
+    check(counts["fir_fm_exact"] > 0 and counts["pll"] > 0,
+          f"tx --wire loopback launches {counts}")
+
+    # scanner --live (fifo) against --raw on the same bytes
+    m, b = 64, 64 * 16_384
+    fs = m * 24_000.0
+    blocks, pages = W.pager_band(m, 2, b, "cuda", gen=gen,
+                                 channels=[5, 20, 37, 50])
+    x = [Complex(p.re[None], p.im[None]) for p in blocks]
+    scale = IB.unclipped_scale(x, 0.9)
+    raw = tmp / "band.u8"
+    data = b"".join(IB.quantize_u8(p, scale).cpu().numpy().tobytes()
+                    for p in x)
+    raw.write_bytes(data)
+    del blocks, x
+    for extra in ([], ["--bf16"]):
+        fifo = tmp / f"band{len(extra)}.fifo"
+        os.mkfifo(fifo)
+        err = []
+
+        def antenna():
+            try:
+                with open(fifo, "wb") as f:
+                    f.write(data)
+            except Exception as e:  # noqa: BLE001 - checked below
+                err.append(e)
+
+        feeder = threading.Thread(target=antenna, daemon=True)
+        feeder.start()
+        set_counts_zero(entries)
+        live = scanner.main(["--live", f"fifo://{fifo}", "--rate", str(fs),
+                             "--channels", str(m), "--live-timeout", "30",
+                             "--device", "cuda"] + extra)
+        counts = counts_now(entries)
+        feeder.join(60)
+        check(not feeder.is_alive() and not err, f"FIFO feeder: {err}")
+        filed = scanner.main(["--raw", str(raw), "--rate", str(fs),
+                              "--channels", str(m), "--device", "cuda"]
+                             + extra)
+        label = " ".join(["scanner --live"] + extra)
+        ok = IB.decoded_pages(live, pages)
+        same = IB.pages_of(live) == IB.pages_of(filed)
+        print(f"phase 14 {label}: {'equal to' if same else 'DIFFERENT from'}"
+              f" --raw on the same bytes; pages {len(ok)}/{len(pages)}; "
+              f"launches {counts}")
+        check(same,
+              f"{label} != --raw: {IB.pages_of(live)} / "
+              f"{IB.pages_of(filed)}")
+        check(len(ok) == len(pages) and not IB.misplaced(live, pages),
+              f"{label}: pages {ok} of {sorted(pages)}")
+        check(counts["pfb_mxu"] > 0 and counts["pll"] > 0,
+              f"{label} launches {counts}")
+
+    # aprs_service --live fifo, fed by tx afsk --wire; GET /spots
+    fifo = tmp / "afsk.fifo"
+    os.mkfifo(fifo)
+    port = _free_port()
+    out = {}
+
+    def service():
+        try:
+            out["store"] = aprs_service.main(
+                ["--live", f"fifo://{fifo}", "--rate", "24000", "--port",
+                 str(port), "--block-size", "12000", "--live-timeout", "60",
+                 "--device", "cuda"])
+        except Exception as e:  # noqa: BLE001 - checked below
+            out["error"] = e
+
+    set_counts_zero(entries)
+    th = threading.Thread(target=service, daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    while True:     # hold a writer, so the wire stays open while we read
+        try:
+            hold = os.open(fifo, os.O_WRONLY | os.O_NONBLOCK)
+            break
+        except OSError:
+            check(time.perf_counter() - t0 < 60 and th.is_alive(),
+                  f"aprs_service never opened its FIFO: {out}")
+            time.sleep(0.05)
+    try:
+        _finish(_cli(["libsdr_tpu_torch.apps.tx", "afsk", "--wire",
+                      f"fifo://{fifo}", "--from-call", "K1GPU"]),
+                "tx afsk --wire")
+        spots = []
+        while not spots:
+            check(time.perf_counter() - t0 < 120, "no spot over HTTP")
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/spots", timeout=10) as r:
+                    spots = _json.loads(r.read())
+            except OSError:
+                pass
+            time.sleep(0.1)
+    finally:
+        os.close(hold)
+    th.join(120)
+    counts = counts_now(entries)
+    check(not th.is_alive() and "error" not in out,
+          f"aprs_service --live: {out.get('error')}")
+    print(f"phase 14 aprs_service --live fifo (fed by tx afsk --wire): GET "
+          f"/spots {spots}; launches {counts}")
+    check(spots == out["store"].spots() and spots[0]["from"] == "K1GPU-0",
+          f"aprs_service spots {spots}")
+    check(counts["pll"] > 0, f"aprs_service --live launches {counts}")
+
+
+def phase_slice14(torch, smi, tmp: Path):
+    """Slice 14 on traffic from a generator of its own (the earlier phases
+    keep their draws): the pump-fed P2 bank, the live W1 scanner and the
+    apps' live options."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1414)
+    p2 = phase_pump_p2(torch, gen, smi, tmp)
+    w1 = phase_live_w1(torch, gen, smi, tmp)
+    phase_live_apps(torch, gen, smi, tmp)
+    return dict(p2=p2, w1=w1)
+
+
 def all_entries():
     from libsdr_tpu_torch.ops import fir_fm as F
     from libsdr_tpu_torch.ops import fir_mxu as M
@@ -2892,6 +3261,12 @@ def main() -> int:
     lib_path, log = _build.build()
     _build.library()
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s -> {lib_path}")
+    from libsdr_tpu_torch import native
+    t0 = time.perf_counter()
+    native_path, _ = native.build()
+    native.get_lib()
+    print(f"phase 2 native host runtime (g++): {time.perf_counter() - t0:.2f}"
+          f" s -> {native_path}")
     for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -3031,6 +3406,10 @@ def main() -> int:
         phase_apps(Path(tmp))
         phase_digital_apps(Path(tmp))
         phase_wide_apps(Path(tmp))
+    # Slice 14: the native host runtime, file and live ingest, the APRS
+    # service, each path with its launch counts set to 0 just before it.
+    with tempfile.TemporaryDirectory() as tmp:
+        s14 = phase_slice14(torch, smi, Path(tmp))
 
     # The kernels' record, float32 planes.  Bounds from this run's shapes:
     # bytes (planes read once, outputs written once) and float32 operations
@@ -3203,6 +3582,15 @@ def main() -> int:
           f"block; captured {s11['captured']}; Q14 chain "
           f"{s11['q14_ms']:.1f} ms a block (FMDeemphInt "
           f"{s11['q14_deemph_ms']:.1f})")
+    print("slice 14: pump-fed P2 " + ", ".join(
+        f"{p} {r['ms_fed']:.2f} ms a step (take {r['take_ms']:.2f}, "
+        f"upload {r['up_ms']:.2f}; {r['ms_mem']:.2f} in memory, "
+        f"{r['mbps']:.0f} MB/s of wire, the pump alone "
+        f"{r['pump_mbps']:.0f}), {r['decoded']}/256 pages, host "
+        f"decode {r['nat_s']:.3f} s native / {r['py_s']:.2f} s Python"
+        for p, r in s14["p2"].items()) + "; live W1 " + ", ".join(
+        f"{p} {r['decoded']}/{r['sent']} pages in {r['secs']:.1f} s"
+        for p, r in s14["w1"].items()))
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

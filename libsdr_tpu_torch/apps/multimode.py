@@ -20,6 +20,11 @@ FIR kernel (K1b).  Only the bit streams reach the host decoders.
 Usage:
   python -m libsdr_tpu_torch.apps.multimode --file wide.wav --channels 16 \
       --map "2:pocsag,5:ax25,9:rtty,12:psk31"
+  python -m libsdr_tpu_torch.apps.multimode --live tcp-listen://:1234 \
+      --rate 384e3 --channels 16 --map "2:pocsag,9:rtty" --live-timeout 2
+
+The JAX CLI's ``--pattern`` and ``--bf16`` run its sharded bank, which the
+port does not have yet.
 """
 
 from __future__ import annotations
@@ -272,15 +277,37 @@ def main(argv=None):
     ap.add_argument("--channels", type=int, default=16)
     ap.add_argument("--map", required=True,
                     help="per-channel modes, e.g. '2:pocsag,5:ax25,9:rtty'")
+    ap.add_argument("--live",
+                    help="live u8 IQ wire instead of a file: tcp://host:port "
+                         "(rtl_tcp pull), tcp-listen://:port, udp://:port, "
+                         "fifo:///path; needs --rate")
+    ap.add_argument("--live-timeout", type=float, default=None,
+                    help="stop after this many seconds with no wire data")
     args = ap.parse_args(argv)
     sdrlog.set_level(args.log_level)
     dev = device_of(args)
 
-    iq, fs = load_source(args)
-    if not np.iscomplexobj(iq):
-        raise SystemExit("multimode expects an IQ capture")
-    found = scan_multimode(iq, fs, args.channels, _parse_map(args.map),
-                           device=dev)
+    if args.live:
+        if not args.rate:
+            raise SystemExit("--live requires --rate")
+        from libsdr_tpu_torch.io.live import LiveStats, stream_live_iq
+        fs = args.rate
+        stats = LiveStats()
+        found = scan_multimode(
+            None, fs, args.channels, _parse_map(args.map),
+            blocks=lambda b: stream_live_iq(args.live, b, stats=stats,
+                                            timeout=args.live_timeout),
+            device=dev)
+        print(f"live: {stats.bytes_in} bytes in, "
+              f"{stats.bytes_dropped} dropped "
+              f"({100 * stats.drop_fraction:.2f}%), "
+              f"{stats.sustained_msps():.2f} Msps sustained")
+    else:
+        iq, fs = load_source(args)
+        if not np.iscomplexobj(iq):
+            raise SystemExit("multimode expects an IQ capture")
+        found = scan_multimode(iq, fs, args.channels, _parse_map(args.map),
+                               device=dev)
     m = args.channels
     for ch in sorted(found):
         mode, out = found[ch]

@@ -9,6 +9,9 @@ Usage:
   python -m libsdr_tpu_torch.apps.scanner --file wide.wav --channels 64
   python -m libsdr_tpu_torch.apps.scanner --raw rtl.bin --rate 1.6e6 \
       --channels 64 --device cpu
+  python -m libsdr_tpu_torch.apps.scanner --raw rtl.bin --rate 1.6e6 --bf16
+  python -m libsdr_tpu_torch.apps.scanner --live tcp-listen://:1234 \
+      --rate 24.576e6 --channels 1024 --live-timeout 2
 """
 
 from __future__ import annotations
@@ -110,14 +113,63 @@ def main(argv=None):
     ap.add_argument("--channels", type=int, default=64,
                     help="uniform channels across the capture bandwidth")
     ap.add_argument("--baud", type=float, default=1200.0)
+    ap.add_argument("--bf16", action="store_true",
+                    help="stream the u8 wire as bfloat16 planes into the "
+                         "channelizer: lossless for 8-bit sources, half the "
+                         "bytes (--raw uint8 or --live sources)")
+    ap.add_argument("--live",
+                    help="live u8 IQ wire instead of a file: tcp://host:port "
+                         "(rtl_tcp pull), tcp-listen://:port (push), "
+                         "udp://:port, fifo:///path; needs --rate")
+    ap.add_argument("--live-timeout", type=float, default=None,
+                    help="stop after this many seconds with no wire data")
     args = ap.parse_args(argv)
     sdrlog.set_level(args.log_level)
     dev = device_of(args)
 
-    iq, fs = load_source(args)
-    if not np.iscomplexobj(iq):
-        raise SystemExit("scanner expects an IQ capture")
-    found = scan(iq, fs, args.channels, baud=args.baud, device=dev)
+    if args.live:
+        if not args.rate:
+            raise SystemExit("--live requires --rate")
+        import torch
+
+        from libsdr_tpu_torch.io.live import (LiveStats, stream_live_iq,
+                                              stream_live_iq_bf16)
+        fs = args.rate
+        block = pick_block(fs, args.channels)
+        stats = LiveStats()
+        if args.bf16:   # the u8 wire as bf16 planes into the channelizer
+            src = stream_live_iq_bf16(args.live, block, stats=stats,
+                                      timeout=args.live_timeout)
+            plane_dtype = torch.bfloat16
+        else:
+            src = stream_live_iq(args.live, block, stats=stats,
+                                 timeout=args.live_timeout)
+            plane_dtype = None
+        found = scan_blocks(src, fs, args.channels, block, baud=args.baud,
+                            plane_dtype=plane_dtype, device=dev)
+        print(f"live: {stats.bytes_in} bytes in, "
+              f"{stats.bytes_dropped} dropped "
+              f"({100 * stats.drop_fraction:.2f}%), "
+              f"{stats.sustained_msps():.2f} Msps sustained")
+    elif args.bf16:
+        if not args.raw or np.dtype(args.raw_dtype) != np.uint8:
+            raise SystemExit("--bf16 needs a --raw uint8 (rtl_sdr wire) "
+                             "source")
+        if not args.rate:
+            raise SystemExit("--raw requires --rate")
+        import torch
+
+        from libsdr_tpu_torch.io.ingest import stream_raw_iq_bf16
+        fs = args.rate
+        block = pick_block(fs, args.channels)
+        found = scan_blocks(stream_raw_iq_bf16(args.raw, block), fs,
+                            args.channels, block, baud=args.baud,
+                            plane_dtype=torch.bfloat16, device=dev)
+    else:
+        iq, fs = load_source(args)
+        if not np.iscomplexobj(iq):
+            raise SystemExit("scanner expects an IQ capture")
+        found = scan(iq, fs, args.channels, baud=args.baud, device=dev)
     m = args.channels
     for ch in sorted(found):
         f_center = ch * fs / m

@@ -9,9 +9,10 @@ Modes:
   rtty    --text "RYRY"                                    (FSK audio)
   psk31   --text "cq cq"                                   (BPSK IQ)
 
-Output: a stereo-IQ WAV (IQ modes) or a mono WAV (audio modes).  The
-generator is numpy on the host; the JAX CLI's ``--wire`` output to a live
-receiver needs the live I/O layer, which is not ported yet.
+Output: a stereo-IQ WAV (IQ modes) or a mono WAV (audio modes), and/or,
+with ``--wire``, a live wire (IQ modes send the u8 rtl_sdr format, audio
+modes s16) that a receiver's ``--live`` source reads.  The generator is
+numpy on the host.
 """
 
 from __future__ import annotations
@@ -82,7 +83,14 @@ def synthesize(mode: str, fs: float, args) -> np.ndarray:
 def main(argv=None):
     p = argparse.ArgumentParser(description="Signal generator")
     p.add_argument("mode", choices=["fm", "pocsag", "afsk", "rtty", "psk31"])
-    p.add_argument("-o", "--output", required=True, help="output WAV path")
+    p.add_argument("-o", "--output", help="output WAV path")
+    p.add_argument("--wire",
+                   help="transmit into a live wire (tcp://host:port, "
+                        "tcp-listen://:port, udp://host:port, fifo:///path): "
+                        "IQ modes send the u8 rtl_sdr format, audio modes "
+                        "s16; pairs with the receivers' --live")
+    p.add_argument("--realtime", action="store_true",
+                   help="pace --wire output to the sample rate")
     p.add_argument("--fs", type=float, default=None,
                    help="sample rate (per-mode default)")
     p.add_argument("--seconds", type=float, default=2.0)
@@ -97,19 +105,30 @@ def main(argv=None):
     p.add_argument("--to-call", default="APRS")
     p.add_argument("--info", default="!4903.50N/07201.75W-libsdr_tpu")
     args = p.parse_args(argv)
+    if not args.output and not args.wire:
+        raise SystemExit("need -o/--output and/or --wire")
 
     defaults = dict(fm=960_000.0, pocsag=240_000.0, afsk=24_000.0,
                     rtty=8_000.0, psk31=2_000.0)
     fs = args.fs or defaults[args.mode]
     sig = args.amplitude * synthesize(args.mode, fs, args)
-    if np.iscomplexobj(sig):
-        write_wav_iq(args.output, sig.astype(np.complex64), int(fs))
-    else:
-        write_wav(args.output, sig.astype(np.float32), int(fs))
-    print(f"{args.mode}: wrote {len(sig)} samples @ {fs:.0f} Hz "
-          f"-> {args.output}")
-    return args.output
-
+    if args.output:
+        if np.iscomplexobj(sig):
+            write_wav_iq(args.output, sig.astype(np.complex64), int(fs))
+        else:
+            write_wav(args.output, sig.astype(np.float32), int(fs))
+        print(f"{args.mode}: wrote {len(sig)} samples @ {fs:.0f} Hz "
+              f"-> {args.output}")
+    if args.wire:
+        from libsdr_tpu_torch.io.live import send_live_audio, send_live_iq
+        rate = fs if args.realtime else None
+        if np.iscomplexobj(sig):
+            sent = send_live_iq(args.wire, sig.astype(np.complex64), rate)
+        else:
+            sent = send_live_audio(args.wire, sig.astype(np.float32), rate)
+        print(f"{args.mode}: transmitted {sent} wire bytes @ {fs:.0f} Hz "
+              f"-> {args.wire}")
+    return args.output or args.wire
 
 if __name__ == "__main__":
     main()

@@ -142,10 +142,33 @@ class AX25Decoder:
 
 
 def ax25_decode_bits(bits: np.ndarray) -> List[AX25Message]:
-    """One-shot deframe of a dense bit vector: a fresh
-    :class:`AX25Decoder` over the bits (the JAX package also has a native
-    C++ state machine that gives the same frames; it is not ported)."""
-    return AX25Decoder().process(np.asarray(bits, dtype=np.uint8))
+    """One-shot deframe of a dense bit vector by the native C++ HDLC state
+    machine (``libsdr_tpu_torch.native``).  The frames are those of a fresh
+    :class:`AX25Decoder` over the same bits, which stays as the plain
+    version (tests/test_torch_native.py)."""
+    import ctypes
+
+    from libsdr_tpu_torch import native
+
+    bits = np.ascontiguousarray(np.asarray(bits, dtype=np.uint8))
+    lib = native.get_lib()
+    # True upper bounds (a CRC-valid frame is >= 3 bytes, ~32 bits with the
+    # shared flag), so the native deframer never truncates.
+    cap_frames = len(bits) // 32 + 8
+    cap_bytes = len(bits) // 8 + 64
+    meta = np.zeros(cap_frames * 2, np.int64)
+    frames = np.zeros(cap_bytes, np.uint8)
+    n = lib.ax25_decode(
+        bits.ctypes.data_as(ctypes.c_void_p), len(bits),
+        meta.ctypes.data_as(ctypes.c_void_p),
+        frames.ctypes.data_as(ctypes.c_void_p), cap_frames, cap_bytes)
+    msgs: List[AX25Message] = []
+    for i in range(int(n)):
+        off, length = int(meta[i * 2]), int(meta[i * 2 + 1])
+        if length < 14:  # a CRC-lucky noise segment, not a parseable frame
+            continue
+        msgs.append(AX25Message.from_frame(bytes(frames[off:off + length])))
+    return msgs
 
 
 # ---------------------------------------------------------------------------

@@ -195,10 +195,38 @@ class POCSAGDecoder:
 
 
 def pocsag_decode_bits(bits: np.ndarray) -> List[POCSAGMessage]:
-    """One-shot decode of a dense bit vector: a fresh
-    :class:`POCSAGDecoder` over the bits (the JAX package also has a native
-    C++ state machine that gives the same messages; it is not ported)."""
-    return POCSAGDecoder().process(np.asarray(bits, dtype=np.uint8))
+    """One-shot decode of a dense bit vector by the native C++ state
+    machine (``libsdr_tpu_torch.native``, ~10 ns a bit): at hundreds of
+    channels the Python loop of :class:`POCSAGDecoder` would take the whole
+    receive bank's time.  The messages are those of a fresh
+    :class:`POCSAGDecoder` over the same bits, which stays as the plain
+    version (tests/test_torch_native.py)."""
+    import ctypes
+
+    from libsdr_tpu_torch import native
+
+    bits = np.ascontiguousarray(np.asarray(bits, dtype=np.uint8))
+    lib = native.get_lib()
+    # True upper bounds, so the native decoder never truncates: every
+    # message takes at least one 32-bit address word, and 32 payload bits
+    # pack into at most 3 bytes.
+    cap_msgs = len(bits) // 32 + 4
+    cap_payload = len(bits) // 2 + 64
+    meta = np.zeros(cap_msgs * 4, np.int64)
+    payload = np.zeros(cap_payload, np.uint8)
+    n = lib.pocsag_decode(
+        bits.ctypes.data_as(ctypes.c_void_p), len(bits),
+        meta.ctypes.data_as(ctypes.c_void_p),
+        payload.ctypes.data_as(ctypes.c_void_p), cap_msgs, cap_payload)
+    msgs: List[POCSAGMessage] = []
+    off = 0
+    for i in range(int(n)):
+        addr, func, nbytes, nbits = (int(v) for v in meta[i * 4:i * 4 + 4])
+        msgs.append(POCSAGMessage(addr, func,
+                                  payload=bytes(payload[off:off + nbytes]),
+                                  bits=nbits))
+        off += nbytes
+    return msgs
 
 
 # ---------------------------------------------------------------------------

@@ -1755,3 +1755,81 @@ def test_resamplers_card_match_cpu(cuda):
                 ys.append(cplx.to_numpy(y))
             outs[str(dev)] = np.concatenate(ys, -1)
         np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=1e-6)
+
+
+def test_u8_wire_to_planes_on_card_equals_host_lut(cuda):
+    """The u8 wire converted on the card (f32 and bf16 planes) equals the
+    native host converters bit for bit, every u8 value."""
+    from libsdr_tpu_torch import native
+    from libsdr_tpu_torch.io.ingest import u8_wire_to_planes
+
+    src = np.arange(512, dtype=np.uint8)
+    re16, im16 = native.u8_iq_to_planar_bf16(src)
+    re32, im32 = native.u8_iq_to_planar(src)
+    got16 = u8_wire_to_planes(torch.from_numpy(src).to(cuda), torch.bfloat16)
+    got32 = u8_wire_to_planes(torch.from_numpy(src).to(cuda))
+    assert got16.re.view(torch.int16).cpu().numpy().tobytes() == \
+        re16.tobytes()
+    assert got16.im.view(torch.int16).cpu().numpy().tobytes() == \
+        im16.tobytes()
+    assert got32.re.cpu().numpy().tobytes() == re32.tobytes()
+    assert got32.im.cpu().numpy().tobytes() == im32.tobytes()
+
+
+@pytest.mark.parametrize("plane", [None, torch.bfloat16])
+def test_pump_fed_pocsag_bank_on_card(cuda, tmp_path, plane):
+    """P2's chain on 16 channels fed by the native file pump (the raw u8
+    uploaded, converted on the card): every channel decodes its page, and
+    the bits equal the same chain fed the same bytes already on the card."""
+    from libsdr_tpu_torch.decode import POCSAGDecoder, pocsag_decode_bits
+    from libsdr_tpu_torch.tools import ingest_bank as IB
+    from libsdr_tpu_torch.tools.digital_signals import (POCSAG_ADDRESS,
+                                                        pocsag_blocks)
+
+    fs, c, blk, nb = 240e3, 16, 117_760, 4
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(14)
+    blocks = pocsag_blocks(c, blk, nb, gen, fs)
+    steps = [IB.quantize_u8(b, IB.unclipped_scale(blocks)) for b in blocks]
+    path = tmp_path / "wire.u8"
+    IB.write_wire_file(path, steps)
+    fed = IB.run_steps(IB.pump_steps(path, c, blk),
+                       IB.pocsag_bank(fs, blk, c, plane), fs, blk, plane, cuda)
+    mem = IB.run_steps(steps, IB.pocsag_bank(fs, blk, c, plane), fs, blk,
+                       plane, cuda)
+    for a, b in zip(fed[0] + fed[1], mem[0] + mem[1]):
+        assert torch.equal(a, b)
+    for bits in IB.channel_bits(fed[0], fed[1]):
+        msgs = pocsag_decode_bits(bits)
+        assert any(m.address == POCSAG_ADDRESS for m in msgs)
+        assert [(m.address, m.payload) for m in msgs] == [
+            (m.address, m.payload) for m in POCSAGDecoder().process(bits)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_live_scanner_on_loopback_equals_file_fed(cuda, tmp_path, bf16):
+    """The scanner on a loopback TCP wire (16 channels, two blocks) decodes
+    what it decodes from a file of the same bytes, with no drops."""
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.tools import ingest_bank as IB
+    from libsdr_tpu_torch.tools import wideband_signals as W
+
+    m, b = 16, 16 * 16384
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(14)
+    blocks, pages = W.pager_band(m, 2, b, cuda, gen=gen,
+                                 channels=[3, 6, 10, 13])
+    x = [Complex(p.re[None], p.im[None]) for p in blocks]
+    scale = IB.unclipped_scale(x, 0.9)
+    data = b"".join(IB.quantize_u8(p, scale).cpu().numpy().tobytes()
+                    for p in x)
+    path = tmp_path / "band.u8"
+    path.write_bytes(data)
+    fs = m * 24_000.0
+    found, stats, _ = IB.scan_live(data, fs, m, b, bf16, cuda, rate=None,
+                                   timeout=30.0)
+    assert stats.bytes_dropped == 0 and stats.bytes_in == len(data)
+    assert IB.pages_of(found) == IB.pages_of(
+        IB.scan_file(path, fs, m, b, bf16, cuda))
+    assert IB.decoded_pages(found, pages) == sorted(pages)
+    assert not IB.misplaced(found, pages)

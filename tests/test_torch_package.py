@@ -37,10 +37,21 @@ def test_import_leaves_jax_out():
             "digital_signals, wideband_signals\n"
             "from libsdr_tpu_torch import io\n"
             "from libsdr_tpu_torch.utils import options, logging\n"
+            "from libsdr_tpu_torch import native\n"
+            "from libsdr_tpu_torch.io import ingest, live\n"
+            "from libsdr_tpu_torch.utils import http\n"
+            "from libsdr_tpu_torch.apps import aprs_service\n"
+            "import numpy as np\n"
+            "from libsdr_tpu_torch.decode import pocsag_decode_bits\n"
+            "pocsag_decode_bits(np.zeros(64, np.uint8))\n"
+            "native.RingBuffer(64).close()\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'libsdr_tpu' or "
             "m.startswith('libsdr_tpu.'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert 'sdr_native-' in maps\n"
+            "assert '_sdr_native.so' not in maps, 'the JAX package .so'\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -49,9 +60,14 @@ def test_import_leaves_jax_out():
 def test_no_source_imports_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|libsdr_tpu)(\.|\s|$)",
                      re.MULTILINE)
-    offenders = [str(p) for p in PKG.rglob("*.py")
-                 if pat.search(p.read_text())]
+    sources = list(PKG.rglob("*.py"))
+    offenders = [str(p) for p in sources if pat.search(p.read_text())]
     assert not offenders
+    names = {str(p.relative_to(PKG)) for p in sources}
+    assert {"native/__init__.py", "io/ingest.py", "io/live.py",
+            "utils/http.py", "apps/aprs_service.py"} <= names
+    # the native library is the port's own build, never the JAX package's
+    assert not [str(p) for p in sources if "_sdr_native" in p.read_text()]
 
 
 def _no_cuda():
