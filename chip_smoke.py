@@ -114,9 +114,19 @@ its own line; the first failure exits non-zero:
    every page on its own channel, K4 and K2 launched); ``tx pocsag
    --wire`` into the live POCSAG receiver, ``scanner --live`` with and
    without ``--bf16`` against ``--raw``, and ``aprs_service --live``
-   fed by ``tx afsk --wire``, its spot read by GET /spots.
+   fed by ``tx afsk --wire``, its spot read by GET /spots;
+8. slice 15, on W2's traffic from a generator of its own: the sharded
+   multimode bank (``parallel/multimode.py``) at n == 1 through
+   ``apps/multimode.scan_multimode_sharded`` (every active channel its own
+   message, the decodes of ``scan_multimode`` with the pattern's map, K4 +
+   K1b + K3 once a block, held against their plain versions on the path's
+   own calls), its step bit for bit ``build_bank``'s, ``multimode --raw
+   --bf16 --pattern`` on the band's u8 wire (K4's channel variant with bf16
+   planes, held and timed on the path's call) and ``--live tcp-listen://
+   --bf16 --pattern`` on the same bytes, and the step's ms a block.
 
-The last three lines are the kernels' JSON record, the card's name and power
+A summary line of slice 15 comes before the last three lines.  The last
+three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  In the record every ``ms``
 is CUDA events around the calls; K4's rows add ``device_ms`` (the same
 calls replayed in a CUDA graph, no host time) and ``kernel_route`` (the
@@ -3224,6 +3234,279 @@ def phase_slice14(torch, smi, tmp: Path):
     return dict(p2=p2, w1=w1)
 
 
+# -- slice 15: the sharded multimode bank at n == 1 --------------------------
+
+def _found_summary(found):
+    """{channel: (mode, comparable decode)} of a bank's decodes."""
+    out = {}
+    for ch, (mode, dec) in found.items():
+        if mode == "pocsag":
+            out[ch] = (mode, [(x.address, x.as_text()) for x in dec])
+        elif mode == "ax25":
+            out[ch] = (mode, [str(f) for f, _ in dec])
+        else:
+            out[ch] = (mode, dec.strip())
+    return out
+
+
+def _w2_checked(W, found, active, label):
+    """W2's decode check: every active channel its own message, none off
+    its channel; returns (decoded by mode, wanted by mode)."""
+    modes = ("pocsag", "ax25", "rtty", "psk31")
+    marks = {ch: W.mixed_marks(mo, dec) for ch, (mo, dec) in found.items()}
+    ok = {mo: sum(1 for ch, v in active.items() if v == mo
+                  and found.get(ch, (None,))[0] == mo and marks[ch] == {ch})
+          for mo in modes}
+    astray = {ch: sorted(v) for ch, v in marks.items()
+              if v - {ch} or (v and ch not in active)}
+    want = {mo: sum(1 for v in active.values() if v == mo) for mo in modes}
+    check(ok == want and not astray,
+          f"{label}: decoded {ok} of {want}, off their channel {astray}")
+    return ok, want
+
+
+def phase_slice15(torch, smi, tmp: Path):
+    """Slice 15, on W2's traffic from a generator of its own (seed 1515):
+    the sharded multimode bank (``parallel/multimode.build_multimode_step``)
+    at n == 1 on the card, W2's 256 channels x 12,288 frames at 6.144 MHz
+    with the pattern pocsag,ax25,rtty,psk31:
+
+    * ``apps/multimode.scan_multimode_sharded``: every active channel
+      decodes its own message and nothing is off its channel; the decodes
+      equal ``scan_multimode``'s with the pattern's map; K4 (stream route),
+      K1b and K3 once a block and nothing else, each held against its
+      plain version on the path's own call of block 2 (K3 bit-exact);
+    * the step bit for bit ``build_bank``'s over every block;
+    * the band on the u8 wire (scaled to a 0.9 peak, nothing clipped)
+      through ``multimode --raw --bf16 --pattern``: every active channel,
+      K4 launched with bf16 planes on its route and held against its plain
+      version on the path's call (2e-5 of max |Y|), timed there;
+    * ``multimode --live tcp-listen:// --bf16 --pattern`` fed the same bytes
+      over loopback TCP paced to 6.144 Msamples/s: the ``--raw`` decodes;
+    * ms a block of the step, f32 and bf16 planes, against build_bank's:
+      the host clock and the device's time alone, interleaved
+      (``tools/multimode_times.step_times``).
+
+    Two ranks sharing the card are not run: gloo refuses a send or receive
+    of CUDA tensors (``batch_isend_irecv``: "writev ...: Bad address"; its
+    broadcast, all_gather and all_to_all_single take them), and NCCL
+    refuses two ranks on one GPU (PERF.md, ROADMAP.md)."""
+    import contextlib
+    import io
+    import threading
+
+    from libsdr_tpu_torch.apps import multimode
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.io.ingest import u8_wire_to_planes
+    from libsdr_tpu_torch.io.live import send_live_bytes
+    from libsdr_tpu_torch.ops import bitsync
+    from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu, pfb_plain
+    from libsdr_tpu_torch.ops.pll import pll_bank, pll_bank_plain
+    from libsdr_tpu_torch.parallel import wideband as pwb
+    from libsdr_tpu_torch.parallel.multimode import build_multimode_step
+    from libsdr_tpu_torch.tools import ingest_bank as IB
+    from libsdr_tpu_torch.tools import wideband_signals as W
+    from libsdr_tpu_torch.tools.multimode_times import step_times
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1515)
+    m, b = W2_M, W2_M * W2_FRAMES
+    pattern = ("pocsag", "ax25", "rtty", "psk31")
+    mode_map = {ch: pattern[ch % 4] for ch in range(m)}
+    active = {ch: mode_map[ch] for ch in range(0, m - 5, 5)}
+    x = W.mixed_band(active, m, "cuda", gen=gen, sigma=0.02)
+    n_blocks = -(-x.shape[-1] // b)
+    pad = n_blocks * b - x.shape[-1]
+    x = x.map(lambda a: torch.nn.functional.pad(a, (0, pad)))
+    blocks = [x[i * b:(i + 1) * b] for i in range(n_blocks)]
+    entries = all_entries()
+    path = ("pfb_mxu", "pll_bank", "fir_exact")
+
+    def launched_once_a_block(counts, label, n=n_blocks):
+        check(all(counts[k] == n for k in path)
+              and all(v == 0 for k, v in counts.items() if k not in path),
+              f"{label} launches {counts}")
+
+    # scan_multimode_sharded at n == 1, f32 planes
+    set_counts_zero(entries)
+    t0 = time.perf_counter()
+    with Capture(pwb, "pfb_mxu") as k4, Capture(F, "fir_exact") as k1b, \
+            Capture(bitsync, "pll_bank") as k3:
+        found = multimode.scan_multimode_sharded(
+            None, W2_FS, m, pattern, block=b,
+            blocks=lambda blk: iter(blocks), device="cuda")
+    scan_s = time.perf_counter() - t0
+    counts = counts_now(entries)
+    routes = dict(pfb_mxu.routes)
+    launched_once_a_block(counts, "slice 15 scan_multimode_sharded")
+    check(routes == {"generic": 0, "stream": n_blocks},
+          f"slice 15: K4 routes {routes}")
+    ok, want = _w2_checked(W, found, active, "slice 15 sharded bank")
+    by_map = multimode.scan_multimode(None, W2_FS, m, mode_map, block=b,
+                                      blocks=lambda blk: iter(blocks),
+                                      device="cuda")
+    same_found = _found_summary(found) == _found_summary(by_map)
+    print(f"phase 15 scan_multimode_sharded n == 1 ({m} ch x "
+          f"{W2_FRAMES:,} frames @ {W2_FS / 1e6:g} MHz, {n_blocks} blocks, "
+          f"f32 planes): {scan_s:.1f} s; channels decoded (their own "
+          f"message) {ok} of {want}, none astray; "
+          f"{'equal to' if same_found else 'DIFFERENT from'} "
+          f"scan_multimode with the pattern's map; launches {counts}, K4 by "
+          f"route {routes} | {smi}")
+    check(same_found, "slice 15: sharded decodes != scan_multimode's")
+    # its kernels on the path's own calls of block 2
+    (a4, kw4), (a1, _), (a3, kw3) = k4.calls[1], k1b.calls[1], k3.calls[1]
+    got, ref = pfb_mxu(*a4, **kw4), pfb_plain(*a4, **kw4)
+    torch.cuda.synchronize()
+    k4_err = pfb_errs(torch, got, ref, False, 1.0)[0]
+    k1b_err = mode_errs(torch, F.fir_exact, F.fir_exact_plain, a1,
+                        False)[0]["rel"]
+    k3_exact = all(torch.equal(u.cpu(), r) for u, r in zip(
+        pll_bank(*a3, **kw3), pll_bank_plain(*(v.cpu() for v in a3),
+                                             **kw3)))
+    print(f"phase 15 kernels on block 2 of the sharded bank: K4 "
+          f"{k4_err:.3e} of max |Y| (bound {PFB_REL:g}), K1b {k1b_err:.3e} "
+          f"of max |y| (bound {REL_BOUND:g}), K3 "
+          f"{'bit-exact' if k3_exact else 'DIFFERS'}")
+    check(k4_err < PFB_REL and k1b_err < REL_BOUND and k3_exact,
+          f"slice 15 kernels vs plain: K4 {k4_err}, K1b {k1b_err}, K3 "
+          f"{k3_exact}")
+    del k4, k1b, k3, a4, a1, a3, got, ref
+
+    # the step at n == 1 bit for bit build_bank's
+    step, init, place, _ = build_multimode_step(m, b, W2_FS, pattern,
+                                                device="cuda")
+    bstep, binit, _ = multimode.build_bank(W2_FS, b, m, mode_map)
+    c, bc = init(), binit("cuda")
+    differ = []
+    for i, blk in enumerate(blocks):
+        c, o = step(c, place(blk))
+        bc, bo = bstep(bc, blk)
+        for mo in o:
+            if not (torch.equal(o[mo].valid, bo[mo].valid) and torch.equal(
+                    o[mo].data * o[mo].valid, bo[mo].data * bo[mo].valid)):
+                differ.append((i, mo))
+    print(f"phase 15 build_multimode_step n == 1 vs build_bank over "
+          f"{n_blocks} blocks: "
+          + ("bit for bit" if not differ else f"DIFFERENT at {differ}"))
+    check(not differ, f"slice 15: the sharded step != build_bank {differ}")
+
+    # the u8 wire: --raw --bf16 --pattern through the CLI
+    xs = [Complex(blk.re[None], blk.im[None]) for blk in blocks]
+    scale = IB.unclipped_scale(xs, 0.9)
+    data = b"".join(IB.quantize_u8(v, scale).cpu().numpy().tobytes()
+                    for v in xs)
+    del xs
+    wire = tmp / "w2_wire.u8"
+    wire.write_bytes(data)
+    cli = ["--rate", str(int(W2_FS)), "--channels", str(m), "--bf16",
+           "--pattern", ",".join(pattern), "--device", "cuda"]
+    set_counts_zero(entries)
+    with Capture(pwb, "pfb_mxu") as k4, \
+            contextlib.redirect_stdout(io.StringIO()):
+        filed = multimode.main(["--raw", str(wire)] + cli)
+    counts = counts_now(entries)
+    bf16_launches = counts["pfb_mxu"]
+    bf16_routes = dict(pfb_mxu.routes)
+    # the CLI sizes its own blocks: 12,000 frames, ~0.5 s (the PSK31
+    # decimator's multiple), so 8 blocks of 12,288 make 9 of them
+    cli_blocks = -(-n_blocks * W2_FRAMES // (int(W2_FS) // 2 // m // 12 * 12))
+    launched_once_a_block(counts, "slice 15 --raw --bf16", cli_blocks)
+    check(bf16_routes == {"generic": 0, "stream": cli_blocks},
+          f"slice 15 --bf16: K4 routes {bf16_routes}")
+    check(all(a[0].re.dtype == torch.bfloat16 for a, _ in k4.calls),
+          "slice 15 --bf16: K4 did not get bf16 planes")
+    ok16, _ = _w2_checked(W, filed, active, "slice 15 --raw --bf16")
+    print(f"phase 15 multimode --raw (u8 wire, {len(data):,} bytes, scaled "
+          f"{scale:.4f}) --bf16 --pattern: channels decoded {ok16} of "
+          f"{want}, none astray; launches {counts}, K4 by route "
+          f"{bf16_routes} with bf16 planes | {smi}")
+    a4, kw4 = k4.calls[1]
+    k4b = k4_at(torch, a4, kw4, f"phase 15 K4 channel bf16 planes ({m} x "
+                f"{a4[0].shape[-2]:,} frames, the CLI's block)", smi)
+    del k4, a4
+
+    # the same bytes live: --live tcp-listen:// --bf16 --pattern
+    port = _free_port()
+    err, sent = [], []
+
+    def antenna():
+        t_end = time.perf_counter() + 60
+        while True:
+            try:
+                t_send = time.perf_counter()
+                send_live_bytes(f"tcp://127.0.0.1:{port}", data, W2_FS, 2,
+                                timeout=60.0)
+                sent.extend((t_send, time.perf_counter()))
+                return
+            except ConnectionRefusedError as e:
+                if time.perf_counter() > t_end:
+                    err.append(e)
+                    return
+                time.sleep(0.1)
+            except Exception as e:  # noqa: BLE001 - checked below
+                err.append(e)
+                return
+
+    feeder = threading.Thread(target=antenna, daemon=True)
+    set_counts_zero(entries)
+    feeder.start()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        live = multimode.main(["--live", f"tcp-listen://127.0.0.1:{port}",
+                               "--live-timeout", "30"] + cli)
+    stats = [ln for ln in printed.getvalue().splitlines()
+             if ln.startswith("live:")]
+    t_done = time.perf_counter()
+    live_s = t_done - t0
+    counts = counts_now(entries)
+    feeder.join(60)
+    check(not feeder.is_alive() and not err and sent,
+          f"live feeder: {err}")
+    same_live = _found_summary(live) == _found_summary(filed)
+    # the run's time: set-up before the first byte, the paced wire, the
+    # work left after its last byte (the backlog, the host's decode)
+    live_parts = (sent[0] - t0, sent[1] - sent[0], t_done - sent[1])
+    print(f"phase 15 multimode --live tcp-listen --bf16 --pattern (loopback "
+          f"TCP paced to {W2_FS / 1e6:g} Msamples/s, "
+          f"{len(data) / 2 / W2_FS:.3f} s of wire): {live_s:.2f} s = "
+          f"{live_parts[0]:.3f} s before the first byte + "
+          f"{live_parts[1]:.3f} s sending + {live_parts[2]:.3f} s after "
+          f"the last, {stats[0] if stats else 'no live line'}; "
+          f"{'equal to' if same_live else 'DIFFERENT from'} --raw on the "
+          f"same bytes; launches {counts}")
+    check(bool(stats) and stats[0].startswith(
+        f"live: {len(data)} bytes in, 0 dropped"),
+          f"slice 15 --live: {stats} for {len(data)} bytes sent")
+    check(same_live, "slice 15 --live != --raw")
+    check(counts["pfb_mxu"] > 0 and counts["pll_bank"] > 0,
+          f"slice 15 --live launches {counts}")
+    wire.unlink()
+
+    # ms a block: the sharded step (f32, bf16 planes off the wire) against
+    # build_bank
+    raw = torch.frombuffer(bytearray(data), dtype=torch.uint8).cuda()
+    b16 = [u8_wire_to_planes(raw[2 * i * b:2 * (i + 1) * b], torch.bfloat16)
+           for i in range(n_blocks)]
+    step16, init16, _, _ = build_multimode_step(
+        m, b, W2_FS, pattern, plane_dtype=torch.bfloat16, device="cuda")
+    times = step_times({"build_bank": (bstep, lambda: binit("cuda"), blocks),
+                        "sharded f32": (step, init, blocks),
+                        "sharded bf16": (step16, init16, b16)}, reps=3)
+    print("phase 15 ms a block, medians of 3 interleaved rounds (wall: the "
+          "step's host clock; BPSK31: its share in BPSK31.apply; device: "
+          "the kernels' time in a torch.profiler trace): "
+          + ", ".join(f"{k} wall {v['wall_ms']:.2f} BPSK31 "
+                      f"{v['bpsk31_ms']:.2f} device {v['device_ms']:.3f}"
+                      for k, v in times.items()) + f" | {smi}")
+    del x, blocks, b16, raw, c, bc
+    torch.cuda.empty_cache()
+    return dict(ok=ok, ok16=ok16, want=want, k4b=k4b,
+                k4b_launches=bf16_launches, times=times, scan_s=scan_s,
+                live_s=live_s, n_blocks=n_blocks)
+
+
 def all_entries():
     from libsdr_tpu_torch.ops import fir_fm as F
     from libsdr_tpu_torch.ops import fir_mxu as M
@@ -3410,6 +3693,9 @@ def main() -> int:
     # service, each path with its launch counts set to 0 just before it.
     with tempfile.TemporaryDirectory() as tmp:
         s14 = phase_slice14(torch, smi, Path(tmp))
+    # Slice 15: the sharded multimode bank at n == 1, --pattern and --bf16.
+    with tempfile.TemporaryDirectory() as tmp:
+        s15 = phase_slice15(torch, smi, Path(tmp))
 
     # The kernels' record, float32 planes.  Bounds from this run's shapes:
     # bytes (planes read once, outputs written once) and float32 operations
@@ -3513,6 +3799,16 @@ def main() -> int:
             max_abs_err=e[0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib_ms, device_ms=device_ms,
             kernel_route="+".join(r for r, n in routes.items() if n)))
+    # K4's channel variant with bf16 planes off the u8 wire, at W2 through
+    # multimode --raw --bf16 --pattern (slice 15)
+    e, ms, plain_ms, lib_ms, (b_ms, b_by), device_ms = s15["k4b"]
+    record.append(dict(
+        name="pfb_mxu:channel:bf16", route="cuda",
+        source="libsdr_tpu_torch/csrc/pfb.cu",
+        replaces="libsdr_tpu/ops/pallas_pfb.py:135",
+        launches=s15["k4b_launches"], max_abs_err=e[0], ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        device_ms=device_ms, kernel_route="stream"))
     # K5 at F1 (offset 0; library: the strided conv1d over concat(tail,
     # x)): float32 planes' numbers under the common keys, bfloat16 planes'
     # under bf16_*, as the banks' rows; K6 at full width in fm with
@@ -3591,6 +3887,16 @@ def main() -> int:
         for p, r in s14["p2"].items()) + "; live W1 " + ", ".join(
         f"{p} {r['decoded']}/{r['sent']} pages in {r['secs']:.1f} s"
         for p, r in s14["w1"].items()))
+    print("slice 15: W2 through scan_multimode_sharded n == 1, decoded "
+          f"{s15['ok']} of {s15['want']} (f32), {s15['ok16']} (--raw "
+          f"--bf16), bit for bit build_bank, --live --bf16 = --raw; ms a "
+          "block (wall/device) " + ", ".join(
+              f"{k} {v['wall_ms']:.2f}/{v['device_ms']:.3f}"
+              for k, v in s15["times"].items())
+          + f"; K4 bf16 channel {s15['k4b'][1]:.4f} ms a call "
+          f"({s15['k4b'][5]:.4f} on the device, bound "
+          f"{s15['k4b'][4][0]:.4f}); two ranks on one card not run (gloo "
+          "refuses send/recv of CUDA tensors)")
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,15 @@ Usage:
       --map "2:pocsag,5:ax25,9:rtty,12:psk31"
   python -m libsdr_tpu_torch.apps.multimode --live tcp-listen://:1234 \
       --rate 384e3 --channels 16 --map "2:pocsag,9:rtty" --live-timeout 2
+  python -m libsdr_tpu_torch.apps.multimode --raw wire.u8 --rate 6144000 \
+      --channels 256 --bf16 --pattern pocsag,ax25,rtty,psk31
+  torchrun --nproc-per-node=4 -m libsdr_tpu_torch.apps.multimode \
+      --file wide.wav --channels 256 --pattern pocsag,ax25,rtty,psk31
 
-The JAX CLI's ``--pattern`` and ``--bf16`` run its sharded bank, which the
-port does not have yet.
+``--pattern`` gives every channel a mode by a repeating pattern and runs
+the sharded bank (``parallel/multimode.py``): on one device, or under
+``torchrun`` over every rank of the group (one card a rank; rank 0
+prints).  ``--bf16`` streams the u8 wire as bfloat16 planes into K4.
 """
 
 from __future__ import annotations
@@ -80,16 +86,22 @@ def _build_parts(fs: float, block: int, n_channels: int,
     m = n_channels
     if block % m:
         raise SystemExit("block must divide by the channel count")
-    ch_rate = fs / m
-    t_full = block // m
-
-    chan = Channelizer(m, taps_per_branch=8)
-    chan.bind(StreamSpec(np.complex64, fs, block))
-
-    groups: Dict[str, list] = {}
-    for ch, mode in sorted(mode_map.items()):
+    for ch in mode_map:
         if not 0 <= ch < m:
             raise SystemExit(f"channel {ch} outside 0..{m - 1}")
+    chan = Channelizer(m, taps_per_branch=8)
+    chan.bind(StreamSpec(np.complex64, fs, block))
+    return (chan,) + mode_parts(fs / m, block // m, mode_map)
+
+
+def mode_parts(ch_rate: float, t_full: int, mode_map: Dict[int, str]):
+    """The mode chains of a bank: (sub, groups, windows).  ``groups[mode]``
+    lists the mode's channels (indices into the bank's rows) in ascending
+    order, the modes in the order of their first channel;
+    ``sub[mode]`` is the group's bound pipeline and ``windows[mode]`` its
+    bit compaction window."""
+    groups: Dict[str, list] = {}
+    for ch, mode in sorted(mode_map.items()):
         groups.setdefault(mode, []).append(ch)
     groups = {mode: np.asarray(idxs, np.int32)
               for mode, idxs in groups.items()}
@@ -106,7 +118,7 @@ def _build_parts(fs: float, block: int, n_channels: int,
         bs = p.stages[-1]
         windows[mode] = (pick_window(min_valid_gap(bs), t_full, cap=256)
                          if isinstance(bs, BitStream) else 0)
-    return chan, sub, groups, windows
+    return sub, groups, windows
 
 
 def pack_bank_outputs(outs) -> torch.Tensor:
@@ -257,6 +269,55 @@ def scan_multimode(iq: np.ndarray, fs: float, n_channels: int,
                      .to(device), groups)
 
 
+def scan_multimode_sharded(iq: np.ndarray, fs: float, n_channels: int,
+                           mode_pattern, block: int = None, mesh=None,
+                           device=None, plane_dtype=None, blocks=None
+                           ) -> Dict[int, Tuple[str, object]]:
+    """Run the bank sharded over the 1-D ``mesh`` (axis 'd'; None: one
+    device, ``device``, the card by default).  Channels get modes by the
+    repeating ``mode_pattern`` (channel ch -> ``mode_pattern[ch %
+    len(pattern)]``); see parallel/multimode.build_multimode_step for the
+    stages.  Each rank decodes its own channels, and every rank returns
+    the whole {channel: (mode, decoded)}, like :func:`scan_multimode`.
+
+    ``blocks``: optional callable ``block_size -> iterator`` of blocks
+    replacing the ``iq`` capture (e.g. ``lambda b:
+    io.ingest.stream_raw_iq_bf16(path, b)`` with
+    ``plane_dtype=torch.bfloat16``: the u8 wire as bf16 planes into K4)."""
+    import torch.distributed as dist
+
+    from libsdr_tpu_torch.parallel.halo import mesh_axis
+    from libsdr_tpu_torch.parallel.multimode import build_multimode_step
+
+    ax = mesh_axis(mesh, "d")
+    m, n, p = n_channels, ax.size, 8
+    pat = list(mode_pattern)
+    # t_full must divide by n (time shards), hold >= n*(P+1) frames, and
+    # suit the PSK31 decimator when that mode is in the pattern.
+    req = math.lcm(n, _t_quantum(fs, m, pat))
+    if block is None:
+        t_full = (int(fs // 2) // m) // req * req
+    else:
+        t_full = (int(block) // m) // req * req
+    t_full = max(t_full, math.ceil(n * (p + 1) / req) * req)
+    block = m * t_full
+
+    step, init_carry, place, groups = build_multimode_step(
+        m, block, fs, pat, taps_per_branch=p, plane_dtype=plane_dtype,
+        mesh=mesh, device=device)
+    # this rank's rows of each mode: the groups list the ranks' in turn
+    mine = {mode: idxs[ax.index * (len(idxs) // n):
+                       (ax.index + 1) * (len(idxs) // n)]
+            for mode, idxs in groups.items()}
+    src = blocks(block) if blocks is not None else stream_blocks(iq, block)
+    found = _run_bank(src, step, init_carry(), place, mine)
+    if n == 1:
+        return found
+    parts = [None] * n
+    dist.all_gather_object(parts, found, group=ax.group)
+    return {ch: v for part in parts for ch, v in sorted(part.items())}
+
+
 def _parse_map(s: str) -> Dict[int, str]:
     out = {}
     for item in s.split(","):
@@ -269,14 +330,51 @@ def _parse_map(s: str) -> Dict[int, str]:
     return out
 
 
+def _group(args, dev):
+    """(mesh, rank, whether this call joined the group) for a run: under
+    ``torchrun`` (a ``WORLD_SIZE`` above 1) or in a process that already
+    joined a group, ``--pattern`` runs over every rank of the group as a
+    1-D mesh; otherwise on one device (mesh None, rank 0)."""
+    import os
+
+    import torch.distributed as dist
+
+    from libsdr_tpu_torch.parallel.distributed import (global_mesh,
+                                                       init_multihost)
+
+    joined = dist.is_initialized()
+    if not joined and int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return None, 0, False
+    if not args.pattern:
+        raise SystemExit("--map runs on one device: use --pattern over "
+                         "the ranks of a group")
+    if args.live:
+        raise SystemExit("--live feeds one process: run it without "
+                         "torchrun")
+    if not joined:
+        dev = init_multihost(device=dev)
+    return (global_mesh(("d",), device_type=dev.type), dist.get_rank(),
+            not joined)
+
+
 def main(argv=None):
     ap = common_parser(
         "Multi-mode decoder bank: one channelizer front end, per-channel "
         "POCSAG/AX.25/RTTY/PSK31 decode")
     add_source_args(ap)
     ap.add_argument("--channels", type=int, default=16)
-    ap.add_argument("--map", required=True,
+    ap.add_argument("--map",
                     help="per-channel modes, e.g. '2:pocsag,5:ax25,9:rtty'")
+    ap.add_argument("--pattern",
+                    help="repeating channel->mode pattern (e.g. "
+                         "'pocsag,ax25,rtty,psk31'): every channel gets a "
+                         "mode and the bank runs sharded over the ranks of "
+                         "the group under torchrun (parallel/multimode.py)")
+    ap.add_argument("--bf16", action="store_true",
+                    help="stream the u8 wire format as bfloat16 planes "
+                         "straight into the channelizer: lossless for "
+                         "8-bit sources, half the bytes (--raw uint8 / "
+                         "--live sources)")
     ap.add_argument("--live",
                     help="live u8 IQ wire instead of a file: tcp://host:port "
                          "(rtl_tcp pull), tcp-listen://:port, udp://:port, "
@@ -285,30 +383,76 @@ def main(argv=None):
                     help="stop after this many seconds with no wire data")
     args = ap.parse_args(argv)
     sdrlog.set_level(args.log_level)
+    if bool(args.map) == bool(args.pattern):
+        raise SystemExit("give exactly one of --map / --pattern")
+    if args.pattern:
+        pat = [p.strip().lower() for p in args.pattern.split(",") if p.strip()]
+        bad = [p for p in pat if p not in MODES]
+        if bad or not pat:
+            raise SystemExit(f"--pattern modes must be in {'/'.join(MODES)}")
     dev = device_of(args)
+    mesh, rank, own_group = _group(args, dev)
+    if mesh is not None:
+        dev = None               # each rank's device comes from the mesh
+
+    def sharded(iq, fs, **kw):
+        return scan_multimode_sharded(iq, fs, args.channels, pat,
+                                      mesh=mesh, device=dev, **kw)
 
     if args.live:
         if not args.rate:
             raise SystemExit("--live requires --rate")
-        from libsdr_tpu_torch.io.live import LiveStats, stream_live_iq
+        from libsdr_tpu_torch.io.live import (LiveStats, stream_live_iq,
+                                              stream_live_iq_bf16)
         fs = args.rate
         stats = LiveStats()
-        found = scan_multimode(
-            None, fs, args.channels, _parse_map(args.map),
-            blocks=lambda b: stream_live_iq(args.live, b, stats=stats,
-                                            timeout=args.live_timeout),
-            device=dev)
+        if args.bf16:
+            if not args.pattern:
+                raise SystemExit("--bf16 --live runs the sharded bank: "
+                                 "use --pattern")
+            found = sharded(None, fs, plane_dtype=torch.bfloat16,
+                            blocks=lambda b: stream_live_iq_bf16(
+                                args.live, b, stats=stats,
+                                timeout=args.live_timeout))
+        else:
+            blocks = lambda b: stream_live_iq(  # noqa: E731
+                args.live, b, stats=stats, timeout=args.live_timeout)
+            found = (sharded(None, fs, blocks=blocks) if args.pattern else
+                     scan_multimode(None, fs, args.channels,
+                                    _parse_map(args.map), blocks=blocks,
+                                    device=dev))
         print(f"live: {stats.bytes_in} bytes in, "
               f"{stats.bytes_dropped} dropped "
               f"({100 * stats.drop_fraction:.2f}%), "
               f"{stats.sustained_msps():.2f} Msps sustained")
+    elif args.bf16:
+        if not args.pattern:
+            raise SystemExit("--bf16 runs the sharded bank: use --pattern")
+        if not args.raw or np.dtype(args.raw_dtype) != np.uint8:
+            raise SystemExit("--bf16 needs a --raw uint8 (rtl_sdr wire) "
+                             "source")
+        if not args.rate:
+            raise SystemExit("--raw requires --rate")
+        from libsdr_tpu_torch.io.ingest import stream_raw_iq_bf16
+        fs = args.rate
+        found = sharded(None, fs, plane_dtype=torch.bfloat16,
+                        blocks=lambda b: stream_raw_iq_bf16(args.raw, b))
     else:
         iq, fs = load_source(args)
         if not np.iscomplexobj(iq):
             raise SystemExit("multimode expects an IQ capture")
-        found = scan_multimode(iq, fs, args.channels, _parse_map(args.map),
-                               device=dev)
-    m = args.channels
+        found = (sharded(iq, fs) if args.pattern else
+                 scan_multimode(iq, fs, args.channels, _parse_map(args.map),
+                                device=dev))
+    if own_group:
+        from libsdr_tpu_torch.parallel.distributed import shutdown_multihost
+        shutdown_multihost()
+    if rank == 0:
+        _print_found(found, fs, args.channels)
+    return found
+
+
+def _print_found(found, fs: float, m: int) -> None:
     for ch in sorted(found):
         mode, out = found[ch]
         f_center = ch * fs / m if ch <= m // 2 else ch * fs / m - fs
@@ -325,7 +469,6 @@ def main(argv=None):
             print(f"{hdr}: {out.strip()}")
     if not found:
         print("no traffic decoded")
-    return found
 
 
 if __name__ == "__main__":

@@ -86,16 +86,18 @@ def channel_audio(blocks, ch: int, dtype, device) -> np.ndarray:
     stage over the blocks."""
     from libsdr_tpu_torch.ops.pfb import lane_of_channel, pfb_twiddles
     from libsdr_tpu_torch.parallel import wideband as WB
+    from libsdr_tpu_torch.parallel.halo import ONE
 
     p = 8
     taps3 = torch.from_numpy(WB._taps(M, p)).to(device)
     tw = pfb_twiddles(M, device)
-    init, place = WB._wideband_carry_and_place(M, p, device, dtype)
+    init, place = WB._wideband_carry_and_place(M, p, None, "d", device,
+                                               dtype)
     carry = init()
     lane = int(lane_of_channel(M)[ch])
     out = []
     for x in blocks:
-        carry, a = WB._wideband_body(carry, place(x), taps3, M, p,
+        carry, a = WB._wideband_body(carry, place(x), taps3, M, p, ONE,
                                      reorder=False, twiddles=tw)
         out.append(a[:, lane].float().cpu().numpy())
     return np.concatenate(out)

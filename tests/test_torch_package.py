@@ -25,7 +25,8 @@ def test_import_leaves_jax_out():
             "from libsdr_tpu_torch.ops import channelizer, pfb, wideband_rx\n"
             "from libsdr_tpu_torch.ops import fftfilter, interpolate, psk31\n"
             "import libsdr_tpu_torch.ops.fft\n"
-            "from libsdr_tpu_torch.parallel import wideband\n"
+            "from libsdr_tpu_torch.parallel import wideband, multimode, "
+            "halo, mesh, distributed\n"
             "from libsdr_tpu_torch.core import ragged\n"
             "from libsdr_tpu_torch import decode\n"
             "from libsdr_tpu_torch.decode import aprs\n"
@@ -34,7 +35,8 @@ def test_import_leaves_jax_out():
             "from libsdr_tpu_torch.apps import scanner, multimode, psk31_rx\n"
             "from libsdr_tpu_torch.apps import spectrum\n"
             "from libsdr_tpu_torch.tools import fir_paths, digital_profile, "
-            "digital_signals, wideband_signals\n"
+            "digital_signals, wideband_signals, dist_worker, "
+            "dryrun_multichip, multimode_times\n"
             "from libsdr_tpu_torch import io\n"
             "from libsdr_tpu_torch.utils import options, logging\n"
             "from libsdr_tpu_torch import native\n"

@@ -203,12 +203,6 @@ def test_channelize_segment_matches_jax(rng, m):
     got = _c(pwb.channelize_segment(_t(x), _t(hist), taps3, m, p))
     assert got.shape == ref.shape == (m, f)
     assert np.abs(got - ref).max() / np.abs(ref).max() < REL
-    # the sharded step's seed: the lane-major Y of a segment's last frame
-    tail = _t(np.concatenate([hist, x.reshape(f, m)])[-(p + 1):])
-    seed = _c(pwb._seed_from_frames(tail, taps3, m, p))
-    jseed = _c(jwb._seed_from_frames(_j(np.asarray(tail.re + 1j * tail.im)),
-                                     jnp.asarray(taps3), m, p))
-    assert np.abs(seed - jseed).max() / np.abs(ref).max() < REL
 
 
 def test_pfb_streaming_equals_oneshot(rng):
@@ -403,7 +397,8 @@ def test_wideband_step_matches_jax(rng):
         err = _angle_err(_c(py), np.asarray(jy))
         assert py.shape == (m, block // m)
         assert np.median(err) < MEDIAN and np.percentile(err, 99) < P99
-    with pytest.raises(ConfigError, match="2 devices"):
+    # a list of devices is refused: the sharded paths take a mesh
+    with pytest.raises(ConfigError, match="2 devices: pass a mesh"):
         pwb.build_wideband_step(m, block, device=["cpu", "cpu"])
 
 
