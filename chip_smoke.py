@@ -74,7 +74,10 @@ its own line; the first failure exits non-zero:
    K2 timed at its shapes; ``WidebandFM`` alone at the same width; W2, the
    multimode bank (``apps/multimode.scan_multimode``) at 256 channels x
    12,288 frames, 6.144 MHz, every active channel of every mode decoded,
-   K4 (channel) + K3 + K1b a block, and BPSK31's host loop's share;
+   K4 (channel) + K3 + K1b + BPSK31's kernel a block, and the share of
+   the scan spent in ``BPSK31.apply``; BPSK31's kernel held bit for bit
+   against its plain version on the path's own call of block 2 (bits,
+   valid flags and every carried leaf on all 64 channels) and timed there;
    then F1, the arbitrary-offset FIR bank: ``fir_overlap_save`` at
    offsets 0 and 1 over 64 ch x 2^24 with the DDC bank's T = 67, D = 4,
    one K5 launch a block on the tensor-core route (F1_ROUTES), K5 held
@@ -123,9 +126,14 @@ its own line; the first failure exits non-zero:
    own calls), its step bit for bit ``build_bank``'s, ``multimode --raw
    --bf16 --pattern`` on the band's u8 wire (K4's channel variant with bf16
    planes, held and timed on the path's call) and ``--live tcp-listen://
-   --bf16 --pattern`` on the same bytes, and the step's ms a block.
+   --bf16 --pattern`` on the same bytes, and the step's ms a block;
+9. slice 16: BPSK31's kernel (``csrc/psk31.cu``; on W2 in phases W2 and
+   15) at psk31_rx's shape, bit for bit its plain version, timed there;
+   ``compile_chunked`` at K = 8 of psk31_rx's pipeline and of W2's PSK31
+   group on a draw of its own (both capture, bit for bit their eager
+   steps).
 
-A summary line of slice 15 comes before the last three lines.  The last
+Summary lines of slices 15 and 16 come before the last three lines.  The last
 three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  In the record every ``ms``
 is CUDA events around the calls; K4's rows add ``device_ms`` (the same
@@ -1851,26 +1859,42 @@ def phase_wfm(torch, gen, smi):
     return res
 
 
+def _named_leaves(carry):
+    """[(name, tensor)] of a BPSK31 carry, planes as name.re / name.im."""
+    out = []
+    for k, v in carry.items():
+        if hasattr(v, "re"):
+            out += [(f"{k}.re", v.re), (f"{k}.im", v.im)]
+        else:
+            out.append((k, v))
+    return out
+
+
 def phase_w2(torch, gen, smi):
     """W2, the multimode bank at 256 channels x 12,288 frames (6.144 MHz),
     channel ch in mode ("pocsag", "ax25", "rtty", "psk31")[ch % 4], through
     apps/multimode.scan_multimode (Channelizer: K4's channel variant, then
     apply_mode_chains: K3 for the three BitStreams, the PSK31 group's
-    IQBaseBand: K1b, BPSK31's loop).  Traffic on every fifth channel, 51
-    channels of all four modes (tools/wideband_signals.mixed_band:
-    band-limited channels, each message with its channel's number); every
-    active channel must decode its own message, and no channel another's.
-    Then K4, K1b and K3 are held against their plain versions on the
-    arguments of the path's own calls for the second block (K3 bit-exact),
-    K4 timed there."""
+    IQBaseBand: K1b, and BPSK31: csrc/psk31.cu).  Traffic on every fifth
+    channel, 51 channels of all four modes (tools/wideband_signals.
+    mixed_band: band-limited channels, each message with its channel's
+    number); every active channel must decode its own message, and no
+    channel another's.  Then K4, K1b, K3 and BPSK31's kernel are held
+    against their plain versions on the arguments of the path's own calls
+    for the second block (K3 and BPSK31 bit-exact: BPSK31's bits, valid
+    flags and every carried leaf on all 64 channels, the active ones and
+    the noise channels counted apart), K4 and BPSK31 timed there."""
     from libsdr_tpu_torch.apps import multimode
     from libsdr_tpu_torch.ops import bitsync
     from libsdr_tpu_torch.ops import fir_fm as F
+    from libsdr_tpu_torch.ops import psk31 as PS
     from libsdr_tpu_torch.ops.pfb import pfb_mxu
     from libsdr_tpu_torch.ops.pll import pll_bank, pll_bank_plain
     from libsdr_tpu_torch.ops.psk31 import BPSK31
     from libsdr_tpu_torch.parallel import wideband as pwb
+    from libsdr_tpu_torch.tools import psk31_times as PT
     from libsdr_tpu_torch.tools import wideband_signals as W
+    from libsdr_tpu_torch.tools.pfb_times import kernel_ms
 
     m, b = W2_M, W2_M * W2_FRAMES
     modes = multimode.MODES
@@ -1896,7 +1920,8 @@ def phase_w2(torch, gen, smi):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with Capture(pwb, "pfb_mxu") as k4, Capture(F, "fir_exact") as k1b, \
-                Capture(bitsync, "pll_bank") as k3:
+                Capture(bitsync, "pll_bank") as k3, \
+                Capture(PS, "bpsk31_scan") as k31:
             found = multimode.scan_multimode(
                 None, W2_FS, m, mode_map, block=b,
                 blocks=lambda blk: iter(blocks), device="cuda")
@@ -1906,10 +1931,9 @@ def phase_w2(torch, gen, smi):
         k4_routes = dict(pfb_mxu.routes)
     finally:
         BPSK31.apply = apply
-    check(all(counts[k] == n_blocks for k in ("pfb_mxu", "pll_bank",
-                                               "fir_exact"))
-          and all(v == 0 for k, v in counts.items()
-                  if k not in ("pfb_mxu", "pll_bank", "fir_exact")),
+    path = ("pfb_mxu", "pll_bank", "fir_exact", "bpsk31_scan")
+    check(all(counts[k] == n_blocks for k in path)
+          and all(v == 0 for k, v in counts.items() if k not in path),
           f"W2 launches {counts}")
     check(k4_routes == {"generic": 0, "stream": n_blocks},
           f"W2: K4 routes {k4_routes}")
@@ -1930,10 +1954,10 @@ def phase_w2(torch, gen, smi):
     torch.cuda.synchronize()
     ms_block = (time.perf_counter() - t0) / n_blocks * 1e3
     print(f"phase W2 multimode bank ({m} ch x {W2_FRAMES:,} frames @ "
-          f"{W2_FS / 1e6:g} MHz, {n_blocks} blocks): {ms_block:.1f} "
-          f"ms/block with the BPSK31 "
-          f"loop {spent[0] / total:.1%} of scan_multimode's "
-          f"{total:.1f} s; channels decoded (their own message) {ok} of "
+          f"{W2_FS / 1e6:g} MHz, {n_blocks} blocks): {ms_block:.2f} "
+          f"ms/block; BPSK31.apply (its kernel's launch) "
+          f"{spent[0] / total:.1%} of scan_multimode's "
+          f"{total:.2f} s; channels decoded (their own message) {ok} of "
           f"{want}, messages off their channel {astray}; launches "
           f"{counts}, K4 by route {k4_routes} | {smi}")
     check(ok == want and not astray,
@@ -1959,11 +1983,45 @@ def phase_w2(torch, gen, smi):
           f"{'bit-exact' if k3_exact else 'DIFFERS'}")
     check(k1b_err < REL_BOUND, f"W2 K1b vs plain: {k1b_err}")
     check(k3_exact, "W2 K3 vs plain: not bit-exact")
-    del x, blocks, c, k4, k1b, k3, a4, a1, a3, got, ref
+    # BPSK31's kernel on the path's call of block 2, bit for bit everywhere
+    (xk, ck), kw = k31.calls[1]
+    group = [ch for ch in range(m) if mode_map[ch] == "psk31"]
+    act = np.isin(group, list(active))
+    got = PS.bpsk31_scan(xk, ck, **kw)
+    torch.cuda.synchronize()
+    host = {k: v.to("cpu") for k, v in ck.items()}
+    t0 = time.perf_counter()
+    ref = PS.bpsk31_scan_plain(xk.to("cpu"), host, **kw)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    per_ch = ((got[1].cpu() != ref[1]) | (got[2].cpu() != ref[2])).sum(
+        1).numpy()
+    leaf_err = {name: float((u.cpu().double() - v.double()).abs().max())
+                for (name, u), (_, v) in zip(_named_leaves(got[0]),
+                                             _named_leaves(ref[0]))}
+    err = max(leaf_err.values())
+    c31, t31 = xk.re.shape
+    ms31 = cuda_ms(torch, lambda: PS.bpsk31_scan(xk, ck, **kw), 20)
+    device31 = kernel_ms([lambda: PS.bpsk31_scan(xk, ck, **kw)], 20)
+    bound31 = PT.bound_ms(c31, t31)
+    print(f"phase W2 BPSK31 kernel vs plain on block 2 ({c31} x {t31}): bits "
+          f"or valid flags differing on the {int(act.sum())} active channels "
+          f"{int(per_ch[act].sum())}, on the {int((~act).sum())} noise "
+          f"channels {int(per_ch[~act].sum())}; largest leaf difference "
+          f"{err:.3e} ({leaf_err}); kernel {ms31:.4f} ms a call, "
+          f"{device31:.4f} on the device ({device31 * 1e6 / t31:.1f} ns a "
+          f"step), plain {plain_ms:.1f} ms, bound {bound31[0]:.5f} ms "
+          f"({bound31[1]}), chain floor as counted from the source "
+          f"{PT.chain_floor_ms(t31):.4f} ms | {smi}")
+    check(per_ch.sum() == 0 and err == 0.0,
+          f"W2 BPSK31 kernel vs plain: bits apart by channel {per_ch}, "
+          f"leaves {leaf_err}")
+    del x, blocks, c, k4, k1b, k3, k31, a4, a1, a3, got, ref, xk, ck
     torch.cuda.empty_cache()
     return dict(ms_block=ms_block, counts=counts, decoded=ok, k4c=k4c,
                 k4_routes=k4_routes, bpsk31_share=spent[0] / total,
-                k3_ms=k3_ms)
+                k3_ms=k3_ms, bpsk31=dict(ms=ms31, device_ms=device31,
+                                         plain_ms=plain_ms, err=err,
+                                         bound=bound31))
 
 
 # -- slice 5: the v1 FIR (K5) and its FM/AM epilogues (K6) -----------------
@@ -2649,7 +2707,7 @@ def phase_wide_apps(tmp: Path):
     run("multimode --map", multimode.main,
         ["--file", str(tmp / "mixed.wav"), "--channels", "8", "--map",
          "2:pocsag,3:ax25,5:rtty,6:psk31"],
-        ["pfb_mxu", "pll_bank", "fir_exact"],
+        ["pfb_mxu", "pll_bank", "fir_exact", "bpsk31_scan"],
         lambda f: sorted((ch, mo, str(d)) for ch, (mo, d) in f.items()))
     fs, n = 96_000, 96_000
     iq = (0.8 * siggen.iq_carrier(fs, n, 12_000)
@@ -2668,7 +2726,8 @@ def phase_wide_apps(tmp: Path):
                                 640)).astype(np.complex64)
     write_wav_iq(str(tmp / "psk.wav"), 0.8 * sig, 20_000)
     run("psk31_rx", psk31_rx.main, ["--file", str(tmp / "psk.wav"),
-                                    "--block-size", "20000"], ["fir_exact"],
+                                    "--block-size", "20000"],
+        ["fir_exact", "bpsk31_scan"],
         lambda text: text if "cq de tpu" in text else "")
 
 
@@ -3274,8 +3333,9 @@ def phase_slice15(torch, smi, tmp: Path):
     * ``apps/multimode.scan_multimode_sharded``: every active channel
       decodes its own message and nothing is off its channel; the decodes
       equal ``scan_multimode``'s with the pattern's map; K4 (stream route),
-      K1b and K3 once a block and nothing else, each held against its
-      plain version on the path's own call of block 2 (K3 bit-exact);
+      K1b, K3 and BPSK31 once a block and nothing else, the first three
+      held against their plain versions on the path's own call of block 2
+      (K3 bit-exact);
     * the step bit for bit ``build_bank``'s over every block;
     * the band on the u8 wire (scaled to a 0.9 peak, nothing clipped)
       through ``multimode --raw --bf16 --pattern``: every active channel,
@@ -3321,7 +3381,7 @@ def phase_slice15(torch, smi, tmp: Path):
     x = x.map(lambda a: torch.nn.functional.pad(a, (0, pad)))
     blocks = [x[i * b:(i + 1) * b] for i in range(n_blocks)]
     entries = all_entries()
-    path = ("pfb_mxu", "pll_bank", "fir_exact")
+    path = ("pfb_mxu", "pll_bank", "fir_exact", "bpsk31_scan")
 
     def launched_once_a_block(counts, label, n=n_blocks):
         check(all(counts[k] == n for k in path)
@@ -3495,7 +3555,8 @@ def phase_slice15(torch, smi, tmp: Path):
                         "sharded f32": (step, init, blocks),
                         "sharded bf16": (step16, init16, b16)}, reps=3)
     print("phase 15 ms a block, medians of 3 interleaved rounds (wall: the "
-          "step's host clock; BPSK31: its share in BPSK31.apply; device: "
+          "step's host clock; BPSK31: its share in BPSK31.apply, the "
+          "kernel's launch; device: "
           "the kernels' time in a torch.profiler trace): "
           + ", ".join(f"{k} wall {v['wall_ms']:.2f} BPSK31 "
                       f"{v['bpsk31_ms']:.2f} device {v['device_ms']:.3f}"
@@ -3507,15 +3568,79 @@ def phase_slice15(torch, smi, tmp: Path):
                 live_s=live_s, n_blocks=n_blocks)
 
 
+# -- slice 16: BPSK31 on the card (csrc/psk31.cu) ------------------------------
+
+def psk31_rx_blocks(torch, n, seed=16):
+    """n blocks of 20,000 samples of a 20 kHz capture carrying BPSK31 at
+    640 samples a symbol (random symbols, light noise) on the card."""
+    from libsdr_tpu_torch.core import cplx
+
+    rng = np.random.default_rng(seed)
+    size = n * 20_000
+    ph = np.repeat(np.cumsum(np.where(rng.random(size // 640 + 1) < 0.5,
+                                      np.pi, 0.0)), 640)[:size]
+    sig = (0.8 * np.exp(1j * ph) + 0.05 * (rng.normal(size=size) + 1j
+                                           * rng.normal(size=size)))
+    return [cplx.as_block(sig[i * 20_000:(i + 1) * 20_000].astype(
+        np.complex64), torch.float32, "cuda") for i in range(n)]
+
+
+def phase_slice16(torch, smi):
+    """Slice 16, BPSK31's kernel (csrc/psk31.cu, entry
+    ops/psk31.bpsk31_scan) beyond W2 (which phase W2 holds on its path's own
+    call, and phase 15 drives through ``scan_multimode_sharded``):
+
+    * at psk31_rx's shape (one channel of 2,000 samples), bit for bit the
+      plain version, timed with CUDA events beside its plain version;
+    * ``compile_chunked`` at K = 8 of psk31_rx's pipeline (IQBaseBand,
+      BPSK31) and of W2's PSK31 group pipeline (``mode_parts``) on the
+      group's rows (seed 1616): both capture, bit for bit their eager
+      steps."""
+    from libsdr_tpu_torch.core.graph import Pipeline
+    from libsdr_tpu_torch.core.stream import StreamSpec
+    from libsdr_tpu_torch.ops import BPSK31, IQBaseBand
+    from libsdr_tpu_torch.tools import psk31_times as PT
+
+    rx = PT.time_call(*PT.rx_inputs(), 20, smi)
+    print(f"phase 16 BPSK31 kernel at psk31_rx's shape {rx['shape']}: "
+          f"{rx['ms']:.4f} ms a call, {rx['device_ms']:.4f} on the device "
+          f"({rx['ns_a_step']:.1f} ns a step), plain "
+          f"{rx['plain_ms']:.1f} ms, bound {rx['bound_ms']:.6f} ms, chain "
+          f"floor as counted from the source {rx['chain_floor_ms']:.4f} ms, "
+          f"bit for bit the plain version: {rx['bit_exact']} | {smi}")
+    check(rx["bit_exact"], "slice 16: psk31_rx's kernel call != plain")
+
+    # compile_chunked at K = 8: psk31_rx's pipeline and W2's PSK31 group
+    rx_pipe = Pipeline([IQBaseBand(fc=0.0, width=200.0, order=64,
+                                   out_rate=2000.0, design="textbook"),
+                        BPSK31()], name="psk31_rx")
+    rx_pipe.bind(StreamSpec(np.complex64, 20_000, 20_000))
+    rows, _, group_pipe = PT.w2_group(1616)
+    captured = {}
+    for label, pipe, xs in (("psk31_rx", rx_pipe, psk31_rx_blocks(torch, 8)),
+                            ("W2 PSK31 group", group_pipe, rows)):
+        took, launches = try_capture(torch, None, f"slice 16 {label}", pipe,
+                                     xs, 8)
+        check(took and launches.get("bpsk31_scan") == 8,
+              f"slice 16: {label} compile_chunked: {launches}")
+        captured[label] = launches
+    print(f"phase 16 compile_chunked K = 8, bit for bit 8 eager steps: "
+          f"{captured} (launches per capture)")
+    del rows, group_pipe
+    torch.cuda.empty_cache()
+    return dict(rx=rx, captured=captured)
+
+
 def all_entries():
     from libsdr_tpu_torch.ops import fir_fm as F
     from libsdr_tpu_torch.ops import fir_mxu as M
     from libsdr_tpu_torch.ops.pfb import pfb_mxu
     from libsdr_tpu_torch.ops.pll import pll, pll_bank
+    from libsdr_tpu_torch.ops.psk31 import bpsk31_scan
 
     return (F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact,
             F.fir_afsk_exact, pll, pll_bank, pfb_mxu, M.fir_mxu,
-            M.fir_fm_mxu)
+            M.fir_fm_mxu, bpsk31_scan)
 
 
 def main() -> int:
@@ -3696,6 +3821,9 @@ def main() -> int:
     # Slice 15: the sharded multimode bank at n == 1, --pattern and --bf16.
     with tempfile.TemporaryDirectory() as tmp:
         s15 = phase_slice15(torch, smi, Path(tmp))
+    # Slice 16: BPSK31 at psk31_rx's shape and in captured pipelines (on
+    # W2's paths: phases W2 and 15).
+    s16 = phase_slice16(torch, smi)
 
     # The kernels' record, float32 planes.  Bounds from this run's shapes:
     # bytes (planes read once, outputs written once) and float32 operations
@@ -3809,6 +3937,20 @@ def main() -> int:
         launches=s15["k4b_launches"], max_abs_err=e[0], ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         device_ms=device_ms, kernel_route="stream"))
+    # BPSK31 at W2 on the path's call of block 2 (phase W2; the floor of
+    # its chain, counted and not measured, is in the phase lines), and at
+    # psk31_rx's shape (rx_*)
+    k31 = w2["bpsk31"]
+    record.append(dict(
+        name="bpsk31_scan", route="cuda",
+        source="libsdr_tpu_torch/csrc/psk31.cu",
+        replaces="libsdr_tpu/ops/psk31.py:183",
+        launches=w2["counts"]["bpsk31_scan"], max_abs_err=k31["err"],
+        ms=k31["ms"], plain_ms=k31["plain_ms"], bound_ms=k31["bound"][0],
+        bound_by=k31["bound"][1], library_ms=None,
+        device_ms=k31["device_ms"], rx_ms=s16["rx"]["ms"],
+        rx_device_ms=s16["rx"]["device_ms"],
+        rx_plain_ms=s16["rx"]["plain_ms"], rx_bound_ms=s16["rx"]["bound_ms"]))
     # K5 at F1 (offset 0; library: the strided conv1d over concat(tail,
     # x)): float32 planes' numbers under the common keys, bfloat16 planes'
     # under bf16_*, as the banks' rows; K6 at full width in fm with
@@ -3897,6 +4039,16 @@ def main() -> int:
           f"({s15['k4b'][5]:.4f} on the device, bound "
           f"{s15['k4b'][4][0]:.4f}); two ranks on one card not run (gloo "
           "refuses send/recv of CUDA tensors)")
+    bb = s15["times"]["build_bank"]
+    print(f"slice 16: BPSK31 on the card (csrc/psk31.cu): W2 decoded "
+          f"{w2['decoded']} (scan_multimode), {s15['ok']} (sharded n == 1); "
+          f"kernel {k31['ms']:.4f} ms a W2 block ({k31['device_ms']:.4f} on "
+          f"the device; plain {k31['plain_ms']:.1f}, bound "
+          f"{k31['bound'][0]:.5f}), bit for bit the plain version on all "
+          f"64 channels; {s16['rx']['device_ms']:.4f} on the device at "
+          f"psk31_rx's shape, bit for bit; compile_chunked K = 8 captures "
+          f"{sorted(s16['captured'])}; W2 build_bank wall "
+          f"{bb['wall_ms']:.3f} / device {bb['device_ms']:.3f} ms a block")
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

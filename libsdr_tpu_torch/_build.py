@@ -165,6 +165,15 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     # (out, 8 ints)
     lib.sdr_fir_tc_plan.argtypes = [i32, i32, i32, i32, i32, p]
     lib.sdr_fir_tc_plan.restype = i32
+    lib.sdr_psk31.argtypes = [
+        p, p, p, p,          # xr, xi, bank, dl_idx
+        p, p,                # the carry's 19 pointers in, out (host arrays)
+        p, p,                # bits, emits
+        f32, f32, f32,       # alpha, beta, df
+        f32, f32,            # omega_min, omega_max
+        f32, f32, f32,       # gain_mu, gain_omega, 2 pi
+        i64, i64, p]         # C, T, stream
+    lib.sdr_psk31.restype = i32
     lib.sdr_agc_chunks.argtypes = [i64, i64]
     lib.sdr_agc_chunks.restype = i32
     lib.sdr_cuda_error_string.argtypes = [i32]

@@ -10,6 +10,14 @@ lower-triangular impulse response L[m, s] = a^(s-m):
 
 The frame-end recurrence is the same problem S times shorter, so it recurses
 until one frame is left; no Python loop runs over samples.
+
+With per-sample coefficients (:func:`iir_first_order_varcoef`) the
+recurrence is associative under
+
+    (a2, b2) o (a1, b1) = (a1*a2, a2*b1 + b2)
+
+and runs as a scan by doubling steps: log2(B) passes of elementwise ops on
+the caller's device.
 """
 
 from __future__ import annotations
@@ -55,3 +63,37 @@ def iir_first_order(x: torch.Tensor, a: float, b: float,
                            device=x.device)
     y = (p + y0[..., None] * apow).reshape(lead + (nf * s,))[..., :n]
     return y, y[..., -1]
+
+
+def iir_first_order_varcoef(x: torch.Tensor, a, b,
+                            y0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``y[n] = a[n]*y[n-1] + b[n]*x[n]`` along the trailing axis, with
+    per-sample coefficients (the AGC's signal-dependent decay).
+
+    Args:
+      x: (..., B) input block.
+      a, b: per-sample coefficients, broadcastable to x.
+      y0: (...,) initial state ``y[-1]`` (tensor or scalar); ``a[..., 0]
+        * y0`` folds into the first input.
+
+    Returns:
+      (y, y_last): the output block and the final state, on x's device.
+    """
+    a = torch.as_tensor(a, dtype=x.dtype, device=x.device).expand(x.shape)
+    bx = torch.as_tensor(b, dtype=x.dtype, device=x.device) * x
+    y0 = torch.as_tensor(y0, dtype=x.dtype, device=x.device)
+    bx = torch.cat([bx[..., :1] + (a[..., 0] * y0)[..., None], bx[..., 1:]],
+                   dim=-1)
+    a = torch.cat([torch.ones_like(a[..., :1]), a[..., 1:]], dim=-1)
+    n = x.shape[-1]
+    shift = 1
+    while shift < n:
+        # compose each element with the one `shift` before it (the first
+        # `shift` have none: the identity (1, 0))
+        bx = torch.cat([bx[..., :shift],
+                        a[..., shift:] * bx[..., :-shift] + bx[..., shift:]],
+                       dim=-1)
+        a = torch.cat([a[..., :shift], a[..., shift:] * a[..., :-shift]],
+                      dim=-1)
+        shift *= 2
+    return bx, bx[..., -1]

@@ -25,8 +25,8 @@ step time):
 * W2, the multimode bank: 256 channels x 12,288 frames at 6.144 MHz
   through apps/multimode.build_bank (K4's channel variant, the plain FM/USB
   demodulators and FSK detectors, K3, the PSK31 group's K1b and BPSK31's
-  host loop, whose share of the step is printed apart), on the traffic of
-  ``tools/wideband_signals.mixed_band``.
+  kernel, whose share of the step's host time is printed apart), on the
+  traffic of ``tools/wideband_signals.mixed_band``.
 
 With every path (the default), it then profiles the PLL kernel alone at
 2^16 steps for 64 to 65,536 lanes (a recurrence per lane: the time per
@@ -189,7 +189,7 @@ def w2(gen):
     # the loop ran in 2 * steps + 1 steps (_profile's warm-up, timed and
     # profiled runs)
     res["bpsk31_ms"] = spent[0] / (2 * steps + 1) * 1e3
-    print(f"    BPSK31's host loop {res['bpsk31_ms']:.1f} ms a step "
+    print(f"    BPSK31.apply {res['bpsk31_ms']:.3f} ms a step "
           f"({res['bpsk31_ms'] / res['step_ms']:.1%} of the step)")
     return res
 

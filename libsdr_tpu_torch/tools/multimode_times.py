@@ -10,11 +10,10 @@ blocks: ``apps/multimode.build_bank`` with the pattern's map, and
 ``parallel/multimode.build_multimode_step`` on one rank with float32 planes
 and with bfloat16 planes off the u8 wire.  For each, three numbers a block:
 
-* ``wall_ms``: the host clock around the steps (the device's work and
-  BPSK31's loop on the host, which the step waits for), and ``bpsk31_ms``
-  the part of it spent in ``BPSK31.apply`` (its copy of the PSK31 group to
-  the host, which waits for the device's work queued before it, and the
-  loop);
+* ``wall_ms``: the host clock around the steps (the host's enqueue of the
+  step's work and the device's, which the last synchronize waits for), and
+  ``bpsk31_ms`` the part of it spent in ``BPSK31.apply`` (the launch of
+  ``csrc/psk31.cu``'s kernel);
 * ``device_ms``: the sum of the CUDA kernels' times in a
   ``torch.profiler`` trace of the same steps, no host time in it.
 
@@ -59,8 +58,8 @@ def device_ms(step, carry, blocks) -> float:
 
 
 def wall_ms(step, carry, blocks) -> tuple:
-    """(host ms a block of the step over ``blocks``, of which BPSK31's
-    host loop)."""
+    """(host ms a block of the step over ``blocks``, of which in
+    ``BPSK31.apply``)."""
     from libsdr_tpu_torch.ops.psk31 import BPSK31
 
     apply, spent = BPSK31.apply, [0.0]

@@ -1833,3 +1833,229 @@ def test_live_scanner_on_loopback_equals_file_fed(cuda, tmp_path, bf16):
         IB.scan_file(path, fs, m, b, bf16, cuda))
     assert IB.decoded_pages(found, pages) == sorted(pages)
     assert not IB.misplaced(found, pages)
+
+
+# -- BPSK31 (csrc/psk31.cu) ------------------------------------------------------
+# The kernel repeats the plain version's step operation for operation (the
+# phasor in float64 rounded on both sides), so it is held bit for bit:
+# bits, valid flags and every carried value.
+
+def _psk31_same(got, ref):
+    from libsdr_tpu_torch.core.graph import _leaves
+
+    a, b = _leaves(got)[0], _leaves(ref)[0]
+    return len(a) == len(b) and all(
+        u.dtype == v.dtype and torch.equal(u.cpu(), v.cpu())
+        for u, v in zip(a, b))
+
+
+def _psk31_chain(blocks, rate, cuda):
+    """The kernel and the plain version over chained blocks: every block
+    bit for bit; returns the kernel's (bits, valid) a block."""
+    from libsdr_tpu_torch.ops.psk31 import bpsk31_scan, bpsk31_scan_plain
+    from libsdr_tpu_torch.tools.psk31_times import bound_op
+
+    c, t = blocks[0].re.shape
+    op = bound_op(rate, c, t)
+    k = op.constants()
+    kc, pc = op.init_carry(cuda), op.init_carry("cpu")
+    outs = []
+    n0 = bpsk31_scan.launches
+    for i, x in enumerate(blocks):
+        kc, bits, emits = got = bpsk31_scan(x, kc, **k)
+        pc, *ref = bpsk31_scan_plain(x.to("cpu"), pc, **k)
+        assert bits.device.type == "cuda" and bits.dtype == torch.uint8
+        assert emits.dtype == torch.bool and bits.shape == (c, t)
+        assert _psk31_same(got, (pc, *ref)), f"block {i}"
+        outs.append((bits.cpu(), emits.cpu()))
+    assert bpsk31_scan.launches == n0 + len(blocks)
+    return outs
+
+
+def test_bpsk31_kernel_matches_plain_at_w2(cuda):
+    """W2's PSK31 group (64 channels x 1,024 samples, the Channelizer and
+    K1b on W2's band, 8 blocks): the kernel bit for bit the plain version,
+    block after block; every active channel decodes its own message."""
+    from libsdr_tpu_torch.decode import VaricodeDecoder
+    from libsdr_tpu_torch.tools import psk31_times as PT
+    from libsdr_tpu_torch.tools.multimode_times import PATTERN
+
+    blocks, active, rate = PT.w2_inputs()
+    assert blocks[0].re.shape == (64, 1024) and active.sum() == 12
+    assert rate == 2000.0
+    outs = _psk31_chain(blocks, rate, cuda)
+    data = torch.cat([b for b, _ in outs], 1).numpy()
+    valid = torch.cat([v for _, v in outs], 1).numpy()
+    rows = [ch for ch in range(PT.M) if PATTERN[ch % 4] == "psk31"]
+    for i in np.flatnonzero(active):
+        text = VaricodeDecoder().process(data[i][valid[i]])
+        assert f"cq {rows[i]:03d}" in text, (rows[i], text)
+
+
+def test_bpsk31_kernel_matches_plain_at_psk31_rx(cuda):
+    """psk31_rx's shape (one channel of 2,000 samples a block, the app's
+    IQBaseBand on a 20 kHz capture): bit for bit the plain version, and the
+    text decodes."""
+    from libsdr_tpu_torch.decode import VaricodeDecoder
+    from libsdr_tpu_torch.tools import psk31_times as PT
+
+    blocks, rate = PT.rx_inputs(cuda)
+    assert blocks[0].re.shape == (1, 2000) and rate == 2000.0
+    outs = _psk31_chain(blocks, rate, cuda)
+    bits = np.concatenate([b[0][v[0]].numpy() for b, v in outs])
+    assert "cq de tpu" in VaricodeDecoder().process(bits)
+
+
+def _psk31_noise(c, t, seed):
+    rng = np.random.default_rng(seed)
+    x = (np.exp(1j * (0.02 * np.arange(t) + rng.uniform(0, 6, (c, 1))))
+         + 0.3 * (rng.normal(size=(c, t)) + 1j * rng.normal(size=(c, t))))
+    return Complex(torch.from_numpy(x.real.astype(np.float32)),
+                   torch.from_numpy(x.imag.astype(np.float32)))
+
+
+@pytest.mark.parametrize("t", [1, 5, 8, 13, 1003])
+@pytest.mark.parametrize("start", range(8))
+def test_bpsk31_kernel_every_ring_start(cuda, start, t):
+    """From a warm carry with the ring index at each start 0-7, blocks of
+    1 to 1,003 samples (the head, whole turns of the ring and the tail):
+    bit for bit the plain version, the new index start + T mod 8."""
+    from libsdr_tpu_torch.ops.psk31 import bpsk31_scan, bpsk31_scan_plain
+    from libsdr_tpu_torch.tools.psk31_times import bound_op
+
+    op = bound_op(2000.0, 3, t)
+    k = op.constants()
+    warm, _, _ = bpsk31_scan_plain(_psk31_noise(3, 997, start), op.init_carry(
+        "cpu"), **k)
+    warm["dl_idx"] = torch.tensor(start, dtype=torch.int32)
+    x = _psk31_noise(3, t, 100 + start)
+    ref = bpsk31_scan_plain(x, warm, **k)
+    got = bpsk31_scan(x.to(cuda), {key: v.to(cuda) for key, v in
+                                   warm.items()}, **k)
+    assert _psk31_same(got, ref)
+    assert int(got[0]["dl_idx"]) == (start + t) % 8
+
+
+def test_bpsk31_carry_round_trip_cpu_card(cuda):
+    """A carry made on the CPU and moved to the card (interop), and back,
+    gives the next block the same bits and carry as staying put."""
+    from libsdr_tpu_torch import interop
+    from libsdr_tpu_torch.ops.psk31 import bpsk31_scan
+    from libsdr_tpu_torch.tools.psk31_times import bound_op
+
+    op = bound_op(2000.0, 4, 1003)
+    k = op.constants()
+    xs = [_psk31_noise(4, 1003, s) for s in range(3)]
+    c1, _, _ = bpsk31_scan(xs[0], op.init_carry("cpu"), **k)
+    on_card = interop.state_from_numpy(interop.state_to_numpy(c1), cuda)
+    got2 = bpsk31_scan(xs[1].to(cuda), on_card, **k)
+    ref2 = bpsk31_scan(xs[1], c1, **k)
+    assert _psk31_same(got2, ref2)
+    back = interop.state_from_numpy(interop.state_to_numpy(got2[0]), "cpu")
+    assert _psk31_same(bpsk31_scan(xs[2], back, **k),
+                       bpsk31_scan(xs[2].to(cuda), got2[0], **k))
+    with pytest.raises(ValueError, match="carry leaf"):
+        bpsk31_scan(xs[1].to(cuda), c1, **k)
+
+
+def test_bpsk31_pipeline_compile_chunked_at_k8(cuda):
+    """psk31_rx's pipeline (IQBaseBand to ~2 kHz, BPSK31) through
+    compile_chunked at K = 8 on the card: it captures, its outputs and
+    carry bit for bit 8 eager steps, one BPSK31 launch a block."""
+    from libsdr_tpu_torch.core import cplx
+    from libsdr_tpu_torch.core.graph import _leaves
+    from libsdr_tpu_torch.core.ragged import Ragged
+    from libsdr_tpu_torch.ops import BPSK31
+
+    rng = np.random.default_rng(16)
+    n = 8 * 20_000
+    ph = np.repeat(np.cumsum(np.where(rng.random(n // 640 + 1) < 0.5,
+                                      np.pi, 0.0)), 640)[:n]
+    sig = (0.8 * np.exp(1j * ph) + 0.05 * (rng.normal(size=n) + 1j
+                                           * rng.normal(size=n)))
+    xs = [cplx.as_block(sig[i * 20_000:(i + 1) * 20_000].astype(
+        np.complex64), torch.float32, cuda) for i in range(8)]
+    p = P.Pipeline([IQBaseBand(fc=0.0, width=200.0, order=64,
+                               out_rate=2000.0, design="textbook"),
+                    BPSK31()], name="psk31_rx")
+    p.bind(P.StreamSpec(np.complex64, 20_000, 20_000))
+    carry, ys = p.init_carry(cuda), []
+    for x in xs:
+        carry, y = p.apply(carry, x)
+        ys.append(y)
+    step = p.compile_chunked("unroll")
+    c2, ys2 = step(p.init_carry(cuda), tuple(xs))
+    torch.cuda.synchronize()
+    for a, b in zip(ys2, ys):
+        assert isinstance(a, Ragged)
+        assert torch.equal(a.data, b.data) and torch.equal(a.valid, b.valid)
+    for a, b in zip(_leaves(c2)[0], _leaves(carry)[0]):
+        assert torch.equal(a, b)
+    (g,) = step.graphs.values()
+    assert g.launches["bpsk31_scan"] == 8
+
+
+def test_bpsk31_float32_phasor_would_part_card_and_host(cuda, monkeypatch):
+    """Why both sides take the phasor in float64 rounded to float32: the
+    card's float32 cos and sin and numpy's round differently on a share of
+    2^22 phases in [-2 pi, 2 pi], and the plain version over W2's PSK31
+    group (8 blocks) with numpy's float32 phasor moves bits on channels of
+    noise alone and none on the active ones.  Prints the shares and
+    counts (``-s``)."""
+    from libsdr_tpu_torch.ops import psk31 as ps
+    from libsdr_tpu_torch.tools import psk31_times as PT
+
+    rng = np.random.default_rng(16)
+    p = rng.uniform(-2 * np.pi, 2 * np.pi, 1 << 22).astype(np.float32)
+    pc = torch.from_numpy(p).to(cuda)
+    shares = {}
+    for name, f_np, f_t in (("cos", np.cos, torch.cos),
+                            ("sin", np.sin, torch.sin)):
+        card, host = f_t(pc).cpu().numpy(), f_np(p)
+        f64 = f_np(p.astype(np.float64)).astype(np.float32)
+        shares[name] = dict(card_vs_numpy=float(np.mean(card != host)),
+                            card_vs_f64=float(np.mean(card != f64)),
+                            numpy_vs_f64=float(np.mean(host != f64)))
+    assert all(v["card_vs_numpy"] > 0 for v in shares.values()), shares
+
+    blocks, active, rate = PT.w2_inputs()
+    op = PT.bound_op(rate, *blocks[0].re.shape)
+    k = op.constants()
+    runs = []
+    for phasor in (ps._phasor, lambda q: (np.cos(q), np.sin(q))):
+        monkeypatch.setattr(ps, "_phasor", phasor)
+        carry, outs = op.init_carry("cpu"), []
+        for x in blocks:
+            carry, bits, emits = ps.bpsk31_scan_plain(x.to("cpu"), carry, **k)
+            outs.append((bits.numpy() * emits.numpy(), emits.numpy()))
+        runs.append(outs)
+    diff = sum(((b64 != b32) | (v64 != v32)).sum(axis=1)
+               for (b64, v64), (b32, v32) in zip(*runs))
+    print(f"phasor shares apart on 2^22 phases {shares}; W2 with numpy's "
+          f"float32 phasor: bits apart on the {int(active.sum())} active "
+          f"channels {int(diff[active].sum())}, on the "
+          f"{int((~active).sum())} noise channels {int(diff[~active].sum())} "
+          f"({int((diff[~active] > 0).sum())} channels)")
+    assert diff[active].sum() == 0
+    assert diff[~active].sum() > 0
+
+
+def test_bpsk31_kernel_refuses_what_it_does_not_take(cuda):
+    from libsdr_tpu_torch.ops.psk31 import bpsk31_scan
+    from libsdr_tpu_torch.tools.psk31_times import bound_op
+
+    op = bound_op(2000.0, 2, 16)
+    k = op.constants()
+    carry = op.init_carry(cuda)
+    z = torch.zeros((2, 16), device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bpsk31_scan(Complex(z.half(), z.half()), carry, **k)
+    with pytest.raises(ValueError, match=r"\(C, T\)"):
+        bpsk31_scan(Complex(z[None], z[None]), carry, **k)
+    with pytest.raises(ValueError, match="operand shape"):
+        bpsk31_scan(Complex(z[:1], z[:1]), carry, **k)
+    # bf16 planes are widened: the float32 block's results
+    zb = _psk31_noise(2, 16, 3).to(cuda)
+    half = Complex(zb.re.bfloat16(), zb.im.bfloat16())
+    assert _psk31_same(bpsk31_scan(half, carry, **k),
+                       bpsk31_scan(half.map(lambda a: a.float()), carry, **k))

@@ -24,6 +24,9 @@ def test_import_leaves_jax_out():
             "from libsdr_tpu_torch.ops import fsk, pll, bitsync, afsk_fused\n"
             "from libsdr_tpu_torch.ops import channelizer, pfb, wideband_rx\n"
             "from libsdr_tpu_torch.ops import fftfilter, interpolate, psk31\n"
+            "from libsdr_tpu_torch.ops.psk31 import bpsk31_scan, "
+            "bpsk31_scan_plain\n"
+            "from libsdr_tpu_torch.ops.iir import iir_first_order_varcoef\n"
             "import libsdr_tpu_torch.ops.fft\n"
             "from libsdr_tpu_torch.parallel import wideband, multimode, "
             "halo, mesh, distributed\n"
@@ -36,7 +39,7 @@ def test_import_leaves_jax_out():
             "from libsdr_tpu_torch.apps import spectrum\n"
             "from libsdr_tpu_torch.tools import fir_paths, digital_profile, "
             "digital_signals, wideband_signals, dist_worker, "
-            "dryrun_multichip, multimode_times\n"
+            "dryrun_multichip, multimode_times, psk31_times\n"
             "from libsdr_tpu_torch import io\n"
             "from libsdr_tpu_torch.utils import options, logging\n"
             "from libsdr_tpu_torch import native\n"
