@@ -132,8 +132,13 @@ its own line; the first failure exits non-zero:
    ``compile_chunked`` at K = 8 of psk31_rx's pipeline and of W2's PSK31
    group on a draw of its own (both capture, bit for bit their eager
    steps).
+10. slice 17: FMDeemphInt's kernel (``csrc/fixedpoint.cu``) on the Q14
+   chain of phase slice 11 (once a block; held bit for bit against its
+   plain version on the path's call of block 1 and timed there), and
+   ``Channelizer`` outside K4's gate (M = 16384; P = 40) and inside it (M
+   = 8192) on the card against the CPU, K4 launched inside the gate only.
 
-Summary lines of slices 15 and 16 come before the last three lines.  The last
+Summary lines of slices 15-17 come before the last three lines.  The last
 three lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  In the record every ``ms``
 is CUDA events around the calls; K4's rows add ``device_ms`` (the same
@@ -2775,7 +2780,9 @@ def phase_slice11(torch, L, smi):
     P2 and P1 capture into a CUDA graph (and then equal their eager steps);
     checkpoint after block 4 of 8 and resume into a fresh pipeline, bit for
     bit, f32 and bf16; the Q14 chain at 64 channels, bit for bit against
-    the CPU, with FMDeemphInt's share of its time; the resamplers on 64
+    the CPU, each stage's time, FMDeemphInt's kernel (csrc/fixedpoint.cu)
+    launched once a block and held bit for bit against its plain version
+    on the path's call of block 1, and timed there; the resamplers on 64
     channels within 1e-6 of the CPU.  Every generator here is its own."""
     import tempfile
 
@@ -2881,7 +2888,10 @@ def phase_slice11(torch, L, smi):
     iq = np.round(9000 * np.exp(1j * ph) + 300 * (
         rng.normal(size=ph.shape) + 1j * rng.normal(size=ph.shape)))
     outs, times = {}, {}
+    from libsdr_tpu_torch.ops import fixedpoint as FX
     for dev in ("cpu", "cuda"):
+        if dev == "cuda":     # the path's launches, read just after it
+            set_counts_zero(all_entries())
         stages = (IQBaseBandInt(fc=3000.0, width=12.5e3, order=21, decim=10),
                   FMDemodInt(ref_block_quirk=True), FMDeemphInt())
         specs = (L.StreamSpec(np.complex64, fs, b, channels=(c,)),
@@ -2896,6 +2906,8 @@ def phase_slice11(torch, L, smi):
             y = Complex(torch.tensor(blk.real, dtype=torch.int32, device=dev),
                         torch.tensor(blk.imag, dtype=torch.int32, device=dev))
             for i, st in enumerate(stages):
+                if dev == "cuda" and i == 2 and k == 1:
+                    q14_in = (y, cs[2])     # FMDeemphInt's call of block 1
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 cs[i], y = st.apply(cs[i], y)
@@ -2904,8 +2916,46 @@ def phase_slice11(torch, L, smi):
             ys.append(y.cpu().numpy())
         outs[dev] = np.concatenate(ys, -1)
         times[dev] = [v / 3 * 1e3 for v in spent]
+        if dev == "cuda":
+            q14_launches = {e.__name__: e.launches for e in all_entries()
+                            if e.launches}
     exact = np.array_equal(outs["cuda"], outs["cpu"])
     tc = times["cuda"]
+    check(q14_launches == {"deemph_int": 3},
+          f"Q14 chain: launches {q14_launches}, want deemph_int once a "
+          "block")
+    # FMDeemphInt's kernel (csrc/fixedpoint.cu) on the path's call of
+    # block 1, against its plain version on the same inputs, and timed
+    from libsdr_tpu_torch.tools.pfb_times import kernel_ms
+    xq, aq = q14_in
+    alpha = stages[2]._alpha
+    ka, ky = FX.deemph_int(xq, aq, alpha)
+    pa, py = FX.deemph_int_plain(xq.cpu(), aq.cpu(), alpha)
+    q14_err = max(int((ky.cpu() - py).abs().max()),
+                  int((ka.cpu() - pa).abs().max()))
+    check(q14_err == 0, f"Q14 kernel: {q14_err} apart from its plain "
+          "version")
+    n_k = FX.deemph_int.launches
+    k_ms = cuda_ms(torch, lambda: FX.deemph_int(xq, aq, alpha), 20)
+    k_dev = kernel_ms([lambda: FX.deemph_int(xq, aq, alpha)], 20)
+    plain_ms = cuda_ms(torch, lambda: FX.deemph_int_plain(xq, aq, alpha), 1)
+    FX.deemph_int.launches = n_k
+    cq, tq = xq.shape
+    # bytes: the samples read once and the audio written once (int32), the
+    # carry in and out; the chain of ~10 integer operations a step with a
+    # division (~30 ns a step, counted from the source, not measured)
+    q14_bound = bound(8 * cq * tq + 8 * cq, 10 * cq * tq)
+    q14_chain = tq * 30e-9 * 1e3
+    print(f"phase slice 11 Q14 kernel (FMDeemphInt, csrc/fixedpoint.cu) on "
+          f"the path's call of block 1 ({cq} x {tq:,}, alpha {alpha}): "
+          f"{'bit-exact' if q14_err == 0 else 'DIFFERS'} against its plain "
+          f"version; {k_ms:.4f} ms a call, {k_dev:.4f} on the device, "
+          f"plain {plain_ms:.1f} ms; bound {q14_bound[0]:.5f} "
+          f"({q14_bound[1]}), the chain as estimated from the source "
+          f"{q14_chain:.3f} ms | {smi}")
+    res["q14_k"] = dict(launches=q14_launches["deemph_int"], err=q14_err,
+                        ms=k_ms, device_ms=k_dev, plain_ms=plain_ms,
+                        bound=q14_bound, shape=(cq, tq))
     print(f"phase slice 11 Q14 chain ({c} ch x {b:,} @ 240 kHz, decim 10, "
           f"3 blocks): card {'bit-exact' if exact else 'DIFFERS'} against "
           f"the CPU; card {sum(tc):.1f} ms a block (IQBaseBandInt "
@@ -3631,16 +3681,72 @@ def phase_slice16(torch, smi):
     return dict(rx=rx, captured=captured)
 
 
+# -- slice 17: the channelizer outside K4's gate ------------------------------
+
+GATE_CASES = ((16384, 8, 12, False), (64, 40, 48, False), (8192, 8, 12, True))
+
+
+def phase_slice17(torch, smi):
+    """Slice 17, the channelizer outside K4's gate (M > 8192, P > 32):
+    ``Channelizer`` over three carried blocks on the card against the CPU
+    (within 2e-5 of max |Y|, the channelizer bound), with its launch
+    counts set to 0 just before each and read just after: no K4 launch
+    outside the gate (``parallel/wideband.channelize_kernel_ok``: the card
+    runs ``channelize_segment``, the counterpart of the JAX package's XLA
+    body), one a block inside it (M = 8192).  A generator of its own."""
+    import libsdr_tpu_torch as L
+    from libsdr_tpu_torch.core.cplx import Complex
+    from libsdr_tpu_torch.ops import Channelizer
+    from libsdr_tpu_torch.parallel.wideband import channelize_kernel_ok
+
+    rng = np.random.default_rng(1717)
+    out = {}
+    for m, p, frames, kernel in GATE_CASES:
+        blk = m * frames
+        op = Channelizer(m, p)
+        op.bind(L.StreamSpec(np.complex64, 1e6, blk))
+        cg, cc, err = op.init_carry("cuda"), op.init_carry("cpu"), 0.0
+        set_counts_zero(all_entries())
+        for _ in range(3):
+            x = (rng.normal(size=blk) + 1j * rng.normal(size=blk)).astype(
+                np.complex64)
+            xg = Complex(torch.tensor(x.real, device="cuda"),
+                         torch.tensor(x.imag, device="cuda"))
+            check(channelize_kernel_ok(xg, m, p) == kernel,
+                  f"channelizer M={m} P={p}: the route predicate")
+            cg, yg = op.apply(cg, xg)
+            cc, yc = op.apply(cc, Complex(torch.tensor(x.real),
+                                          torch.tensor(x.imag)))
+            scale = float(max(yc.re.abs().max(), yc.im.abs().max()))
+            err = max(err, float((yg.re.cpu() - yc.re).abs().max()) / scale,
+                      float((yg.im.cpu() - yc.im).abs().max()) / scale)
+        torch.cuda.synchronize()
+        launches = {e.__name__: e.launches for e in all_entries()
+                    if e.launches}
+        want = {"pfb_mxu": 3} if kernel else {}
+        print(f"phase 17 Channelizer({m}, {p}) x 3 blocks of {frames} "
+              f"frames on the card: {err:.2e} of max |Y| from the CPU "
+              f"(bound 2e-5), launches {launches} "
+              f"({'inside' if kernel else 'outside'} K4's gate) | {smi}")
+        check(err < 2e-5, f"channelizer M={m} P={p}: {err:.2e} from the CPU")
+        check(launches == want, f"channelizer M={m} P={p}: launches "
+              f"{launches}, want {want}")
+        out[(m, p)] = dict(err=err, launches=launches)
+    torch.cuda.empty_cache()
+    return out
+
+
 def all_entries():
     from libsdr_tpu_torch.ops import fir_fm as F
     from libsdr_tpu_torch.ops import fir_mxu as M
     from libsdr_tpu_torch.ops.pfb import pfb_mxu
     from libsdr_tpu_torch.ops.pll import pll, pll_bank
+    from libsdr_tpu_torch.ops.fixedpoint import deemph_int
     from libsdr_tpu_torch.ops.psk31 import bpsk31_scan
 
     return (F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact,
             F.fir_afsk_exact, pll, pll_bank, pfb_mxu, M.fir_mxu,
-            M.fir_fm_mxu, bpsk31_scan)
+            M.fir_fm_mxu, bpsk31_scan, deemph_int)
 
 
 def main() -> int:
@@ -3824,6 +3930,8 @@ def main() -> int:
     # Slice 16: BPSK31 at psk31_rx's shape and in captured pipelines (on
     # W2's paths: phases W2 and 15).
     s16 = phase_slice16(torch, smi)
+    # Slice 17: the channelizer outside K4's gate, card against CPU.
+    s17 = phase_slice17(torch, smi)
 
     # The kernels' record, float32 planes.  Bounds from this run's shapes:
     # bytes (planes read once, outputs written once) and float32 operations
@@ -3951,6 +4059,17 @@ def main() -> int:
         device_ms=k31["device_ms"], rx_ms=s16["rx"]["ms"],
         rx_device_ms=s16["rx"]["device_ms"],
         rx_plain_ms=s16["rx"]["plain_ms"], rx_bound_ms=s16["rx"]["bound_ms"]))
+    # FMDeemphInt's kernel on the Q14 chain's call of block 1 (slice 11;
+    # its chain, as estimated from the source, is in the phase line)
+    q14 = s11["q14_k"]
+    record.append(dict(
+        name="deemph_int", route="cuda",
+        source="libsdr_tpu_torch/csrc/fixedpoint.cu",
+        replaces="libsdr_tpu/ops/fixedpoint.py:334",
+        launches=q14["launches"], max_abs_err=q14["err"], ms=q14["ms"],
+        plain_ms=q14["plain_ms"], bound_ms=q14["bound"][0],
+        bound_by=q14["bound"][1], library_ms=None,
+        device_ms=q14["device_ms"]))
     # K5 at F1 (offset 0; library: the strided conv1d over concat(tail,
     # x)): float32 planes' numbers under the common keys, bfloat16 planes'
     # under bf16_*, as the banks' rows; K6 at full width in fm with
@@ -4019,7 +4138,8 @@ def main() -> int:
           f"run_pipeline 2^19 K=1 {s11[(big, 'f32', 1)]['run_ms']:.2f} ms a "
           f"block; captured {s11['captured']}; Q14 chain "
           f"{s11['q14_ms']:.1f} ms a block (FMDeemphInt "
-          f"{s11['q14_deemph_ms']:.1f})")
+          f"{s11['q14_deemph_ms']:.2f}, its kernel "
+          f"{s11['q14_k']['device_ms']:.4f} on the device)")
     print("slice 14: pump-fed P2 " + ", ".join(
         f"{p} {r['ms_fed']:.2f} ms a step (take {r['take_ms']:.2f}, "
         f"upload {r['up_ms']:.2f}; {r['ms_mem']:.2f} in memory, "
@@ -4049,6 +4169,12 @@ def main() -> int:
           f"psk31_rx's shape, bit for bit; compile_chunked K = 8 captures "
           f"{sorted(s16['captured'])}; W2 build_bank wall "
           f"{bb['wall_ms']:.3f} / device {bb['device_ms']:.3f} ms a block")
+    print("slice 17: FMDeemphInt on the card (csrc/fixedpoint.cu), bit for "
+          f"bit its plain version, {s11['q14_k']['device_ms']:.4f} ms a Q14 "
+          f"block on the device (plain {s11['q14_k']['plain_ms']:.1f}); the "
+          "channelizer outside K4's gate "
+          + ", ".join(f"M={m} P={p} {v['err']:.1e} launches {v['launches']}"
+                      for (m, p), v in s17.items()))
     print(json.dumps({"kernels": record}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -174,6 +174,11 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         f32, f32, f32,       # gain_mu, gain_omega, 2 pi
         i64, i64, p]         # C, T, stream
     lib.sdr_psk31.restype = i32
+    lib.sdr_deemph_int.argtypes = [
+        p, p, p, p,          # x, avg_in, y, avg_out
+        i64, i64, i32, i32,  # C, T, alpha, half
+        p]                   # stream
+    lib.sdr_deemph_int.restype = i32
     lib.sdr_agc_chunks.argtypes = [i64, i64]
     lib.sdr_agc_chunks.restype = i32
     lib.sdr_cuda_error_string.argtypes = [i32]

@@ -26,6 +26,9 @@ Usage:
       --channels 256 --bf16 --pattern pocsag,ax25,rtty,psk31
   torchrun --nproc-per-node=4 -m libsdr_tpu_torch.apps.multimode \
       --file wide.wav --channels 256 --pattern pocsag,ax25,rtty,psk31
+  torchrun --nproc-per-node=4 -m libsdr_tpu_torch.apps.multimode \
+      --live tcp-listen://:1234 --rate 6144000 --channels 256 --bf16 \
+      --pattern pocsag,ax25,rtty,psk31 --live-timeout 2
 
 ``--pattern`` gives every channel a mode by a repeating pattern and runs
 the sharded bank (``parallel/multimode.py``): on one device, or under
@@ -348,13 +351,36 @@ def _group(args, dev):
     if not args.pattern:
         raise SystemExit("--map runs on one device: use --pattern over "
                          "the ranks of a group")
-    if args.live:
-        raise SystemExit("--live feeds one process: run it without "
-                         "torchrun")
     if not joined:
         dev = init_multihost(device=dev)
     return (global_mesh(("d",), device_type=dev.type), dist.get_rank(),
             not joined)
+
+
+def _group_live_blocks(args, mesh, stats):
+    """The ``blocks`` of :func:`scan_multimode_sharded` for a live wire over
+    the ranks of a group: rank 0 alone opens the wire (``stats`` are its
+    counts) and reads it as raw u8 chunks (``io/live.py::stream_live_u8``);
+    each chunk reaches every rank by one broadcast
+    (``parallel/halo.py::broadcast_chunks``), the end of the wire and
+    ``--live-timeout`` with it, and every rank converts it alike
+    (``u8_wire_block``), so each steps through the one-device run's blocks
+    and all end on the same one."""
+    from libsdr_tpu_torch.io.live import stream_live_u8, u8_wire_block
+    from libsdr_tpu_torch.parallel.distributed import rank_device
+    from libsdr_tpu_torch.parallel.halo import broadcast_chunks, mesh_axis
+
+    ax = mesh_axis(mesh, "d")
+
+    def blocks(b):
+        def wire():   # opened inside the broadcast: a failure travels
+            yield from stream_live_u8(args.live, b, stats=stats,
+                                      timeout=args.live_timeout)
+        chunks = broadcast_chunks(wire() if ax.index == 0 else None, 2 * b,
+                                  ax, rank_device(mesh))
+        for raw in chunks:
+            yield u8_wire_block(raw, b, bf16=args.bf16)
+    return blocks
 
 
 def main(argv=None):
@@ -406,11 +432,15 @@ def main(argv=None):
                                               stream_live_iq_bf16)
         fs = args.rate
         stats = LiveStats()
-        if args.bf16:
-            if not args.pattern:
-                raise SystemExit("--bf16 --live runs the sharded bank: "
-                                 "use --pattern")
-            found = sharded(None, fs, plane_dtype=torch.bfloat16,
+        if args.bf16 and not args.pattern:
+            raise SystemExit("--bf16 --live runs the sharded bank: "
+                             "use --pattern")
+        plane_dtype = torch.bfloat16 if args.bf16 else None
+        if mesh is not None:
+            found = sharded(None, fs, plane_dtype=plane_dtype,
+                            blocks=_group_live_blocks(args, mesh, stats))
+        elif args.bf16:
+            found = sharded(None, fs, plane_dtype=plane_dtype,
                             blocks=lambda b: stream_live_iq_bf16(
                                 args.live, b, stats=stats,
                                 timeout=args.live_timeout))
@@ -421,10 +451,11 @@ def main(argv=None):
                      scan_multimode(None, fs, args.channels,
                                     _parse_map(args.map), blocks=blocks,
                                     device=dev))
-        print(f"live: {stats.bytes_in} bytes in, "
-              f"{stats.bytes_dropped} dropped "
-              f"({100 * stats.drop_fraction:.2f}%), "
-              f"{stats.sustained_msps():.2f} Msps sustained")
+        if rank == 0:
+            print(f"live: {stats.bytes_in} bytes in, "
+                  f"{stats.bytes_dropped} dropped "
+                  f"({100 * stats.drop_fraction:.2f}%), "
+                  f"{stats.sustained_msps():.2f} Msps sustained")
     elif args.bf16:
         if not args.pattern:
             raise SystemExit("--bf16 runs the sharded bank: use --pattern")

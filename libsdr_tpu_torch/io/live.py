@@ -185,15 +185,16 @@ def stream_live_iq(url: str, block_size: int, dtype=np.uint8,
     stream instead of blocking for ever."""
     dt = np.dtype(dtype)
     if dt == np.uint8:
-        convert = _u8_block_to_c64
-    elif dt == np.int16:
-        def convert(raw):
-            re, im = s16_iq_to_planar(raw.view(np.int16))
-            blk = np.empty(len(re), np.complex64)
-            blk.real, blk.imag = re, im
-            return blk
-    else:
+        return (u8_wire_block(raw, block_size) for raw in stream_live_u8(
+            url, block_size, ring_bytes, stats, timeout))
+    if dt != np.int16:
         raise ValueError(f"stream_live_iq: unsupported sample dtype {dt}")
+
+    def convert(raw):
+        re, im = s16_iq_to_planar(raw.view(np.int16))
+        blk = np.empty(len(re), np.complex64)
+        blk.real, blk.imag = re, im
+        return blk
     frame = 2 * dt.itemsize
     ring = RingBuffer(max(ring_bytes, 4 * block_size * frame))
     pump = open_live_pump(url, ring, frame=frame)
@@ -210,15 +211,37 @@ def stream_live_iq_bf16(url: str, block_size: int,
     """Like :func:`stream_live_iq` for u8 wires, but yields :class:`Complex`
     blocks of ``torch.bfloat16`` planes (lossless for 8-bit sources, half
     the bytes), for a pipeline bound with ``plane_dtype=torch.bfloat16``."""
-    def to_block(planes, pad_to=None):
-        return _bf16_planes(*planes, pad_to=pad_to or 0)
+    return (u8_wire_block(raw, block_size, bf16=True)
+            for raw in stream_live_u8(url, block_size, ring_bytes, stats,
+                                      timeout))
 
+
+def stream_live_u8(url: str, block_size: int, ring_bytes: int = 1 << 24,
+                   stats: Optional[LiveStats] = None,
+                   timeout: Optional[float] = None) -> Iterator[np.ndarray]:
+    """The raw bytes of a u8 IQ wire in chunks of ``block_size`` frames (2
+    bytes each), the chunks :func:`stream_live_iq` and
+    :func:`stream_live_iq_bf16` convert, unconverted and unpadded: the last
+    chunk of a wire that ends or times out may be shorter.
+    :func:`u8_wire_block` turns a chunk into their block, so a process that
+    receives the chunks from the one that reads the wire
+    (``parallel/halo.py::broadcast_chunks``) makes the same blocks."""
     ring = RingBuffer(max(ring_bytes, 8 * block_size))
     pump = open_live_pump(url, ring, frame=2)
     if stats is not None:
         stats.port = pump.port
-    return _block_loop(ring, pump, block_size, 1, u8_iq_to_planar_bf16,
-                       stats, timeout, to_block)
+    return _block_loop(ring, pump, block_size, 1, lambda raw: raw, stats,
+                       timeout, lambda raw, pad_to=None: raw)
+
+
+def u8_wire_block(raw: np.ndarray, block_size: int, bf16: bool = False):
+    """One block of :func:`stream_live_iq` (complex64), or with ``bf16`` of
+    :func:`stream_live_iq_bf16` (a Complex of bfloat16 planes), from a
+    chunk of :func:`stream_live_u8`: the same conversion, zero-padded to
+    ``block_size`` samples."""
+    if bf16:
+        return _bf16_planes(*u8_iq_to_planar_bf16(raw), pad_to=block_size)
+    return _host_block(_u8_block_to_c64(raw), pad_to=block_size)
 
 
 def stream_live_audio(url: str, block_size: int, dtype=np.int16,

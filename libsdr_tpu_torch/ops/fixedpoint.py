@@ -12,6 +12,7 @@ round toward minus infinity, and :func:`_div_trunc` truncates toward zero.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -21,6 +22,7 @@ from libsdr_tpu_torch.core import cplx
 from libsdr_tpu_torch.core.block import Processor
 from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.core.stream import ConfigError, StreamSpec
+from libsdr_tpu_torch.ops.fir_fm import _check, _plain
 
 
 def _w32(a: torch.Tensor) -> torch.Tensor:
@@ -300,8 +302,10 @@ class FMDeemphInt(Processor):
     """Bit-exact integer FM de-emphasis (reference: src/demod.hh:304-351
     FMDeemph<int16_t>): ``alpha = round(1/(1 - exp(-1/(Fs*75e-6))))``; per
     sample ``diff = x - avg`` (int16 wrap), then ``avg += (diff +- alpha/2)
-    / alpha`` with C-truncating division.  Sequential in time: a loop over
-    the block's samples, each step vectorized over the channels.
+    / alpha`` with C-truncating division.  Sequential in time:
+    :func:`deemph_int` runs the block as one launch of ``csrc/fixedpoint.cu``
+    on a card and as :func:`deemph_int_plain`, a loop over time, on the
+    CPU.
     """
 
     def __init__(self, tau: float = 75e-6):
@@ -318,14 +322,84 @@ class FMDeemphInt(Processor):
                            device=device)
 
     def apply(self, carry, x):
-        alpha, half = self._alpha, self._alpha // 2
-        x = x.to(torch.int32)
-        ys = torch.empty_like(x)
-        avg = carry
-        for t in range(x.shape[-1]):
-            diff = _wrap16(x[..., t] - avg)
-            upd = torch.where(diff > 0, _div_trunc(diff + half, alpha),
-                              _div_trunc(diff - half, alpha))
-            avg = _wrap16(avg + upd)
-            ys[..., t] = avg
-        return avg, ys
+        return deemph_int(x, carry, self._alpha)
+
+
+def deemph_int(x: torch.Tensor, avg: torch.Tensor, alpha: int):
+    """FMDeemphInt's recurrence over one block.
+
+    Args:
+      x: (..., T) integer samples (taken as int32).
+      avg: (...) int32, the carry: the last output of the block before, on
+        x's device.
+      alpha: the divisor, an int >= 1 (``half = alpha // 2``).
+
+    Returns:
+      (avg' (...) int32, y (..., T) int32) on x's device.
+
+    A CUDA block launches the kernel of ``csrc/fixedpoint.cu`` (one thread a
+    channel, the carry in a register, one launch a block, counted in
+    ``deemph_int.launches``); nothing in it reads the host, so a pipeline
+    holding FMDeemphInt captures into a CUDA graph.  A CPU block takes
+    :func:`deemph_int_plain`.  The two agree bit for bit.
+    """
+    if avg.device != x.device:
+        raise ValueError(f"deemph_int: carry on {avg.device}, the block on "
+                         f"{x.device}: move the carry "
+                         "(interop.state_from_numpy)")
+    alpha = int(alpha)
+    if alpha < 1:
+        raise ValueError(f"deemph_int: alpha must be >= 1, got {alpha}")
+    if _plain(x, "deemph_int"):
+        return deemph_int_plain(x, avg, alpha)
+    return _launch_deemph(x, avg, alpha)
+
+
+# Kernel launches, counted where they happen.
+deemph_int.launches = 0
+
+
+def deemph_int_plain(x: torch.Tensor, avg: torch.Tensor, alpha: int):
+    """Plain version of :func:`deemph_int` (same arguments and results): a
+    loop over the block's samples, each step vectorized over the
+    channels."""
+    half = alpha // 2
+    x = x.to(torch.int32)
+    ys = torch.empty_like(x)
+    for t in range(x.shape[-1]):
+        diff = _wrap16(x[..., t] - avg)
+        upd = torch.where(diff > 0, _div_trunc(diff + half, alpha),
+                          _div_trunc(diff - half, alpha))
+        avg = _wrap16(avg + upd)
+        ys[..., t] = avg
+    return avg, ys
+
+
+def _launch_deemph(x, avg, alpha):
+    """One launch of csrc/fixedpoint.cu's sdr_deemph_int over the block."""
+    from libsdr_tpu_torch import _build
+
+    name = "deemph_int"
+    lead, t = tuple(x.shape[:-1]), x.shape[-1]
+    if tuple(avg.shape) != lead:
+        raise ValueError(f"{name}: carry shape {tuple(avg.shape)}, expected "
+                         f"{lead}")
+    if alpha > 1 << 30:
+        raise ValueError(f"{name}: alpha {alpha} outside the kernel's gate")
+    dev = x.device
+    n = math.prod(lead)
+    if n == 0:
+        return avg.to(torch.int32), x.to(torch.int32)
+    xs = x.to(torch.int32).reshape(n, t).contiguous()
+    a_in = avg.to(torch.int32).reshape(n).contiguous()
+    y = torch.empty_like(xs)
+    a_out = torch.empty_like(a_in)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdr_deemph_int(xs.data_ptr(), a_in.data_ptr(), y.data_ptr(),
+                                a_out.data_ptr(), n, t, alpha,
+                                alpha // 2, ctypes.c_void_p(stream))
+    _check(name, lib, rc)
+    deemph_int.launches += 1
+    return a_out.reshape(lead), y.reshape(lead + (t,))

@@ -31,14 +31,18 @@ from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.core.stream import ConfigError, StreamSpec
 from libsdr_tpu_torch.ops.channelizer import fold_commutator, prototype_lowpass
 from libsdr_tpu_torch.ops.pfb import (channel_of_lane, fm_demod_lanes,
-                                      lane_of_channel, pfb_mxu,
+                                      lane_of_channel, pfb_mxu, pfb_plain,
                                       pfb_supported, pfb_twiddles)
 
 
 def fm_local_kernel_ok(x: Complex, m: int, p: int) -> bool:
-    """Whether :func:`wideband_fm_local` launches the K4 kernel for block
-    ``x``: a block on a card whose shape is inside the kernel's gate (on a
-    card a shape outside it raises)."""
+    """Whether :func:`wideband_fm_local` (and, as
+    ``parallel/wideband.py::channelize_kernel_ok``, the channelizer's
+    ``channelize_local``) launches the K4 kernel for block ``x``: a block
+    on a card whose shape is inside the kernel's gate (``pfb_supported``).
+    Outside it the stage runs K4's plain version on the block's device, a
+    card too, as the JAX package runs its XLA body outside its Pallas
+    kernel.  The shape alone decides, before any launch."""
     return (x.re.device.type == "cuda"
             and pfb_supported(m, x.shape[-1] // m, p, x.re.dtype))
 
@@ -66,8 +70,9 @@ def wideband_fm_local(x: Complex, hist: Complex, prev: Complex, taps3,
     """
     lead = tuple(x.shape[:-1])
     f_total = x.shape[-1] // m
-    return pfb_mxu(x.reshape(lead + (f_total, m)), hist, taps3, m, gain=gain,
-                   prev=prev, demod=True, twiddles=twiddles)
+    run = pfb_mxu if fm_local_kernel_ok(x, m, p) else pfb_plain
+    return run(x.reshape(lead + (f_total, m)), hist, taps3, m, gain=gain,
+               prev=prev, demod=True, twiddles=twiddles)
 
 
 class WidebandFM(Processor):

@@ -21,13 +21,16 @@ tuples) of one dtype and moves it in one collective, the planes packed
 together.  On an axis of one rank every helper is the identity, and the
 build functions skip them statically.  The overlap-save FIR's carried tail
 becomes a halo: shard i needs the last ``T-1`` samples of shard i-1
-(:func:`fir_overlap_save_sharded`).
+(:func:`fir_overlap_save_sharded`).  :func:`broadcast_chunks` feeds every
+rank the chunks of a stream that one rank reads (a live wire: the JAX
+package's one process reads it for all its devices).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -150,6 +153,71 @@ def all_to_all(x, ax: Axis, split_axis: int, concat_axis: int):
     dist.all_to_all_single(recv, send, group=ax.group)
     out = torch.cat(recv.unbind(0), dim=c)
     return _rebuild(struct, iter(out.unbind(0)))
+
+
+# broadcast_chunks' buffer: a header of two int64 (the chunk's length and
+# a flag), then the payload.
+_HEAD = 16
+_MORE, _END, _FAILED = 0, 1, 2
+
+
+def broadcast_chunks(chunks, max_bytes: int, ax: Axis, device):
+    """Yield on every member of ``ax`` the uint8 chunks (numpy, at most
+    ``max_bytes`` each) that ``chunks`` yields on member 0; the other
+    members pass None.  One broadcast a chunk, of a buffer on ``device``
+    (the rank's card over NCCL, the CPU over gloo) holding a 16-byte header
+    (the chunk's length and a flag) and ``max_bytes`` of payload.
+
+    The end of ``chunks`` travels as the flag, so every member stops after
+    the same chunk.  An error raised by ``chunks`` travels too: it raises
+    on member 0 and a RuntimeError on the others.  A member whose peer is
+    lost raises when the collective times out
+    (``parallel/distributed.py::init_multihost``'s ``timeout``)."""
+    if ax.size == 1:
+        yield from chunks
+        return
+    src = ax.rank(0)
+    host = torch.zeros(_HEAD + max_bytes, dtype=torch.uint8)
+    buf = host if torch.device(device).type == "cpu" else host.to(device)
+    view = host.numpy()
+    it = iter(chunks) if ax.index == 0 else None
+    while True:
+        raw = err = None
+        if ax.index == 0:
+            flag = _MORE
+            try:
+                raw = next(it)
+                if len(raw) > max_bytes:
+                    raise ValueError(f"broadcast_chunks: a chunk of "
+                                     f"{len(raw)} bytes, more than "
+                                     f"{max_bytes}")
+            except StopIteration:
+                flag = _END
+            except Exception as e:   # noqa: BLE001 - raised after the send
+                flag, err, raw = _FAILED, e, None
+            n = 0 if raw is None else len(raw)
+            view[:_HEAD] = np.array([n, flag], np.int64).view(np.uint8)
+            if n:
+                view[_HEAD:_HEAD + n] = raw
+            if buf is not host:
+                buf.copy_(host)
+        dist.broadcast(buf, src, group=ax.group)
+        if ax.index == 0:
+            if err is not None:
+                raise err
+            if flag == _END:
+                return
+            yield raw
+            continue
+        if buf is not host:
+            host.copy_(buf)
+        n, flag = (int(v) for v in view[:_HEAD].view(np.int64))
+        if flag == _FAILED:
+            raise RuntimeError(f"broadcast_chunks: the source failed on "
+                               f"rank {src}")
+        if flag == _END:
+            return
+        yield view[_HEAD:_HEAD + n].copy()
 
 
 def fir_overlap_save_sharded(taps, x_local, tail_global, ax: Axis,

@@ -73,12 +73,18 @@ def shard_pipeline_step(pipeline: Pipeline, mesh, shard_time: bool = True,
     JAX leaves the time axis to GSPMD, which has no PyTorch counterpart.
     Here the block's time shards are all-gathered within the 'time' group,
     the rank's channels run the step on the whole block, and each rank
-    keeps its time slice of the output: the single-device result, for
+    keeps its part of the output: the single-device result, for
     correctness and not speed.  The fast time-sharded forms are the
     explicit build functions (``parallel/wideband.py``, ``parallel/multimode.py``),
     which pass halos.  The step is the pipeline's own on the rank's
-    channels, so its stages must map channels independently.  An output
-    whose length does not split over 'time' is refused (GSPMD pads)."""
+    channels, so its stages must map channels independently.
+
+    The output's placement is GSPMD's on the same mesh and shapes, and
+    ``step.out_spec`` names it: ('ch', ..., 'time') when the output's
+    length splits over 'time' (each rank keeps its time slice), else
+    ('ch', ..., None), every rank of a 'time' group keeping the whole
+    output time axis.  An input block that does not split over 'time' is
+    refused, as JAX's ``device_put`` refuses it."""
     in_spec = pipeline.in_spec
     if not in_spec.channels:
         raise ConfigError("shard_pipeline_step needs a channel dim")
@@ -89,14 +95,15 @@ def shard_pipeline_step(pipeline: Pipeline, mesh, shard_time: bool = True,
     if n_ch % ch.size:
         raise ConfigError(f"{n_ch} channels do not split over {ch.size} "
                           "ranks of 'ch'")
-    out_len = pipeline.out_spec.block_size
-    if in_spec.block_size % tm.size or out_len % tm.size:
+    if in_spec.block_size % tm.size:
         raise ConfigError(
-            f"a block of {in_spec.block_size} samples ({out_len} out) does "
-            f"not split over {tm.size} ranks of 'time'")
-    spec = ("ch",) + (None,) * (len(in_spec.channels) - 1) + \
-        ("time" if shard_time else None,)
+            f"a block of {in_spec.block_size} samples does not split over "
+            f"{tm.size} ranks of 'time'")
+    lead = ("ch",) + (None,) * (len(in_spec.channels) - 1)
+    spec = lead + ("time" if shard_time else None,)
     dtype = in_spec.real_dtype
+    out_len = pipeline.out_spec.block_size
+    split = tm.size > 1 and out_len % tm.size == 0
     out_t = out_len // tm.size
     keep = slice(tm.index * out_t, (tm.index + 1) * out_t)
 
@@ -107,11 +114,12 @@ def shard_pipeline_step(pipeline: Pipeline, mesh, shard_time: bool = True,
 
     def step(carry, x):
         carry, y = pipeline.apply(carry, all_gather(x, tm, dim=-1))
-        if tm.size > 1:
+        if split:
             leaves, struct = _leaves(y)
             y = _rebuild(struct, iter(v[..., keep] for v in leaves))
         return carry, y
 
+    step.out_spec = lead + ("time" if split else None,)
     return step, place_input, carry
 
 

@@ -36,6 +36,10 @@ from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.ops.channelizer import fold_commutator, prototype_lowpass
 from libsdr_tpu_torch.ops.pfb import (lane_of_channel, pfb_frames_plain,
                                       pfb_mxu, pfb_twiddles)
+# K4's route for a segment, the shape alone deciding: WidebandFM's stage
+# and the channelizer's share it.
+from libsdr_tpu_torch.ops.wideband_rx import \
+    fm_local_kernel_ok as channelize_kernel_ok
 from libsdr_tpu_torch.parallel.distributed import place_global, rank_device
 from libsdr_tpu_torch.parallel.halo import (Axis, all_to_all,
                                             last_shard_tail, mesh_axis,
@@ -44,11 +48,14 @@ from libsdr_tpu_torch.parallel.halo import (Axis, all_to_all,
 
 def channelize_local(x_local: Complex, hist: Complex, taps3, m: int,
                      p: int, twiddles=None) -> Complex:
-    """The channelize stage of a segment: the K4 kernel on a card
-    (``ops/pfb.py``; ``twiddles`` its table, or None), on the CPU
-    :func:`channelize_segment`.  Returns the (..., M, t) channel-major
-    complex bank."""
-    if x_local.re.device.type == "cpu":
+    """The channelize stage of a segment: the K4 kernel where
+    :func:`channelize_kernel_ok` holds (``ops/pfb.py``; ``twiddles`` its
+    table, or None), else :func:`channelize_segment` on the segment's
+    device, on a card too: outside K4's gate (M > 8192 or P > 32) it runs
+    what the JAX package's ``channelize_local`` runs outside its Pallas
+    kernel, its XLA body.  Returns the (..., M, t) channel-major complex
+    bank."""
+    if not channelize_kernel_ok(x_local, m, p):
         return channelize_segment(x_local, hist, taps3, m, p)
     lead = tuple(x_local.shape[:-1])
     t = x_local.shape[-1] // m

@@ -11,7 +11,8 @@ and compares its part of the result with the one-device program run in the
 same rank on the whole input:
 
 * ``shard_pipeline_step`` on a ('ch', 'time') mesh (2 ranks on time when N
-  is even): an FM bank, and one whose FIR is longer than a time shard;
+  is even): an FM bank, the same on a block whose output does not split
+  over 'time', and one whose FIR is longer than a time shard;
 * ``fir_overlap_save_sharded`` over three carried blocks;
 * ``build_wideband_step`` (P = 3 and 8) and ``build_scanner_step`` over
   two chained blocks, bit for bit;
@@ -105,36 +106,54 @@ def _ragged_masked(outs):
 
 def check_gspmd(dev, n, saved, rng_seed=1234):
     """shard_pipeline_step on a ('ch', 'time') mesh against the unsharded
-    pipeline, and one whose FIR (order 296) spans more than a time shard."""
+    pipeline, one whose output (513 samples from 2,052) does not split
+    over 'time' (every rank keeps the whole output time axis, as GSPMD
+    does), and one whose FIR (order 296) spans more than a time shard."""
     from libsdr_tpu_torch.core import cplx
     from libsdr_tpu_torch.parallel import make_mesh, shard_pipeline_step
-    from libsdr_tpu_torch.parallel.distributed import place_global
+    from libsdr_tpu_torch.parallel.distributed import (place_global,
+                                                       shard_index)
 
     n_time = 2 if n % 2 == 0 else 1
     mesh = make_mesh(n_channel=n // n_time, n_time=n_time,
                      device_type=dev.type)
     lines = []
-    for label, n_ch, fs, b, order in (("GSPMD fm bank", 16, 64_000.0, 2048,
-                                       16),
-                                      ("halo spans a shard", 2 * n, 64_000.0,
-                                       256 * n_time, 256 + 40)):
+    for label, key, n_ch, fs, b, order in (
+            ("GSPMD fm bank", "gspmd", 16, 64_000.0, 2048, 16),
+            ("GSPMD uneven time", "gspmd_uneven", 16, 64_000.0, 2052, 16),
+            ("halo spans a shard", None, 2 * n, 64_000.0, 256 * n_time,
+             256 + 40)):
         x = _complex(np.random.default_rng(rng_seed), (n_ch, b))
         step, place, carry = shard_pipeline_step(
             _bound(_fm_bank(fs, order), n_ch, fs, b), mesh)
         _, y = step(carry, place(x))
         solo = _bound(_fm_bank(fs, order), n_ch, fs, b)
         _, y1 = solo.apply(solo.init_carry(dev), cplx.as_block(x, device=dev))
-        spec = ("ch", "time")
-        ref = place_global(y1, mesh, spec, y1.dtype)
+        ref = place_global(y1, mesh, step.out_spec, y1.dtype)
         err, exact = _compare(y, ref)
-        if label.startswith("GSPMD"):
-            from libsdr_tpu_torch.parallel.distributed import shard_index
-            idx = shard_index(tuple(y1.shape), mesh, spec)
-            saved["gspmd"] = y.cpu().numpy()
-            saved["gspmd_idx"] = np.asarray(
+        if key is not None:
+            idx = shard_index(tuple(y1.shape), mesh, step.out_spec)
+            saved[key] = y.cpu().numpy()
+            saved[key + "_idx"] = np.asarray(
                 [idx[0].start, idx[0].stop, idx[1].start, idx[1].stop])
         lines.append((f"{label}: mesh ch {n // n_time} x time {n_time}, "
-                      f"{n_ch} ch x {b}", err, exact, err <= GSPMD_ATOL))
+                      f"{n_ch} ch x {b}, out {step.out_spec}", err, exact,
+                      err <= GSPMD_ATOL))
+    if n_time > 1:
+        # an input block that does not split over 'time' (JAX's device_put
+        # refuses it too)
+        from libsdr_tpu_torch.core.stream import ConfigError
+        from libsdr_tpu_torch.ops import FMDemod, IQBaseBand
+        try:
+            shard_pipeline_step(_bound(
+                [IQBaseBand(fc=8e3, width=12.8e3, order=16, decim=1,
+                            design="textbook"), FMDemod()], 16, 64_000.0,
+                2051), mesh)
+            refused = False
+        except ConfigError:
+            refused = True
+        lines.append(("GSPMD odd block refused: 16 ch x 2051 over time "
+                      f"{n_time}", 0.0, refused, refused))
     return lines
 
 

@@ -762,6 +762,52 @@ def test_wideband_ops_on_card_match_cpu(cuda, layout):
                 assert float(torch.quantile(d.flatten(), 0.99)) < 1e-3
 
 
+@pytest.mark.parametrize("m,p,frames,kernel", [
+    (16384, 8, 12, False), (64, 40, 48, False), (64, 40, 20, False),
+    (8192, 8, 12, True), (64, 32, 48, True)])
+def test_channelizer_outside_k4_gate_on_card(cuda, m, p, frames, kernel):
+    """Channelizer and the sharded path's channelize_local outside K4's
+    gate (M > 8192, P > 32) run channelize_segment on the card, with no K4
+    launch, within 2e-5 of max |Y| of the CPU over three carried blocks;
+    inside it (M = 8192, P = 32) one launch a block.  WidebandFM alike
+    where a block holds P frames (its bind wants them)."""
+    from libsdr_tpu_torch.ops import Channelizer, WidebandFM
+    from libsdr_tpu_torch.ops.pfb import pfb_mxu
+    from libsdr_tpu_torch.parallel import wideband as W
+
+    blk = m * frames
+    rng = np.random.default_rng(m + p + frames)
+    ops = [Channelizer(m, p)]
+    if frames >= p:     # WidebandFM's carry is a block's last P frames
+        ops.append(WidebandFM(m, p, layout="channel"))
+    for op in ops:
+        op.bind(P.StreamSpec(np.complex64, 1e6, blk))
+        cg, cc = op.init_carry(cuda), op.init_carry("cpu")
+        for _ in range(3):
+            x = (rng.normal(size=blk) + 1j * rng.normal(size=blk)).astype(
+                np.complex64)
+            xg = Complex(torch.tensor(x.real, device=cuda),
+                         torch.tensor(x.imag, device=cuda))
+            assert W.channelize_kernel_ok(xg, m, p) == kernel
+            n0 = pfb_mxu.launches
+            cg, yg = op.apply(cg, xg)
+            torch.cuda.synchronize()
+            assert pfb_mxu.launches == n0 + int(kernel)
+            cc, yc = op.apply(cc, Complex(torch.tensor(x.real),
+                                          torch.tensor(x.imag)))
+            if isinstance(yc, Complex):
+                assert yg.re.device.type == "cuda"
+                scale = float(max(yc.re.abs().max(), yc.im.abs().max()))
+                err = max(float((yg.re.cpu() - yc.re).abs().max()),
+                          float((yg.im.cpu() - yc.im).abs().max())) / scale
+                assert err < 2e-5, err
+            else:
+                d = (torch.remainder(yg.cpu() - yc + np.pi, 2 * np.pi)
+                     - np.pi).abs()
+                assert float(d.median()) < 5e-5
+                assert float(torch.quantile(d.flatten(), 0.99)) < 1e-3
+
+
 def test_wideband_apps_on_card_match_cpu(cuda):
     """The scanner and the multimode bank on the card decode what they
     decode on the CPU, launching K4 (and K2, or K3 and, through the PSK31
@@ -1732,6 +1778,116 @@ def test_q14_chain_card_matches_cpu(cuda):
             ys.append(y.cpu().numpy())
         outs[str(dev)] = np.concatenate(ys, -1)
     np.testing.assert_array_equal(outs["cuda"], outs["cpu"])
+
+
+def _deemph_blocks(rng, c, t, k):
+    """k blocks of (c, t) int16-range samples (uniform, so ``x - avg``
+    wraps often) with runs at the edges -32768 and 32767 and jumps from
+    one edge to the other (tests/test_torch_fixedpoint.py's)."""
+    x = rng.integers(-32768, 32768, size=(c, k * t)).astype(np.int32)
+    edges = np.array([-32768, 32767, -32768, -32768, 32767, 32767, 0,
+                      -32768], np.int32)
+    for ch in range(c):
+        at = int(rng.integers(0, max(1, k * t - len(edges))))
+        x[ch, at:at + len(edges)] = edges[:k * t - at]
+    return [torch.from_numpy(x[:, i * t:(i + 1) * t]) for i in range(k)]
+
+
+def _deemph_chain(cuda, blocks, alpha, avg0):
+    """The kernel over chained blocks, the carry made on the CPU and moved
+    to the card, against the plain version on the CPU: equal bit for bit,
+    one launch a block."""
+    from libsdr_tpu_torch.ops.fixedpoint import deemph_int, deemph_int_plain
+
+    n0 = deemph_int.launches
+    ka, pa = avg0.to(cuda), avg0
+    for i, x in enumerate(blocks):
+        ka, ky = deemph_int(x.to(cuda), ka, alpha)
+        pa, py = deemph_int_plain(x, pa, alpha)
+        torch.cuda.synchronize()
+        assert ky.device.type == "cuda" and ky.dtype == torch.int32
+        assert torch.equal(ky.cpu(), py), f"block {i}"
+        assert torch.equal(ka.cpu(), pa), f"carry after block {i}"
+    assert deemph_int.launches == n0 + len(blocks)
+
+
+@pytest.mark.parametrize("t", [1, 2, 15, 16, 17, 31, 33, 1000, 2401])
+@pytest.mark.parametrize("c", [1, 3, 64, 1000])
+def test_deemph_int_kernel_matches_plain(cuda, c, t):
+    """FMDeemphInt's kernel (csrc/fixedpoint.cu) bit for bit against its
+    plain version over three chained blocks at alpha 2 (24 kHz, the Q14
+    chain's output rate): T 1 to 2,401 (below, at and past the kernel's
+    16-sample chunks), C 1 to 1,000, inputs at the int16 edges, a random
+    int16 carry from the CPU."""
+    rng = np.random.default_rng(1000 * c + t)
+    avg0 = torch.from_numpy(rng.integers(-32768, 32768, c).astype(np.int32))
+    _deemph_chain(cuda, _deemph_blocks(rng, c, t, 3), 2, avg0)
+
+
+@pytest.mark.parametrize("alpha", [1, 2, 3, 4, 19, 100, 32767, 32768,
+                                   1 << 20])
+def test_deemph_int_kernel_alphas(cuda, alpha):
+    """alpha from 1 upward (half = alpha // 2 from 0), and the carry at
+    the edges: 64 channels x 3 blocks of 257."""
+    rng = np.random.default_rng(alpha)
+    avg0 = torch.tensor(([-32768, 32767, 0, -1] * 16), dtype=torch.int32)
+    _deemph_chain(cuda, _deemph_blocks(rng, 64, 257, 3), alpha, avg0)
+
+
+def test_deemph_int_kernel_leading_axes_and_empty(cuda):
+    """Leading stream axes pass through; a block of no samples returns the
+    carry."""
+    from libsdr_tpu_torch.ops.fixedpoint import deemph_int, deemph_int_plain
+
+    rng = np.random.default_rng(5)
+    x = _deemph_blocks(rng, 6, 40, 1)[0].reshape(2, 3, 40)
+    avg = torch.from_numpy(rng.integers(-300, 300, (2, 3)).astype(np.int32))
+    ka, ky = deemph_int(x.to(cuda), avg.to(cuda), 4)
+    pa, py = deemph_int_plain(x, avg, 4)
+    assert torch.equal(ky.cpu(), py) and torch.equal(ka.cpu(), pa)
+    ka, ky = deemph_int(x[..., :0].to(cuda), avg.to(cuda), 4)
+    assert ky.shape == (2, 3, 0) and torch.equal(ka.cpu(), avg)
+    with pytest.raises(ValueError, match="carry shape"):
+        deemph_int(x.to(cuda), avg[0].to(cuda), 4)
+
+
+def test_q14_pipeline_compile_chunked_matches_eager(cuda):
+    """The Q14 chain (64 channels x 24,000 at 240 kHz, decim 10; bound as
+    two pipelines, IQBaseBandInt and FMDemodInt -> FMDeemphInt, since
+    FMDemodInt takes a complex spec) through ``compile_chunked`` at K = 4:
+    both capture, bit for bit their eager steps over 8 blocks, one
+    FMDeemphInt launch a block."""
+    from libsdr_tpu_torch.core.graph import _leaves
+    from libsdr_tpu_torch.ops import FMDeemphInt, FMDemodInt, IQBaseBandInt
+
+    c, b, fs = 64, 24_000, 240_000.0
+    front = P.Pipeline([IQBaseBandInt(fc=3000.0, width=12.5e3, order=21,
+                                      decim=10)])
+    front.bind(P.StreamSpec(np.complex64, fs, b, channels=(c,)))
+    back = P.Pipeline([FMDemodInt(ref_block_quirk=True), FMDeemphInt()])
+    back.bind(P.StreamSpec(np.complex64, fs / 10, b // 10, channels=(c,)))
+    rng = np.random.default_rng(17)
+    xs = [Complex(*(torch.tensor(np.round(rng.normal(size=(c, b)) * 6000),
+                                 dtype=torch.int32, device=cuda)
+                    for _ in range(2))) for _ in range(8)]
+    cf, cb, ys = front.init_carry(cuda), back.init_carry(cuda), []
+    for x in xs:
+        cf, z = front.apply(cf, x)
+        cb, y = back.apply(cb, z)
+        ys.append(y)
+    sf, sb = front.compile_chunked("unroll"), back.compile_chunked("unroll")
+    cf2, cb2, ys2 = front.init_carry(cuda), back.init_carry(cuda), []
+    for k in (0, 4):
+        cf2, zs = sf(cf2, tuple(xs[k:k + 4]))
+        cb2, y4 = sb(cb2, zs)
+        ys2.extend(y4)
+    torch.cuda.synchronize()
+    for a, b_ in zip(ys2, ys):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(_leaves(cb2)[0], _leaves(cb)[0]):
+        assert torch.equal(a, b_)
+    assert sb.graphs and all(g.launches["deemph_int"] == 4
+                             for g in sb.graphs.values())
 
 
 def test_resamplers_card_match_cpu(cuda):

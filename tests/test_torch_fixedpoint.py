@@ -220,3 +220,64 @@ def test_q14_chain_matches_jax(rng):
     np.testing.assert_array_equal(outs["libsdr_tpu_torch"],
                                   outs["libsdr_tpu"])
     assert np.abs(outs["libsdr_tpu_torch"]).max() > 100
+
+
+def deemph_blocks(rng, c, t, k=3):
+    """k blocks of (c, t) int16-range samples for FMDeemphInt: uniform over
+    the whole int16 range (so ``x - avg`` wraps often), with runs at the
+    edges -32768 and 32767 and jumps from one edge to the other."""
+    x = rng.integers(-32768, 32768, size=(c, k * t)).astype(np.int32)
+    edges = np.array([-32768, 32767, -32768, -32768, 32767, 32767, 0,
+                      -32768], np.int32)
+    for ch in range(c):
+        at = int(rng.integers(0, max(1, k * t - len(edges))))
+        x[ch, at:at + len(edges)] = edges[:k * t - at]
+    return [x[:, i * t:(i + 1) * t] for i in range(k)]
+
+
+@pytest.mark.parametrize("fs,c,t", [
+    (fs, c, t) for fs in (24_000.0, 48_000.0, 240_000.0)
+    for c, t in ((1, 1), (64, 7), (1, 2401), (64, 2401))]
+    + [(1000.0, 64, 7)])
+def test_deemph_int_plain_matches_jax(fs, c, t):
+    """FMDeemphInt's plain path (``deemph_int_plain``, what a CPU block
+    runs) bit for bit against JAX's lax.scan, with the carry across three
+    blocks, on inputs at the int16 edges; alpha 1 (1 kHz), 2 (24 kHz, the
+    Q14 chain's output rate: 240 kHz after decim 10), 4 and 19
+    (240 kHz)."""
+    blocks = deemph_blocks(np.random.default_rng(int(fs) + 7 * c + t), c, t)
+    outs = {}
+    for pkg, mod in ((J, jfx), (P, pfx)):
+        de = mod.FMDeemphInt()
+        de.bind(pkg.StreamSpec(np.float32, fs, t, channels=(c,)))
+        carry = de.init_carry() if pkg is J else de.init_carry("cpu")
+        ys = []
+        for xb in blocks:
+            xb = jnp.asarray(xb) if pkg is J else torch.from_numpy(xb)
+            carry, y = de.apply(carry, xb)
+            ys.append(np.asarray(y))
+        outs[pkg.__name__] = (np.concatenate(ys, -1), np.asarray(carry))
+        alpha = de._alpha
+    assert alpha == {1000.0: 1, 24_000.0: 2, 48_000.0: 4,
+                     240_000.0: 19}[fs]
+    for got, want in zip(outs["libsdr_tpu_torch"], outs["libsdr_tpu"]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_deemph_int_dispatch_and_launch_count():
+    """A CPU block takes the plain version and launches nothing; a carry on
+    another device than the block's is refused; leading stream axes pass
+    through."""
+    x = torch.from_numpy(deemph_blocks(np.random.default_rng(3), 6, 33,
+                                       k=1)[0]).reshape(2, 3, 33)
+    avg = torch.zeros((2, 3), dtype=torch.int32)
+    n = pfx.deemph_int.launches
+    a1, y1 = pfx.deemph_int(x, avg, 19)
+    a2, y2 = pfx.deemph_int_plain(x.reshape(6, 33), avg.reshape(6), 19)
+    assert pfx.deemph_int.launches == n
+    assert torch.equal(y1.reshape(6, 33), y2) and torch.equal(
+        a1.reshape(6), a2)
+    with pytest.raises(ValueError, match="alpha must be >= 1"):
+        pfx.deemph_int(x, avg, 0)
+    with pytest.raises(ValueError, match="carry on"):
+        pfx.deemph_int(x, avg.to("meta"), 19)

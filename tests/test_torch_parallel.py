@@ -67,7 +67,9 @@ def dryrun(request, tmp_path_factory):
     return request.param, lines, ranks
 
 
-@pytest.mark.parametrize("label", ["GSPMD fm bank", "halo spans a shard",
+@pytest.mark.parametrize("label", ["GSPMD fm bank", "GSPMD uneven time",
+                                   "GSPMD odd block refused",
+                                   "halo spans a shard",
                                    "halo FIR", "wideband P=3",
                                    "wideband P=8", "scanner (FM + ASK + PLL)",
                                    "multi-mode bank", "shard_map fm bank",
@@ -126,6 +128,46 @@ def test_shard_pipeline_step_matches_jax(dryrun):
     x = DR._complex(np.random.default_rng(1234), (n_ch, b))
     _, want = step(carry, place(x))
     assert _angle_ok(got, np.asarray(want))
+
+
+def test_shard_pipeline_step_uneven_time_matches_jax(dryrun):
+    """A block of 2,052 samples whose output (513 after decim 4) does not
+    split over 'time': the JAX package's GSPMD step places it ('ch', None)
+    on the same mesh (checked here on its 8 host devices), and so does the
+    port's step, every rank keeping the whole output time axis; the values
+    against JAX's within the angle bounds.  A block that does not split
+    over 'time' JAX refuses, and the dry run holds the port's refusal
+    ("GSPMD odd block refused")."""
+    from jax.sharding import PartitionSpec
+
+    from libsdr_tpu import Pipeline, StreamSpec
+    from libsdr_tpu.ops import FMDeemph, FMDemod, IQBaseBand
+    from libsdr_tpu.parallel.mesh import make_mesh, shard_pipeline_step
+
+    n, lines, ranks = dryrun
+    assert "out ('ch', None)" in lines["GSPMD uneven time"]
+    n_ch, fs, b = 16, 64_000.0, 2052
+    got = np.zeros((n_ch, b // 4), np.float32)
+    for r in ranks:
+        c0, c1, t0, t1 = r["gspmd_uneven_idx"]
+        assert (t0, t1) == (0, b // 4)
+        got[c0:c1, t0:t1] = r["gspmd_uneven"]
+
+    def jax_step(block):
+        p = Pipeline([IQBaseBand(fc=fs / 8, width=fs / 5, order=16,
+                                 decim=4 if block % 4 == 0 else 1,
+                                 design="textbook"), FMDemod(), FMDeemph()])
+        p.bind(StreamSpec(np.complex64, fs, block, channels=(n_ch,)))
+        return shard_pipeline_step(p, make_mesh(n_channel=n // 2, n_time=2))
+
+    step, place, carry = jax_step(b)
+    x = DR._complex(np.random.default_rng(1234), (n_ch, b))
+    _, want = step(carry, place(x))
+    assert want.sharding.spec == PartitionSpec("ch", None)
+    assert _angle_ok(got, np.asarray(want))
+    step, place, carry = jax_step(2051)
+    with pytest.raises(ValueError):
+        place(DR._complex(np.random.default_rng(1), (n_ch, 2051)))
 
 
 @pytest.mark.parametrize("name", ["fm", "am"])
