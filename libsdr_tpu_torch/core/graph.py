@@ -27,6 +27,7 @@ from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.core.ragged import Ragged
 from libsdr_tpu_torch.core.stream import (ConfigError, RuntimeSDRError,
                                           StreamSpec)
+from libsdr_tpu_torch.utils.profiling import span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -89,9 +90,11 @@ class Pipeline(Processor):
 
     def apply(self, carry: Carry, x) -> Tuple[Carry, Any]:
         new_carries = []
-        for stage, c in zip(self.stages, carry):
-            c, x = stage.apply(c, x)
-            new_carries.append(c)
+        with span("pipeline"):
+            for stage, c in zip(self.stages, carry):
+                with span("stage:" + type(stage).__name__):
+                    c, x = stage.apply(c, x)
+                new_carries.append(c)
         return tuple(new_carries), x
 
     def compile(self):
@@ -332,12 +335,14 @@ class _GraphChunk:
                         _rebuild(self.x_struct, iter(self.x_in)))
 
     def __call__(self, carry, xs, clone: bool = True):
-        for s, v in zip(self.c_in, _leaves(carry)[0]):
-            s.copy_(v)
-        if not self.in_place:   # blocks on the host go straight in
-            for s, v in zip(self.x_in, _leaves(tuple(xs))[0]):
+        with span("chunked.copy_in"):
+            for s, v in zip(self.c_in, _leaves(carry)[0]):
                 s.copy_(v)
-        self.graph.replay()
+            if not self.in_place:   # blocks on the host go straight in
+                for s, v in zip(self.x_in, _leaves(tuple(xs))[0]):
+                    s.copy_(v)
+        with span("chunked.replay"):
+            self.graph.replay()
         self.replays += 1
         out = [v.clone() for v in self.out] if clone else list(self.out)
         return _rebuild(self.o_struct, iter(out))
@@ -362,6 +367,10 @@ class ChunkedStep:
         blocks'; host blocks for the card are copied into the graph's
         inputs).  ``clone=False`` returns the graph's own output tensors,
         valid until its next replay."""
+        with span("chunked.run"):
+            return self._run(carry, xs, clone, device)
+
+    def _run(self, carry, xs: tuple, clone: bool, device):
         leaves, _ = _leaves(xs)
         dev = leaves[0].device if device is None else torch.device(device)
         if dev.type != "cuda":
@@ -377,13 +386,15 @@ class ChunkedStep:
             if graph is None and sum(
                     len(k) == 4 and k[:3] == key
                     for k in self.graphs) < IN_PLACE_GRAPHS:
-                graph = self.graphs[at] = _GraphChunk(
-                    self.pipeline, carry, xs, dev, in_place=True)
+                with span("chunked.capture"):
+                    graph = self.graphs[at] = _GraphChunk(
+                        self.pipeline, carry, xs, dev, in_place=True)
         if graph is None:
             graph = self.graphs.get(key)
         if graph is None:
-            graph = self.graphs[key] = _GraphChunk(self.pipeline, carry, xs,
-                                                   dev)
+            with span("chunked.capture"):
+                graph = self.graphs[key] = _GraphChunk(self.pipeline, carry,
+                                                       xs, dev)
         return graph(carry, xs, clone)
 
     def graph_launches(self) -> Dict[str, int]:
@@ -443,7 +454,8 @@ class Tee(Processor):
     def apply(self, carry: Carry, x):
         new_carries, outs = [], []
         for b, c in zip(self.branches, carry):
-            c, y = b.apply(c, x)
+            with span("stage:" + type(b).__name__):
+                c, y = b.apply(c, x)
             new_carries.append(c)
             outs.append(y)
         return tuple(new_carries), tuple(outs)

@@ -111,6 +111,7 @@ from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.ops.fir import _conv1d, full_f32
 from libsdr_tpu_torch.ops.fsk import window_sum
 from libsdr_tpu_torch.ops.iir import iir_first_order
+from libsdr_tpu_torch.utils.profiling import spanned
 
 _PLANE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -180,6 +181,7 @@ def fir_fm_exact_plain(x: Complex, taps: Complex, stride: int,
     return _fm_plain(y, prev, rot, gain, deemph_ab, dstate), y[..., -1]
 
 
+@spanned("wrapper:fir_fm_exact")
 def fir_fm_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
                  prev: Complex, rot: complex, gain: float, deemph_ab=None,
                  dstate=None):
@@ -214,6 +216,7 @@ def fir_exact_plain(x: Complex, taps: Complex, stride: int,
     return _fir_y(x, taps, int(stride), tail)
 
 
+@spanned("wrapper:fir_exact")
 def fir_exact(x: Complex, taps: Complex, stride: int,
               tail: Complex) -> Complex:
     """Decimating complex FIR over one block: Complex (C, B/D) float32 y
@@ -232,6 +235,7 @@ def fir_am_exact_plain(x: Complex, taps: Complex, stride: int,
                      agc_ab, sd)
 
 
+@spanned("wrapper:fir_am_exact")
 def fir_am_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
                  gain: float, agc_ab=None, sd=None):
     """Fused FIR + AM envelope (+ AGC) over one block.
@@ -267,6 +271,7 @@ def fir_usb_exact_plain(x: Complex, taps: Complex, stride: int,
                                ramp), gain, agc_ab, sd)
 
 
+@spanned("wrapper:fir_usb_exact")
 def fir_usb_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
                   phasor: Complex, ramp: Complex, gain: float, agc_ab=None,
                   sd=None):
@@ -317,6 +322,7 @@ def fir_afsk_exact_plain(x: Complex, taps: Complex, stride: int,
     return sums[0] - sums[1], y_last, tails[0], tails[1]
 
 
+@spanned("wrapper:fir_afsk_exact")
 def fir_afsk_exact(x: Complex, taps: Complex, stride: int, tail: Complex,
                    prev: Complex, rot: complex, gain: float, mark: Complex,
                    space: Complex, n0, um_tail: Complex, us_tail: Complex):

@@ -67,6 +67,7 @@ from libsdr_tpu_torch.ops.fir_fm import (_MODE_AM, _MODE_FIR, _MODE_FM,
                                          _checked_planes, _chunks, _count,
                                          _fast, _fm_plain, _iir_operands,
                                          _plain, _ptr, _small, reset_counts)
+from libsdr_tpu_torch.utils.profiling import spanned
 
 _S = 128        # outputs per frame
 _NSP = 128      # invalid outputs at the end of fir_mxu's and fir_fm_mxu's y
@@ -123,6 +124,7 @@ def fir_mxu_plain(x: Complex, taps, stride: int, offset: int):
     return _y_plain(x, taps, int(stride), int(offset)), _NSP
 
 
+@spanned("wrapper:fir_mxu")
 def fir_mxu(x: Complex, taps, stride: int, offset: int):
     """All in-block FIR outputs, window start ``offset + j*stride``, of a
     (C, B) planar block (K5).
@@ -244,6 +246,7 @@ def fir_fm_mxu_plain(x: Complex, taps, stride: int, offset: int,
     return _fm_plain(y, prev, rot, gain, deemph_ab, state), _NSP
 
 
+@spanned("wrapper:fir_fm_mxu")
 def fir_fm_mxu(x: Complex, taps, stride: int, offset: int,
                lead_last: Complex, rot: complex, gain: float,
                deemph_ab=None, deemph_lead=None, mode: str = "fm"):

@@ -23,6 +23,7 @@ from libsdr_tpu_torch.core.block import Processor
 from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.core.stream import ConfigError, StreamSpec
 from libsdr_tpu_torch.ops.fir_fm import _check, _plain
+from libsdr_tpu_torch.utils.profiling import spanned
 
 
 def _w32(a: torch.Tensor) -> torch.Tensor:
@@ -325,6 +326,7 @@ class FMDeemphInt(Processor):
         return deemph_int(x, carry, self._alpha)
 
 
+@spanned("wrapper:deemph_int")
 def deemph_int(x: torch.Tensor, avg: torch.Tensor, alpha: int):
     """FMDeemphInt's recurrence over one block.
 

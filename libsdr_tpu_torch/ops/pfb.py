@@ -46,6 +46,7 @@ import torch
 from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.ops.fft import fft
 from libsdr_tpu_torch.ops.fir_fm import _check, _plain, _small, atan2_poly
+from libsdr_tpu_torch.utils.profiling import spanned
 
 _LANES = 128
 MAX_CHANNELS = 8192
@@ -144,6 +145,7 @@ def _unit_prev(x: Complex, m: int) -> Complex:
                    torch.zeros(lead + (1, m), device=x.re.device))
 
 
+@spanned("wrapper:pfb_mxu")
 def pfb_mxu(x: Complex, hist: Complex, taps3, m: int, gain: float = 1.0,
             prev: Complex = None, demod: bool = False, twiddles=None):
     """Fused PFB channelizer over framed wideband blocks.

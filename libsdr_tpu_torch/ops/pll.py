@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from libsdr_tpu_torch.ops.fir_fm import _check, _plain, _small
+from libsdr_tpu_torch.utils.profiling import spanned
 
 # The kernels' largest majority window (csrc/bitsync.cu, kMaxWindow).
 MAX_WINDOW = 896
@@ -270,6 +271,7 @@ def pll_plain(sym, signs, sym_sum, phase, omega, last_bits, *, omega_min,
                       _lanes(signs.shape[1] + 1, m, torch.int32, dev))
 
 
+@spanned("wrapper:pll")
 def pll(sym, signs, sym_sum, phase, omega, last_bits, *, omega_min: float,
         omega_max: float, gain: float, transition: bool):
     """Majority vote + PLL over one block, every lane alike.
@@ -311,6 +313,7 @@ def pll_bank_plain(sym, signs, sym_sum, phase, omega, last_bits, *,
                       _lanes(transition, m, torch.int32, dev), ell)
 
 
+@spanned("wrapper:pll_bank")
 def pll_bank(sym, signs, sym_sum, phase, omega, last_bits, *, omega_min,
              omega_max, gain, transition, ell):
     """Majority vote + PLL with per-lane parameters, in one pass over time.

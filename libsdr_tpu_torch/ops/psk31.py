@@ -45,6 +45,7 @@ from libsdr_tpu_torch.core.ragged import Ragged
 from libsdr_tpu_torch.core.stream import ConfigError, StreamSpec
 from libsdr_tpu_torch.ops.fir_fm import _check, _plain, _small
 from libsdr_tpu_torch.ops.interpolate import NSTEPS, interpolation_bank
+from libsdr_tpu_torch.utils.profiling import spanned
 
 _SUPER = 64  # phase samples per symbol
 _F32 = np.float32
@@ -134,6 +135,7 @@ class BPSK31(Processor):
                                            emits.reshape(ch + (t,)))
 
 
+@spanned("wrapper:bpsk31_scan")
 def bpsk31_scan(x: Complex, carry: dict, *, alpha, beta, df, omega_min,
                 omega_max, gain_mu, gain_omega):
     """BPSK31's recurrence over one block of a bank of C channels.

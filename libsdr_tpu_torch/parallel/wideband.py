@@ -44,6 +44,7 @@ from libsdr_tpu_torch.parallel.distributed import place_global, rank_device
 from libsdr_tpu_torch.parallel.halo import (Axis, all_to_all,
                                             last_shard_tail, mesh_axis,
                                             pass_right)
+from libsdr_tpu_torch.utils.profiling import span
 
 
 def channelize_local(x_local: Complex, hist: Complex, taps3, m: int,
@@ -260,18 +261,30 @@ def build_scanner_step(n_channels: int, block: int, fs_hz: float,
                            torch.zeros((), dtype=a.dtype,
                                        device=a.device)).sum(dim=1).to(a.dtype)
 
+    # the step and its compaction time the card's work too: an event pair
+    # costs tens of us of host time under the profiler, and no reader
+    # takes the other stages' device time from a span
+    card = dev.type == "cuda"
+
     def step(carry, x):
-        wb_carry, bsc = carry
-        wb_carry, audio = _wideband_body(wb_carry, x, taps3, m, p, ax,
-                                         reorder=False, twiddles=tw)
-        _, sym = ask.apply((), audio)
-        bsc, bits = bs.apply(bsc, sym)
-        valid = bits.valid
-        data = window_rows(bits.data, valid)[..., cols].transpose(0, 1)
-        vw = window_rows(valid, valid)[..., cols].transpose(0, 1)
-        if packed:
-            return (wb_carry, bsc), data | (vw.to(torch.uint8) << 1)
-        return (wb_carry, bsc), Ragged(data, vw)
+        with span("scanner.step", card):
+            wb_carry, bsc = carry
+            with span("scanner.channelize"):
+                wb_carry, audio = _wideband_body(wb_carry, x, taps3, m, p,
+                                                 ax, reorder=False,
+                                                 twiddles=tw)
+            with span("scanner.ask"):
+                _, sym = ask.apply((), audio)
+            with span("scanner.pll"):
+                bsc, bits = bs.apply(bsc, sym)
+            with span("scanner.compact", card):
+                valid = bits.valid
+                data = window_rows(bits.data, valid)[..., cols].transpose(
+                    0, 1)
+                vw = window_rows(valid, valid)[..., cols].transpose(0, 1)
+                out = (data | (vw.to(torch.uint8) << 1) if packed
+                       else Ragged(data, vw))
+        return (wb_carry, bsc), out
 
     wb_init, place_input = _wideband_carry_and_place(m, p, mesh, axis, dev,
                                                      plane_dtype)
