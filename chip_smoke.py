@@ -21,7 +21,9 @@ its own line; the first failure exits non-zero:
    2-896, 1-1000 lanes, both bit mappings and widened bounds, blocks of
    1-2056 steps, every lanes-per-warp layout of the serial pass, 4,096 to
    65,536 lanes at the layout the lane cut gives them, and a block with no
-   emit; K4 (the
+   emit; the scanner's windowed compaction (``csrc/window_pack.cu``) bit
+   for bit at the pager cell's shape, the scanner app's and the edges of
+   its routes, timed at the cell's shape; K4 (the
    polyphase channelizer, ``csrc/pfb.cu``) against ``pfb_plain`` over M
    8-4096 (the FFT and, at M = 1000, the direct DFT), P 1/8/32, F 1-4096,
    C 1/3, both variants and plane dtypes, on both routes (the stream
@@ -1131,6 +1133,26 @@ def phase_pll_parity(torch):
     return taken
 
 
+def phase_window_pack(torch, smi):
+    """The scanner's windowed compaction kernel (``csrc/window_pack.cu``)
+    bit for bit against its plain version at every shape of
+    ``tools/window_pack_times.PARITY`` (the pager cell's, the scanner
+    app's, T not a multiple of 16, every window of the vector route, a
+    window of 3, sums past 255, an input off 16-byte alignment), each on
+    the route its shape takes; then timed at the pager cell's shape (1024
+    x 65,536, w = 16, the lane map) beside its bound and the plain version
+    on the card."""
+    from libsdr_tpu_torch.tools import window_pack_times as WP
+
+    for label, equal, taken, want in WP.parity():
+        check(equal and taken == want,
+              f"window_pack {label}: {'bit-exact' if equal else 'DIFFERS'}"
+              f", route {taken} (expected {want})")
+    print(f"phase 3 parity window_pack: {len(WP.PARITY)} shapes bit-exact, "
+          "each on its route")
+    return WP.time_shape(*WP.TIMED[0], 50, smi)
+
+
 def pll_layouts(entry):
     """The serial pass's layouts an entry's launches took since its counts
     were last set to 0: {lanes per warp: launches}."""
@@ -1741,8 +1763,9 @@ def phase_w1(torch, gen, smi):
         counts = counts_now(entries)
         layouts = pll_layouts(pll)
         k4_routes = dict(pfb_mxu.routes)
-        check(counts["pfb_mxu"] == 2 and counts["pll"] == 2 and all(
-            v == 0 for k, v in counts.items() if k not in ("pfb_mxu", "pll")),
+        on_path = ("pfb_mxu", "pll", "window_pack")
+        check(all(counts[k] == 2 for k in on_path) and all(
+            v == 0 for k, v in counts.items() if k not in on_path),
             f"W1 {plane} launches {counts}")
         check(k4_routes == {"generic": 0, "stream": 2},
               f"W1 {plane}: K4 routes {k4_routes}")
@@ -3740,13 +3763,13 @@ def all_entries():
     from libsdr_tpu_torch.ops import fir_fm as F
     from libsdr_tpu_torch.ops import fir_mxu as M
     from libsdr_tpu_torch.ops.pfb import pfb_mxu
-    from libsdr_tpu_torch.ops.pll import pll, pll_bank
+    from libsdr_tpu_torch.ops.pll import pll, pll_bank, window_pack
     from libsdr_tpu_torch.ops.fixedpoint import deemph_int
     from libsdr_tpu_torch.ops.psk31 import bpsk31_scan
 
     return (F.fir_fm_exact, F.fir_exact, F.fir_am_exact, F.fir_usb_exact,
             F.fir_afsk_exact, pll, pll_bank, pfb_mxu, M.fir_mxu,
-            M.fir_fm_mxu, bpsk31_scan, deemph_int)
+            M.fir_fm_mxu, bpsk31_scan, deemph_int, window_pack)
 
 
 def main() -> int:
@@ -3797,6 +3820,7 @@ def main() -> int:
     print(f"phase 3 parity K1e: max disc error {afsk_worst:.3e} of max "
           f"|disc| (bound {AFSK_BOUND:g})")
     pll_taken = phase_pll_parity(torch)
+    wp = phase_window_pack(torch, smi)
     k4_worst, k4_cases = phase_k4_parity(torch, gen)
     mxu_worst, mxu_cases = phase_mxu_parity(torch, gen)
     tc_worst, tc_cases = phase_tc_parity(torch, L, gen)
@@ -4017,6 +4041,14 @@ def main() -> int:
         replaces="libsdr_tpu/ops/pallas_bitsync.py:504",
         launches=p3["counts"]["pll_bank"], max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # the scanner's compaction at the pager cell's shape, with W1's launches
+    record.append(dict(
+        name="window_pack", route="cuda",
+        source="libsdr_tpu_torch/csrc/window_pack.cu",
+        replaces="libsdr_tpu/parallel/wideband.py:361",
+        launches=w1["f32"]["counts"]["window_pack"], max_abs_err=0.0,
+        ms=wp["ms"], plain_ms=wp["plain_ms"], bound_ms=wp["bound_ms"],
+        bound_by="bytes", library_ms=None, device_ms=wp["device_ms"]))
     # K4, each variant on the path that runs it: the demod variant at W1
     # (1024 x 65,536 frames, float32 planes), the channel variant at W2
     # (256 x 12,288 frames), each with that run's launches; ms with CUDA

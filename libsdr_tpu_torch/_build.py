@@ -179,6 +179,11 @@ def library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         i64, i64, i32, i32,  # C, T, alpha, half
         p]                   # stream
     lib.sdr_deemph_int.restype = i32
+    lib.sdr_window_pack.argtypes = [
+        p, p, p,             # in, rows (or null), out
+        i64, i64, i64, i64,  # M, C, T, w
+        p, ctypes.POINTER(ctypes.c_int)]  # stream, the route taken (out)
+    lib.sdr_window_pack.restype = i32
     lib.sdr_agc_chunks.argtypes = [i64, i64]
     lib.sdr_agc_chunks.restype = i32
     lib.sdr_cuda_error_string.argtypes = [i32]

@@ -251,11 +251,11 @@ def kernel_entries():
     from libsdr_tpu_torch.ops.fir_mxu import fir_fm_mxu, fir_mxu
     from libsdr_tpu_torch.ops.fixedpoint import deemph_int
     from libsdr_tpu_torch.ops.pfb import pfb_mxu
-    from libsdr_tpu_torch.ops.pll import pll, pll_bank
+    from libsdr_tpu_torch.ops.pll import pll, pll_bank, window_pack
     from libsdr_tpu_torch.ops.psk31 import bpsk31_scan
     return (fir_fm_exact, fir_exact, fir_am_exact, fir_usb_exact,
             fir_afsk_exact, fir_mxu, fir_fm_mxu, pfb_mxu, pll, pll_bank,
-            bpsk31_scan, deemph_int)
+            bpsk31_scan, deemph_int, window_pack)
 
 
 def _counts():

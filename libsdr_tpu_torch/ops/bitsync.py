@@ -73,6 +73,14 @@ class BitStream(Processor):
             last_bits=torch.zeros(ch, dtype=torch.int32, device=device))
 
     def apply(self, carry, x):
+        ch = tuple(x.shape[1:] if self.time_major else x.shape[:-1])
+        new_carry, out = self.apply_packed(carry, x)
+        return new_carry, _unpack(out, ch, self.time_major)
+
+    def apply_packed(self, carry, x):
+        """:meth:`apply` before the unpacking: (new carry, the PLL's (M,
+        T) uint8 bytes, bit | valid << 1), lanes first, M the product of
+        the channel axes."""
         x_c = x.movedim(0, -1) if self.time_major else x   # (ch..., T)
         ch, t = tuple(x_c.shape[:-1]), x_c.shape[-1]
         m = math.prod(ch)
@@ -85,7 +93,7 @@ class BitStream(Processor):
         new_carry = dict(signs=sg.reshape(ch + (-1,)), sym_sum=ss.reshape(ch),
                          phase=ph.reshape(ch), omega=om.reshape(ch),
                          last_bits=lb.reshape(ch))
-        return new_carry, _unpack(out, ch, self.time_major)
+        return new_carry, out
 
 
 def _unpack(out, ch, time_major=False) -> Ragged:

@@ -15,13 +15,16 @@ Entries:
 
 * :func:`pll`: every lane with the same parameters (the TPU kernel K2);
 * :func:`pll_bank`: per-lane omega bounds, gain, bit mapping and window L
-  (K3), so several BitStream configurations share one pass over time.
+  (K3), so several BitStream configurations share one pass over time;
+* :func:`window_pack`: the pager scanner's windowed compaction of those
+  bytes, the windows in channel order (``csrc/window_pack.cu``).
 
 Each dispatches on the device of ``sym``: a CPU tensor takes its plain
 PyTorch version (``*_plain``, beside it), a CUDA tensor launches the
-kernels of ``csrc/bitsync.cu`` or raises; each counts its calls of the
-kernels in ``<entry>.launches`` (one a call, for the five kernels it runs)
-and in ``<entry>.routes`` by the serial pass's lanes per warp.
+kernels of ``csrc/bitsync.cu`` (``csrc/window_pack.cu``) or raises; each
+counts its calls of the kernels in ``<entry>.launches`` (one a call, for
+the five kernels the PLL runs) and in ``<entry>.routes`` by the serial
+pass's lanes per warp (by the window kernel's route).
 
 :func:`pll_split` emulates the kernels' split on the CPU, step for step:
 the majority pass's bit masks (bn and crossed, one 32-bit word per 32
@@ -46,6 +49,7 @@ import ctypes
 import numpy as np
 import torch
 
+from libsdr_tpu_torch.core.ragged import Ragged, compact_windows
 from libsdr_tpu_torch.ops.fir_fm import _check, _plain, _small
 from libsdr_tpu_torch.utils.profiling import spanned
 
@@ -57,6 +61,9 @@ WORD_STEPS = 32
 CHUNK_WORDS = 32
 # The serial pass's layouts: lanes per warp.
 LANES_PER_WARP = (1, 2, 4, 8, 16, 32)
+# window_pack's routes, by csrc/window_pack.cu's number: 16-byte vectors
+# (T a multiple of 16, w a power of two up to 64), else a byte a load.
+WINDOW_ROUTES = ("vector", "bytes")
 
 
 def _majority_plain(sym, signs, sym_sum, ell):
@@ -349,6 +356,94 @@ pll.launches = 0
 pll_bank.launches = 0
 pll.routes = dict.fromkeys(LANES_PER_WARP, 0)
 pll_bank.routes = dict.fromkeys(LANES_PER_WARP, 0)
+
+
+def window_pack_plain(out, window: int, rows=None):
+    """Plain PyTorch version of :func:`window_pack` (same arguments and
+    result): the bits and flags split, each window's masked sum and any
+    (``core/ragged.compact_windows``), the row gather and the packing."""
+    r = compact_windows(Ragged(out & 1, (out & 2) != 0), window)
+    data, valid = (r.data, r.valid) if rows is None else (r.data[rows],
+                                                          r.valid[rows])
+    return data | (valid.to(torch.uint8) << 1)
+
+
+@spanned("wrapper:window_pack")
+def window_pack(out, window: int, rows=None):
+    """The windows of the PLL's packed bytes, in one pass.
+
+    Args:
+      out: (M, T) uint8, lanes first, bit 0 the sampled bit and bit 1 its
+        valid flag (:func:`pll`'s first result).
+      window: w >= 1, dividing T.
+      rows: None, or (C,) integer row map within 0..M-1: output row c
+        reads input row ``rows[c]`` (on the card a map already there is
+        not range-checked: that would wait for the card).
+
+    Returns:
+      (C, T/w) uint8 (C = M without ``rows``): byte (c, j) is the sum,
+      wrapping mod 256, of bit * valid over the window's w steps of row
+      ``rows[c]``, or-ed with (any valid) << 1.  Where the PLL's bit gap
+      leaves at most one valid step a window (``core/ragged.min_valid_gap``)
+      that is the window's bit and flag, packed as the PLL packs them.
+
+    A CUDA tensor launches ``csrc/window_pack.cu`` (counted in
+    ``window_pack.launches`` and ``window_pack.routes``); a CPU tensor
+    takes :func:`window_pack_plain`.  The two agree bit for bit.
+    """
+    name = "window_pack"
+    if out.dtype != torch.uint8 or out.ndim != 2:
+        raise ValueError(f"{name}: out must be (M, T) uint8, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    m, t = out.shape
+    w = int(window)
+    if w < 1 or t % w:
+        raise ValueError(f"{name}: window {w} must be >= 1 and divide "
+                         f"T={t}")
+    if rows is not None:
+        rows = torch.as_tensor(rows)
+        if rows.ndim != 1 or rows.dtype.is_floating_point or \
+                rows.dtype == torch.bool:
+            raise ValueError(f"{name}: rows must be a 1-D integer map, got "
+                             f"{tuple(rows.shape)} {rows.dtype}")
+        if rows.device.type == "cpu" and rows.numel() and (
+                int(rows.min()) < 0 or int(rows.max()) >= m):
+            raise ValueError(f"{name}: rows outside 0..{m - 1}")
+        rows = rows.to(out.device, torch.int64)
+    if _plain(out, name):
+        return window_pack_plain(out, w, rows)
+    return _launch_window_pack(out, w, rows)
+
+
+# Kernel launches, counted where they happen, in all and by route.
+window_pack.launches = 0
+window_pack.routes = dict.fromkeys(WINDOW_ROUTES, 0)
+
+
+def _launch_window_pack(out, w, rows):
+    """One launch of csrc/window_pack.cu's sdr_window_pack."""
+    from libsdr_tpu_torch import _build
+
+    name = "window_pack"
+    m, t = out.shape
+    dev = out.device
+    src = out.contiguous()
+    c = m if rows is None else rows.shape[0]
+    y = torch.empty((c, t // w), dtype=torch.uint8, device=dev)
+    if y.numel() == 0:
+        return y
+    lib = _build.library()
+    route = ctypes.c_int(-1)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdr_window_pack(src.data_ptr(),
+                                 None if rows is None else rows.data_ptr(),
+                                 y.data_ptr(), m, c, t, w,
+                                 ctypes.c_void_p(stream), ctypes.byref(route))
+    _check(name, lib, rc)
+    window_pack.launches += 1
+    window_pack.routes[WINDOW_ROUTES[route.value]] += 1
+    return y
 
 
 def lanes_per_warp(m: int) -> int:

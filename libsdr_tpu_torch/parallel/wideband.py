@@ -36,6 +36,7 @@ from libsdr_tpu_torch.core.cplx import Complex
 from libsdr_tpu_torch.ops.channelizer import fold_commutator, prototype_lowpass
 from libsdr_tpu_torch.ops.pfb import (lane_of_channel, pfb_frames_plain,
                                       pfb_mxu, pfb_twiddles)
+from libsdr_tpu_torch.ops.pll import window_pack
 # K4's route for a segment, the shape alone deciding: WidebandFM's stage
 # and the channelizer's share it.
 from libsdr_tpu_torch.ops.wideband_rx import \
@@ -224,8 +225,9 @@ def build_scanner_step(n_channels: int, block: int, fs_hz: float,
     = data and bit 1 = valid.  T' = B/M, or B/M/compact_window when
     ``compact_window`` > 0: the PLL emits bits at least ``min_valid_gap``
     samples apart, so any window up to that gap losslessly decimates the
-    bit stream on the device.  It must divide B/M and not exceed the
-    gap."""
+    bit stream on the device, in one pass over the PLL's packed bytes that
+    also puts the windows in channel order (``ops/pll.window_pack``).  It
+    must divide B/M and not exceed the gap."""
     import libsdr_tpu_torch as L
     from libsdr_tpu_torch.core.ragged import Ragged, min_valid_gap
     from libsdr_tpu_torch.ops import ASKDetector, BitStream
@@ -246,20 +248,12 @@ def build_scanner_step(n_channels: int, block: int, fs_hz: float,
             raise ValueError(
                 f"compact_window {w} exceeds the PLL's guaranteed bit gap "
                 f"{min_valid_gap(bs)}: bits could be lost")
-    # one rank: the channel permutation applies to the windowed bits
-    cols = (torch.as_tensor(lane_of_channel(m), device=dev)
-            if ax.size == 1 else slice(None))
-
-    def window_rows(a, fill):
-        # (T, C) time-major -> (T/w, C): at most one valid item a window
-        if not w:
-            return a
-        aw = a.reshape((a.shape[0] // w, w) + tuple(a.shape[1:]))
-        if a.dtype == torch.bool:
-            return aw.any(dim=1)
-        return torch.where(fill.reshape(aw.shape), aw,
-                           torch.zeros((), dtype=a.dtype,
-                                       device=a.device)).sum(dim=1).to(a.dtype)
+    # one rank: the channel permutation applies to the windowed bits (row
+    # c of the windows read from lane lane_of_channel(m)[c]); over n ranks
+    # the channels are in order after the all_to_all
+    rows = (torch.as_tensor(lane_of_channel(m), device=dev)
+            if ax.size == 1 else None)
+    cols = slice(None) if rows is None else rows
 
     # the step and its compaction time the card's work too: an event pair
     # costs tens of us of host time under the profiler, and no reader
@@ -276,14 +270,19 @@ def build_scanner_step(n_channels: int, block: int, fs_hz: float,
             with span("scanner.ask"):
                 _, sym = ask.apply((), audio)
             with span("scanner.pll"):
-                bsc, bits = bs.apply(bsc, sym)
+                if w:
+                    bsc, raw = bs.apply_packed(bsc, sym)
+                else:
+                    bsc, bits = bs.apply(bsc, sym)
             with span("scanner.compact", card):
-                valid = bits.valid
-                data = window_rows(bits.data, valid)[..., cols].transpose(
-                    0, 1)
-                vw = window_rows(valid, valid)[..., cols].transpose(0, 1)
-                out = (data | (vw.to(torch.uint8) << 1) if packed
-                       else Ragged(data, vw))
+                if w:
+                    y = window_pack(raw, w, rows=rows)
+                    out = y if packed else Ragged(y & 1, y >= 2)
+                else:
+                    data = bits.data[..., cols].transpose(0, 1)
+                    valid = bits.valid[..., cols].transpose(0, 1)
+                    out = (data | (valid.to(torch.uint8) << 1) if packed
+                           else Ragged(data, valid))
         return (wb_carry, bsc), out
 
     wb_init, place_input = _wideband_carry_and_place(m, p, mesh, axis, dev,

@@ -24,6 +24,7 @@ from libsdr_tpu_torch.ops import (FIRFilter, FMDeemph, FMDemod, IQBaseBand,
                                   siggen)
 from libsdr_tpu_torch.ops import fir_fm as F
 from libsdr_tpu_torch.ops.fir_fm import fir_fm_exact, fir_fm_exact_plain
+from libsdr_tpu_torch.tools import window_pack_times as WP
 
 pytestmark = pytest.mark.cuda
 
@@ -845,6 +846,77 @@ def test_wideband_apps_on_card_match_cpu(cuda):
     assert {ch: (mo, str(d)) for ch, (mo, d) in got.items()} == \
         {ch: (mo, str(d)) for ch, (mo, d) in want.items()}
     assert set(got) == set(active)
+
+
+# -- the scanner's windowed compaction (csrc/window_pack.cu) ---------------
+
+@pytest.mark.parametrize("case", WP.PARITY, ids=lambda c: c[0])
+def test_window_pack_kernel_matches_plain(cuda, case):
+    """The kernel bit for bit its plain version on PLL bytes with 2-3 valid
+    items in a window (tools/window_pack_times.PARITY: the pager cell's
+    shape, the scanner app's, T not a multiple of 16, every window of the
+    vector route, a window of 3, sums past 255, an input off 16-byte
+    alignment), on the route its shape takes, one launch a call."""
+    from libsdr_tpu_torch.ops.pll import window_pack, window_pack_plain
+
+    label, m, t, w, rows = case
+    x, raw, r = WP.operands(m, t, rows, m * t + w, cuda)
+    route = WP.route_of(t, w, rows != "offset")
+    n, k = window_pack.launches, window_pack.routes[route]
+    got = window_pack(x, w, rows=None if r is None else r.to(cuda))
+    torch.cuda.synchronize()
+    assert window_pack.launches == n + 1
+    assert window_pack.routes[route] == k + 1
+    assert torch.equal(got.cpu(), window_pack_plain(raw, w, r))
+
+
+def test_scanner_step_compacts_in_one_launch(cuda, monkeypatch):
+    """At the pager cell's shape (1024 channels, 2^26-sample blocks, w =
+    16) one step launches window_pack once, on the vector route; at a
+    small shape the step's packed and Ragged outputs are, byte for byte,
+    the CPU's plain path on the PLL bytes the step made."""
+    from libsdr_tpu_torch.ops.pll import window_pack, window_pack_plain
+    from libsdr_tpu_torch.parallel import wideband as pwb
+
+    def band(n, seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        return Complex(torch.randn(n, generator=g, device=cuda),
+                       torch.randn(n, generator=g, device=cuda))
+
+    m, b = 1024, 1 << 26
+    step, init, place = pwb.build_scanner_step(
+        m, b, m * 25_000.0, compact_window=16, packed=True, device=cuda)
+    c = init()
+    x = place(band(b, 7))
+    n, v = window_pack.launches, window_pack.routes["vector"]
+    c, y = step(c, x)
+    torch.cuda.synchronize()
+    assert window_pack.launches == n + 1
+    assert window_pack.routes["vector"] == v + 1
+    assert tuple(y.shape) == (m, b // m // 16)
+    del step, c, x, y
+    torch.cuda.empty_cache()
+
+    calls = []
+
+    def spy(raw, w, rows=None):
+        calls.append((raw.clone(), w, rows))
+        return window_pack(raw, w, rows=rows)
+    monkeypatch.setattr(pwb, "window_pack", spy)
+    m, b = 256, 256 * 14_000
+    x = band(b, 8)
+    for packed in (True, False):
+        step, init, place = pwb.build_scanner_step(
+            m, b, m * 24_000.0, compact_window=16, packed=packed,
+            device=cuda)
+        _, y = step(init(), place(x))
+        raw, w, rows = calls.pop()
+        want = window_pack_plain(raw.cpu(), w, rows.cpu())
+        if packed:
+            assert torch.equal(y.cpu(), want)
+        else:
+            assert torch.equal(y.data.cpu(), want & 1)
+            assert torch.equal(y.valid.cpu(), want >= 2)
 
 
 # -- slice 5: the v1 FIR (K5) and its FM/AM epilogues (K6) -----------------
