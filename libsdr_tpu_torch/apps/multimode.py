@@ -61,6 +61,7 @@ from libsdr_tpu_torch.ops.psk31 import BPSK31
 from libsdr_tpu_torch.utils import logging as sdrlog
 from libsdr_tpu_torch.utils.options import (add_source_args, common_parser,
                                             device_of, load_source)
+from libsdr_tpu_torch.utils.profiling import span
 
 MODES = ("pocsag", "ax25", "rtty", "psk31")
 
@@ -128,13 +129,15 @@ def pack_bank_outputs(outs) -> torch.Tensor:
     """Every mode's Ragged planes as ONE flat uint8 tensor, so a consumer
     pays one device->host copy per block.  Order: sorted(mode) x (data,
     valid); invert with :func:`unpack_bank_outputs` and
-    :func:`bank_output_layout`."""
-    parts = []
-    for mo in sorted(outs):
-        r = outs[mo]
-        parts.append(r.data.to(torch.uint8).reshape(-1))
-        parts.append(r.valid.to(torch.uint8).reshape(-1))
-    return torch.cat(parts)
+    :func:`bank_output_layout`.  In the span ``multimode.pack`` (on a card
+    with the card's time)."""
+    with span("multimode.pack", next(iter(outs.values())).data.is_cuda):
+        parts = []
+        for mo in sorted(outs):
+            r = outs[mo]
+            parts.append(r.data.to(torch.uint8).reshape(-1))
+            parts.append(r.valid.to(torch.uint8).reshape(-1))
+        return torch.cat(parts)
 
 
 def bank_output_layout(outs):

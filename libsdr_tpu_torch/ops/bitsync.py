@@ -23,6 +23,7 @@ from libsdr_tpu_torch.core.block import Processor
 from libsdr_tpu_torch.core.ragged import Ragged, compact_windows
 from libsdr_tpu_torch.core.stream import StreamSpec
 from libsdr_tpu_torch.ops.pll import pll, pll_bank
+from libsdr_tpu_torch.utils.profiling import span
 
 NORMAL = "normal"          # mark -> 1, space -> 0
 TRANSITION = "transition"  # transition -> 0, no transition -> 1 (NRZI)
@@ -173,7 +174,16 @@ def apply_mode_chains(sub, carries, y, groups, windows):
     ``sub``: {mode: bound Pipeline}; ``carries``: {mode: carry};
     ``groups``: {mode: channel indices into y's leading axis}; ``windows``:
     {mode: compaction window (0 for none, see core/ragged.compact_windows)}.
-    Returns (outs, new_carries), both keyed by mode."""
+    Returns (outs, new_carries), both keyed by mode.
+
+    Spans (``utils/profiling.span``): ``multimode.chains`` around each
+    banked group's stages before its PLL, ``multimode.<mode>`` around each
+    group without a BitStream (PSK31's baseband and BPSK31),
+    ``multimode.pll`` around the banked PLL and ``multimode.compact``
+    around the groups' windowed compaction; on a card the last three time
+    the card's work too."""
+    card = y.re.device.type == "cuda"
+
     def take_rows(bank, idxs):
         # A round-robin mode pattern makes a group an arithmetic
         # progression: a strided slice instead of a row gather.
@@ -195,17 +205,22 @@ def apply_mode_chains(sub, carries, y, groups, windows):
         xm = take_rows(y, groups[mode])
         if isinstance(p.stages[-1], BitStream):
             new_pre = []
-            for stage, c in zip(p.stages[:-1], pc[:-1]):
-                c, xm = stage.apply(c, xm)
-                new_pre.append(c)
+            with span("multimode.chains"):
+                for stage, c in zip(p.stages[:-1], pc[:-1]):
+                    c, xm = stage.apply(c, xm)
+                    new_pre.append(c)
             banked.append((mode, p.stages[-1], pc[-1], xm, tuple(new_pre)))
         else:
-            new[mode], bits = p.apply(pc, xm)
-            outs[mode] = compacted(bits, mode)
+            with span("multimode." + mode, card):
+                new[mode], bits = p.apply(pc, xm)
+                outs[mode] = compacted(bits, mode)
     if banked:
-        results = bitstream_bank_apply(
-            [(bs, c, xm) for _, bs, c, xm, _ in banked])
-        for (mode, _, _, _, new_pre), (nc, bits) in zip(banked, results):
-            new[mode] = new_pre + (nc,)
-            outs[mode] = compacted(bits, mode)
+        with span("multimode.pll", card):
+            results = bitstream_bank_apply(
+                [(bs, c, xm) for _, bs, c, xm, _ in banked])
+        with span("multimode.compact", card):
+            for (mode, _, _, _, new_pre), (nc, bits) in zip(banked,
+                                                            results):
+                new[mode] = new_pre + (nc,)
+                outs[mode] = compacted(bits, mode)
     return outs, new

@@ -20,6 +20,10 @@ mesh axis, laid out as ``parallel/wideband.py``:
 
 On one rank it is the one-device bank (``apps/multimode.build_bank`` with
 the pattern's map), bit for bit.
+
+Spans (``utils/profiling.span``): ``multimode.step`` around the step (on a
+card with the card's time), ``multimode.channelize`` around the first two
+stages, and inside the third those of ``ops/bitsync.apply_mode_chains``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from libsdr_tpu_torch.core import cplx
 from libsdr_tpu_torch.parallel.wideband import (_history, _setup,
                                                 channelize_local)
+from libsdr_tpu_torch.utils.profiling import span
 
 
 def build_multimode_step(n_channels: int, block: int, fs_hz: float,
@@ -77,16 +82,23 @@ def build_multimode_step(n_channels: int, block: int, fs_hz: float,
     groups = {mode: np.concatenate([d * g + idxs for d in range(n)])
               .astype(np.int32) for mode, idxs in loc_groups.items()}
 
+    card = dev.type == "cuda"
+
     def step(carry, x_local):
-        hist_g, carries = carry
-        hist, new_hist = _history(hist_g, x_local, m, p, ax)
-        y = channelize_local(x_local, hist, taps3, m, p, twiddles=tw)
-        # (M, t/n) time-sharded -> (M/n, t_full) channel-sharded
-        y = all_to_all(y, ax, split_axis=0, concat_axis=1)
-        outs, new_c = apply_mode_chains(sub, carries, y, loc_groups,
-                                        windows)
+        with span("multimode.step", card):
+            hist_g, carries = carry
+            with span("multimode.channelize"):
+                hist, new_hist = _history(hist_g, x_local, m, p, ax)
+                y = channelize_local(x_local, hist, taps3, m, p,
+                                     twiddles=tw)
+                # (M, t/n) time-sharded -> (M/n, t_full) channel-sharded
+                y = all_to_all(y, ax, split_axis=0, concat_axis=1)
+            outs, new_c = apply_mode_chains(sub, carries, y, loc_groups,
+                                            windows)
         return (new_hist, new_c), outs
 
+    # the step's own filter and chains, for a caller that checks a stage
+    step.parts = {"taps3": taps3, "twiddles": tw, "chains": sub}
     in_dtype = plane_dtype if plane_dtype is not None else torch.float32
 
     def init_carry():

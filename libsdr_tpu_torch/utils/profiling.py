@@ -22,7 +22,12 @@ The program's spans, by layer: ``pipeline`` (``Pipeline.apply``),
 ``scanner.channelize`` / ``scanner.ask`` / ``scanner.pll`` /
 ``scanner.compact`` (``parallel/wideband.build_scanner_step``; the step
 and the compaction with CUDA event pairs on the card, so ``summary()``
-gives their device time), ``stage:<Class>``
+gives their device time), ``multimode.step`` with ``multimode.channelize``
+/ ``multimode.chains`` / ``multimode.pll`` / ``multimode.psk31`` /
+``multimode.compact`` (``parallel/multimode.build_multimode_step`` and
+``ops/bitsync.apply_mode_chains``) and ``multimode.pack``
+(``apps/multimode.pack_bank_outputs``; all but the channelizer and the
+chains with event pairs on the card), ``stage:<Class>``
 around each stage of a ``Pipeline`` or ``Tee``, and ``wrapper:<entry>``
 around each kernel wrapper of ``core/graph.kernel_entries()``.
 """
